@@ -1,0 +1,82 @@
+"""Host-side mesh topology (numpy) — a copy of the triangle half of
+``positionbaseddynamics_tpu/models/mesh.py`` (``IndexedFaceMesh``): edge
+and adjacency extraction, run once at scene-build time. Edge order is
+face-major first-occurrence, as in the reference's per-face enumeration.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+
+def _unique_edges(halfedges: np.ndarray):
+    """Deduplicate (a, b) pairs keeping first-occurrence order and original
+    orientation. Returns ``(edges (E,2), edge_id (H,), first_he (E,))``."""
+    key = np.sort(halfedges, axis=1)
+    _, first_idx, inv = np.unique(key, axis=0, return_index=True,
+                                  return_inverse=True)
+    order = np.argsort(first_idx, kind="stable")
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    edge_id = rank[inv.reshape(-1)]          # halfedge → edge (appearance order)
+    first_he = np.sort(first_idx)
+    return halfedges[first_he].astype(np.int32), edge_id, first_he
+
+
+@dataclass
+class TriangleMesh:
+    """Indexed triangle mesh with edge topology: ``edges (E, 2)`` vertex
+    pairs, ``edge_faces (E, 2)`` adjacent face ids (−1 on the boundary),
+    as ``IndexedFaceMesh::buildNeighbors``; optional ``uvs (T, 2)`` and
+    ``uv_indices (F, 3)`` texture coordinates."""
+
+    n_vertices: int
+    faces: np.ndarray              # (F, 3) int32
+    uvs: np.ndarray = None         # (T, 2) float32 or None
+    uv_indices: np.ndarray = None  # (F, 3) int32 or None
+    edges: np.ndarray = field(init=False)
+    edge_faces: np.ndarray = field(init=False)
+
+    def __post_init__(self):
+        self.faces = np.asarray(self.faces, np.int32).reshape(-1, 3)
+        if self.uvs is not None and len(np.asarray(self.uvs)):
+            self.uvs = np.asarray(self.uvs, np.float32).reshape(-1, 2)
+            if self.uv_indices is not None and len(
+                    np.asarray(self.uv_indices)):
+                self.uv_indices = np.asarray(
+                    self.uv_indices, np.int32).reshape(-1, 3)
+            else:
+                self.uv_indices = None
+        else:
+            self.uvs = None
+            self.uv_indices = None
+        f = self.faces
+        n_f = len(f)
+        # face-major halfedge order: (v0,v1), (v1,v2), (v2,v0) per face
+        he = np.stack([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]],
+                      axis=1).reshape(-1, 2)
+        self.edges, edge_id, first_he = _unique_edges(he)
+        hf = np.repeat(np.arange(n_f, dtype=np.int32), 3)
+        n_e = len(self.edges)
+        ef = np.full((n_e, 2), -1, np.int32)
+        ef[:, 0] = hf[first_he]
+        is_first = np.zeros(len(he), bool)
+        is_first[first_he] = True
+        rest = ~is_first
+        ef[edge_id[rest], 1] = hf[rest]
+        self.edge_faces = ef
+
+    def bending_stencils(self) -> np.ndarray:
+        """Interior-edge stencils ``(p0, p1, p2, p3)`` — p0/p1 the flap
+        vertices opposite the shared edge (p2, p3) — in the order
+        ``SimulationModel::addBendingConstraints`` emits them."""
+        interior = (self.edge_faces[:, 0] >= 0) & (self.edge_faces[:, 1] >= 0)
+        e = self.edges[interior]
+        f0 = self.faces[self.edge_faces[interior, 0]]
+        f1 = self.faces[self.edge_faces[interior, 1]]
+        # the flap vertex is the face's third vertex: sum(face) − a − b
+        a, b = e[:, 0].astype(np.int64), e[:, 1].astype(np.int64)
+        p0 = f0.astype(np.int64).sum(1) - a - b
+        p1 = f1.astype(np.int64).sum(1) - a - b
+        return np.stack([p0, p1, a, b], axis=1).astype(np.int32)

@@ -1,0 +1,3 @@
+"""Stateless kernels on tensors (port of ``positionbaseddynamics_tpu.ops``)."""
+
+from . import integration

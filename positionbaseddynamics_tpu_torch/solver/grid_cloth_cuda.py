@@ -1,0 +1,325 @@
+"""Fused XPBD cloth substep as a hand-written CUDA kernel for Hopper —
+the counterpart of ``positionbaseddynamics_tpu/solver/grid_cloth_pallas.py``
+(``make_pallas_cloth_step``).
+
+One launch of ``csrc/grid_cloth_step.cu`` runs one substep of a regular
+H×W XPBD cloth for every rollout of a batch: integrate, ``max_iterations``
+Jacobi passes of the 3 distance and the 3 rank-1 isometric-bending
+families, velocity update, damping. A substep of more than
+``FUSED_ITERATIONS`` iterations takes one launch for each such share of
+them. The state travels as component planes
+``(B, 3, H, W)``: :func:`make_cloth_step` converts ``(x, v)`` to planes once
+per call and back once at the end.
+
+Beside the kernel sits its plain PyTorch version,
+:func:`cloth_substep_reference`, composed of the ported integration
+functions and :meth:`GridClothBatch.project`. The CPU tests run it, and
+the card's smoke run holds the kernel against it. The step function that
+:func:`make_cloth_step` returns takes the plain version for CPU tensors
+only; for CUDA tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import _build
+from .._device import resolve_device
+from ..ops import integration
+from .grid_cloth import _DIST_FAMILIES, GridClothBatch, _helper_grid
+
+Tensor = torch.Tensor
+
+N_PARAMS = 40                   # floats in the kernel's Params struct
+# Iterations one launch holds: a 32×16 tile with its halo of 3·iterations
+# fills 188 KB of shared memory at 4. A substep with more iterations takes
+# several launches, which carry the positions and λ between them.
+FUSED_ITERATIONS = 4
+_BEND_ORDER = ("bh", "bv", "bd")
+
+
+def _family_rest(batch: GridClothBatch, fam) -> Optional[float]:
+    r = batch.rest[fam]
+    return float(r) if r.dim() == 0 else None
+
+
+def _family_svec(batch: GridClothBatch, fam):
+    """Rank-1 bending S vectors of a family as ``(S where helper = 1,
+    S where helper = 0)``, or None when a parity class is not uniform
+    (``grid_cloth_pallas.py:67-99``). On a regular grid the stencils of a
+    family fall into two congruence classes, mirror images across the
+    quad diagonal."""
+    s = batch.q_mat[fam].detach().cpu().numpy().astype(np.float32)
+    if s.ndim == 1:
+        sv = [float(v) for v in s]
+        return sv, sv
+    h, w = batch.height, batch.width
+    helper = np.zeros((h, w), bool)
+    helper[:h - 1, :w - 1] = _helper_grid(h, w)
+    par = {"bh": helper[1:h - 1, :w - 1], "bv": helper[:h - 1, 1:w - 1],
+           "bd": helper[:h - 1, :w - 1]}[fam]
+    if par.shape != s.shape[:2]:
+        return None
+    out = []
+    for m in (par, ~par):
+        rows = s[m]
+        if rows.size == 0:
+            out.append([0.0, 0.0, 0.0, 0.0])
+            continue
+        mean = rows.mean(axis=0, dtype=np.float64)
+        if not np.all(np.abs(rows - mean)
+                      <= 1e-4 * np.maximum(np.abs(mean), 1e-12) + 1e-6):
+            return None
+        out.append([float(v) for v in mean])
+    return out[0], out[1]
+
+
+def unsupported_reason(batch: GridClothBatch) -> Optional[str]:
+    """Why the kernel cannot run this batch, or None when it can. The
+    same preconditions as the TPU kernel (``grid_cloth_pallas.py:58-99,
+    166-171``)."""
+    if batch.offset != 0:
+        return "the cloth kernel expects the cloth at particle offset 0"
+    if not (batch.has_distance and batch.has_bending):
+        return "the cloth kernel expects distance and bending families"
+    if not (batch.xpbd_distance and batch.xpbd_bending):
+        return "the cloth kernel runs XPBD families only"
+    if any(_family_rest(batch, f) is None for f in _DIST_FAMILIES):
+        return "the cloth kernel requires uniform rest lengths"
+    if any(f not in batch.q_mat or _family_svec(batch, f) is None
+           for f in _BEND_ORDER):
+        return ("the cloth kernel requires per-parity-uniform bending "
+                "stencils")
+    return None
+
+
+def _alpha(stiff: float, h: np.float32) -> np.float32:
+    """XPBD compliance ``1/(k·h²)`` in float32, in the order the plain
+    version computes it; 0 where ``k = 0``."""
+    k = np.float32(stiff)
+    return np.float32(0.0) if k == 0 else np.float32(1.0) / (k * h * h)
+
+
+def kernel_params(batch: GridClothBatch, *, h: float, gravity=(0.0, -9.81, 0.0),
+                  damping: float = 0.0) -> np.ndarray:
+    """The kernel's host-side scalars as ``N_PARAMS`` float32 values, in
+    the layout of ``struct Params`` in ``csrc/grid_cloth_step.cu``. Raises
+    NotImplementedError for a batch the kernel cannot run."""
+    reason = unsupported_reason(batch)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    h32 = np.float32(h)
+    p = np.zeros((N_PARAMS,), np.float32)
+    p[0:3] = [_family_rest(batch, f) for f in _DIST_FAMILIES]
+    p[3:6] = [_alpha(float(batch.stiff[f]), h32) for f in _DIST_FAMILIES]
+    svec = [_family_svec(batch, f) for f in _BEND_ORDER]
+    p[6:18] = np.ravel([se for se, _ in svec])
+    p[18:30] = np.ravel([so for _, so in svec])
+    p[30:33] = [_alpha(float(batch.bend_stiff[f]), h32) for f in _BEND_ORDER]
+    p[33] = h32
+    p[34:37] = np.asarray(gravity, np.float32)
+    p[37] = np.float32(1.0 - damping)
+    p[38] = 1.0 if damping else 0.0
+    return p
+
+
+def to_planes(a: Tensor, height: int, width: int) -> Tensor:
+    """``(..., H·W, 3)`` → contiguous component planes ``(B, 3, H, W)``."""
+    return a.reshape(-1, height, width, 3).permute(0, 3, 1, 2).contiguous()
+
+
+def from_planes(p: Tensor, lead) -> Tensor:
+    """Component planes ``(B, 3, H, W)`` → ``lead + (H·W, 3)``."""
+    return p.permute(0, 2, 3, 1).reshape(*lead, -1, 3)
+
+
+def _bind(lib):
+    fn = lib.pbd_cloth_substep
+    if getattr(fn, "_pbd_bound", False):
+        return fn
+    vp = ctypes.c_void_p
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, vp,
+                   vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, vp]
+    fn.restype = ctypes.c_int
+    lib.pbd_error_string.argtypes = [ctypes.c_int]
+    lib.pbd_error_string.restype = ctypes.c_char_p
+    for name in ("pbd_cloth_param_count", "pbd_cloth_max_iterations"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    if (lib.pbd_cloth_param_count() != N_PARAMS
+            or lib.pbd_cloth_max_iterations() != FUSED_ITERATIONS):
+        raise RuntimeError("grid_cloth_step.cu and grid_cloth_cuda.py "
+                           "disagree on the kernel's parameter layout or "
+                           "iterations per launch")
+    fn._pbd_bound = True
+    return fn
+
+
+def _ptr(t: Optional[Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def cloth_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
+                       icb: Tensor, params: np.ndarray,
+                       max_iterations: int = 1):
+    """Run one substep through the fused kernel: one launch for up to
+    ``FUSED_ITERATIONS`` iterations, one more for each further such share.
+    ``xp``, ``vp``: ``(B, 3, H, W)`` float32 planes on one CUDA device;
+    ``w``: inverse masses ``(H, W)`` shared by the rollouts or ``(B, H,
+    W)``; ``icd``, ``icb``: ``(H, W)`` Jacobi weights; ``params`` from
+    :func:`kernel_params`. Returns new ``(xp, vp)`` buffers; the inputs are
+    left as they were. Counts its launches in
+    ``cloth_substep_cuda.launches``."""
+    if xp.device.type != "cuda":
+        raise ValueError("cloth_substep_cuda takes CUDA tensors; the plain "
+                         "version is cloth_substep_reference")
+    if xp.dim() != 4 or xp.shape[1] != 3 or vp.shape != xp.shape:
+        raise ValueError(f"expected (B, 3, H, W) planes, got {tuple(xp.shape)}"
+                         f" and {tuple(vp.shape)}")
+    b, _, h, wd = xp.shape
+    if w.dim() == 2:
+        w_bstride = 0
+    elif w.dim() == 3 and w.shape[0] == b:
+        w_bstride = h * wd
+    else:
+        raise ValueError(f"inverse-mass plane {tuple(w.shape)} does not fit "
+                         f"{b} rollouts")
+    for name, t in (("x", xp), ("v", vp), ("w", w), ("icd", icd),
+                    ("icb", icb)):
+        if t.device != xp.device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: expected float32 on {xp.device}, got "
+                             f"{t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if tuple(t.shape[-2:]) != (h, wd):
+            raise ValueError(f"{name}: plane shape {tuple(t.shape)} is not "
+                             f"(..., {h}, {wd})")
+    params = np.ascontiguousarray(params, np.float32)
+    if params.shape != (N_PARAMS,):
+        raise ValueError(f"params: expected ({N_PARAMS},), got {params.shape}")
+    if max_iterations < 1:
+        raise ValueError(f"max_iterations={max_iterations}: at least 1")
+    lib = _build.load("grid_cloth_step")
+    fn = _bind(lib)
+    x_cur = lam = vo = None
+    left = max_iterations
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream(xp.device).cuda_stream
+        while left:
+            k = min(left, FUSED_ITERATIONS)
+            left -= k
+            xo = torch.empty_like(xp)
+            if left:
+                lam_out = xp.new_empty((b, 6, h, wd))
+            else:
+                lam_out, vo = None, torch.empty_like(vp)
+            err = fn(xp.data_ptr(), vp.data_ptr(), _ptr(x_cur), _ptr(lam),
+                     xo.data_ptr(), _ptr(vo), _ptr(lam_out), w.data_ptr(),
+                     w_bstride, icd.data_ptr(), icb.data_ptr(),
+                     params.ctypes.data, b, h, wd, k, 0, h, stream)
+            if err != 0:
+                raise RuntimeError("cloth substep kernel launch failed: "
+                                   + lib.pbd_error_string(err).decode())
+            cloth_substep_cuda.launches += 1
+            x_cur, lam = xo, lam_out
+    return x_cur, vo
+
+
+cloth_substep_cuda.launches = 0
+
+
+def run_substeps(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
+                 icb: Tensor, params: np.ndarray, max_iterations: int,
+                 n: int):
+    """``n`` substeps through :func:`cloth_substep_cuda`. Returns the final
+    ``(xp, vp)`` planes and the inputs of the last and of the second-last
+    substep (``old_x`` and ``last_x`` of the stepper), None where there
+    was no such substep."""
+    old = last = None
+    for _ in range(n):
+        last, old = old, xp
+        xp, vp = cloth_substep_cuda(xp, vp, w, icd, icb, params,
+                                    max_iterations)
+    return xp, vp, old, last
+
+
+def cloth_substep_reference(batch: GridClothBatch, x: Tensor, v: Tensor,
+                            inv_mass: Tensor, *, h: float,
+                            max_iterations: int = 1,
+                            gravity=(0.0, -9.81, 0.0), damping: float = 0.0):
+    """The kernel's plain PyTorch version: one substep of ``_substep`` for
+    a scene that is this grid cloth alone, Jacobi with ``omega = 1``.
+    ``x``, ``v``: ``(..., N, 3)``; returns ``(x, v)``."""
+    g = torch.as_tensor(gravity, dtype=torch.float32, device=x.device)
+    xn, vn = integration.semi_implicit_euler(h, inv_mass, x, v,
+                                             g.expand_as(x))
+    lams = batch.init_lambda()
+    for _ in range(max_iterations):
+        xn, lams = batch.project(xn, inv_mass, lams, h)
+    vn = integration.velocity_update_first_order(h, inv_mass, xn, x, vn)
+    if damping:
+        vn = vn * (1.0 - damping)
+    return xn, vn
+
+
+def make_cloth_step(batch: GridClothBatch, inv_mass, inv_cnt_dist,
+                    inv_cnt_bend, *, dt: float, substeps: int,
+                    max_iterations: int = 1, gravity=(0.0, -9.81, 0.0),
+                    damping: float = 0.0, n_batch: int = 1, n_steps: int = 1,
+                    device=None):
+    """Build ``step(x, v) -> (x, v)`` that advances ``n_steps·substeps``
+    substeps, the counterpart of ``make_pallas_cloth_step``. ``x``, ``v``
+    are ``(N, 3)``, or ``(n_batch, N, 3)`` when ``n_batch > 1``; the
+    rollouts share every parameter. The batch must cover particles
+    ``[0, H·W)`` with uniform XPBD parameters, as for the TPU kernel.
+
+    On ``device`` (None means CUDA) the step launches the kernel once per
+    substep; given CPU tensors it runs :func:`cloth_substep_reference`."""
+    dev = resolve_device(device)
+    hgt, wid = batch.height, batch.width
+    n = hgt * wid
+    h = dt / substeps
+    params = kernel_params(batch, h=h, gravity=gravity, damping=damping)
+    if max_iterations < 1:
+        raise ValueError(f"max_iterations={max_iterations}: at least 1")
+    if batch.device != dev:
+        batch = batch.to(dev)
+
+    def plane(a, name):
+        t = torch.as_tensor(a, dtype=torch.float32, device=dev)
+        if t.numel() != n:
+            raise ValueError(f"{name}: {t.numel()} values for a "
+                             f"{hgt}x{wid} cloth")
+        return t.reshape(hgt, wid).contiguous()
+
+    w = plane(inv_mass, "inv_mass")
+    icd = plane(inv_cnt_dist, "inv_cnt_dist")
+    icb = plane(inv_cnt_bend, "inv_cnt_bend")
+    w_flat = w.reshape(n)
+    shape = (n, 3) if n_batch == 1 else (n_batch, n, 3)
+    n_sub = n_steps * substeps
+
+    def step(x: Tensor, v: Tensor):
+        if tuple(x.shape) != shape or tuple(v.shape) != shape:
+            raise ValueError(f"expected x, v of shape {shape}, got "
+                             f"{tuple(x.shape)} and {tuple(v.shape)}")
+        if x.device != dev or v.device != dev:
+            raise ValueError(f"step was built for {dev}; got tensors on "
+                             f"{x.device} and {v.device}")
+        if dev.type == "cuda":
+            lead = x.shape[:-2]
+            xp, vp, _, _ = run_substeps(
+                to_planes(x, hgt, wid), to_planes(v, hgt, wid), w, icd, icb,
+                params, max_iterations, n_sub)
+            return from_planes(xp, lead), from_planes(vp, lead)
+        for _ in range(n_sub):
+            x, v = cloth_substep_reference(
+                batch, x, v, w_flat, h=h, max_iterations=max_iterations,
+                gravity=gravity, damping=damping)
+        return x, v
+
+    return step
