@@ -10,13 +10,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 1. the card: its name, and its power limit as ``nvidia-smi`` reports it;
 2. build every CUDA kernel of the port from ``csrc/`` (``nvcc``, sm_90a);
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it: the fused cloth substep at 320×320 over
+   shapes the main paths give it: the fused cloth substep at 320×320 over
    10 steps (single rollout and 4 rollouts), and on a 67×53 grid with 3
    iterations and damping and with 6 iterations (two launches a substep);
-4. the main path through the public entry points: the 320×320 bench cloth
-   built by ``SceneBuilder`` on the card, ``make_step_fn`` → 200 steps,
-   with the kernels' launch counts read around that run alone; then its
-   steps/s and the card's busy share;
+   the fused tet substep on the 80×36×36 bench bar over 10 steps, at 5
+   iterations on the bar and on a 13×7×5 grid with damping, and at
+   stiffness 0;
+4. the main paths through the public entry points, each with every
+   kernel's launch count set to 0 just before it and read just after:
+   the 320×320 bench cloth and the 80×36×36 bench bar, each built by
+   ``SceneBuilder`` on the card, ``make_step_fn`` → 200 steps; then each
+   path's steps/s and the card's busy share;
 5. timings: each kernel per launch beside its plain version and its
    bound, and ``make_cloth_step`` at 1 and 4 rollouts in steps/s.
 
@@ -43,6 +47,7 @@ import torch
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 GRID = 320                      # the bench cloth (bench.py defaults)
+BAR = (80, 36, 36)              # the bench bar (bench.py --bar defaults)
 STEPS_MAIN = 200
 CHECK_TOL = 1e-5                # bench.py --check bar, kernel vs plain
 BATCH_TOL = 1e-6                # a batch's rollout vs the single rollout
@@ -57,6 +62,20 @@ N_WINDOWS = 5                   # timed windows per rate
 # recomputes are not counted: they are not work the function needs.
 FLOPS_FIXED = 12 + 9
 FLOPS_PER_ITERATION = 3 * 24 + 3 * 50 + 8 * 3 * 2 + 6 + 20 * 7 + 6
+
+# fp32 operations of the tet substep, counted from csrc/grid_tet_step.cu
+# (solve_tet): per tet and iteration, edge vectors 9, F 45, strain 39,
+# trace 2 + 1, stress input 12, stress 45, energy 17 + 4 + 1, gradients
+# 63, C 3, denominator 30, delta-lambda 11, corrections 28; per cell and
+# iteration the vertex pass adds each of its 24 sums once; per vertex and
+# iteration x + inv_cnt * dx, 6; per vertex and substep the integration 12
+# and the velocity update 6. Integrations that a cell pass repeats for
+# the corners it reads are not counted: they are not work the function
+# needs.
+TET_FLOPS_PER_TET = 9 + 45 + 39 + 3 + 12 + 45 + 22 + 63 + 3 + 30 + 11 + 28
+TET_FLOPS_PER_CELL = 5 * TET_FLOPS_PER_TET + 24
+TET_FLOPS_PER_VERTEX = 6
+TET_FLOPS_FIXED = 12 + 6
 
 
 def log(*args):
@@ -81,6 +100,23 @@ def cloth_scene(width, height, device):
     b.add_cloth_constraints(tm, method=4, distance_stiffness=1e5)
     b.add_bending_constraints(tm, method=3, stiffness=0.05)
     return b.build(device=device)
+
+
+def kernel_counters():
+    from positionbaseddynamics_tpu_torch.solver import grid_cloth_cuda as gcc
+    from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
+
+    return {"cloth_substep": gcc.cloth_substep_cuda,
+            "tet_substep": gtc.tet_substep_cuda}
+
+
+def reset_counts():
+    for wrapper in kernel_counters().values():
+        wrapper.launches = 0
+
+
+def read_counts():
+    return {k: w.launches for k, w in kernel_counters().items()}
 
 
 def plain_steps(gc, x, v, inv_mass, n_sub, h, **kw):
@@ -168,8 +204,6 @@ def check_kernel_against_plain(dev):
 def run_main_path(dev, x_plain10):
     """Phase 4: SceneBuilder -> make_step_fn -> 200 steps on the card."""
     from positionbaseddynamics_tpu_torch.solver import StepConfig, make_step_fn
-    from positionbaseddynamics_tpu_torch.solver.grid_cloth_cuda import (
-        cloth_substep_cuda)
 
     cfg = StepConfig()
     state, cset = cloth_scene(GRID, GRID, dev)
@@ -187,12 +221,14 @@ def run_main_path(dev, x_plain10):
     assert dev10 <= CHECK_TOL, dev10
 
     torch.cuda.synchronize()
-    cloth_substep_cuda.launches = 0
+    reset_counts()
     s = state
     for _ in range(STEPS_MAIN):
         s = fn(s)
     torch.cuda.synchronize()
-    launches = cloth_substep_cuda.launches
+    counts = read_counts()
+    launches = counts["cloth_substep"]
+    log(f"main path {GRID}x{GRID} cloth: launch counts {counts}")
 
     x = s.particles.x
     assert torch.isfinite(x).all() and torch.isfinite(s.particles.v).all()
@@ -220,28 +256,7 @@ def run_main_path(dev, x_plain10):
     log(f"main path steps/s: {rate}")
 
     # device busy share of the main path: kernel time over wall time
-    from torch.profiler import ProfilerActivity, profile
-
-    s = st[0]
-    n_prof = 400
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
-            s = fn(s)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy_us = sum(getattr(ev, "self_device_time_total", 0.0)
-                  for ev in prof.key_averages())
-    top = sorted(prof.key_averages(),
-                 key=lambda ev: -getattr(ev, "self_device_time_total", 0.0))
-    for ev in top[:5]:
-        log(f"  main path device time: {ev.key[:60]!r} "
-            f"{getattr(ev, 'self_device_time_total', 0.0) / n_prof!r} us/step "
-            f"x{ev.count}")
-    busy = busy_us / 1e6 / wall
-    log(f"main path under profiler: {n_prof / wall!r} steps/s, device busy "
-        f"{busy!r} of wall time")
+    busy = profile_busy(fn, st[0], 400, "main path")
     return launches, rate, busy
 
 
@@ -309,6 +324,212 @@ def device_ms(fn, n, kernel_name):
                                 getattr(ev, "cuda_time_total", 0.0))
             count += ev.count
     return total_us / count / 1e3 if count and total_us > 0 else None
+
+
+def bar_scene(dims, device, stiffness=1e5, scale=(4.0, 1.0, 1.0)):
+    """The bench bar (``bench.py::bench_bar``): a regular tet grid with its
+    i = 0 face pinned, XPBD FEM tets (method 3), Poisson ratio 0.3."""
+    from positionbaseddynamics_tpu_torch.models import SceneBuilder
+
+    w, h, d = dims
+    b = SceneBuilder()
+    tm = b.add_regular_tet_model(w, h, d, scale=scale)
+    for j in range(h):
+        for k in range(d):
+            b.set_mass(tm.offset + j * d + k, 0.0)
+    b.add_solid_constraints(tm, method=3, stiffness=stiffness,
+                            poisson_ratio=0.3)
+    return b.build(device=device)
+
+
+def tet_kernel_vs_plain(scene, steps, iters=1, damping=0.0, label=""):
+    """``make_tet_step`` one step at a time against the plain version.
+    Returns the max|dx| after each step, the plain version's largest
+    displacement after each step, and the final plain positions."""
+    from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
+
+    state, cset = scene
+    gt, p = cset.grid_tets[0], state.particles
+    f = gtc.make_tet_step(gt, p.inv_mass, dt=0.005, substeps=5,
+                          max_iterations=iters, damping=damping,
+                          device=p.x.device)
+    x, v, xr, vr = p.x, p.v, p.x, p.v
+    devs, moved = [], []
+    for _ in range(steps):
+        x, v = f(x, v)
+        for _ in range(5):
+            xr, vr = gtc.tet_substep_reference(gt, xr, vr, p.inv_mass,
+                                               h=0.001, max_iterations=iters,
+                                               damping=damping)
+        devs.append(max_dev(x, xr))
+        moved.append((xr - p.x).abs().max().item())
+    torch.cuda.synchronize()
+    assert torch.isfinite(x).all() and torch.isfinite(v).all()
+    n_pin = gt.height * gt.depth
+    assert torch.equal(x[:n_pin], p.x[:n_pin]), "pinned face moved"
+    assert torch.equal(v[:n_pin], p.v[:n_pin]), "pinned face got velocity"
+    log(f"check tet {label}: max|dx| kernel vs plain per step {devs!r}; "
+        f"plain version's largest displacement per step {moved!r}")
+    return devs, moved, xr
+
+
+def check_tet_kernel_against_plain(dev, bar):
+    """Phase 3, tet: the tet kernel against its plain version. Returns the
+    deviation at the main path's shape and configuration, the 10-step
+    plain positions, and the 5-iteration record."""
+    devs, _, x10 = tet_kernel_vs_plain(bar, 10, label="80x36x36 10 steps")
+    assert max(devs) <= CHECK_TOL, devs
+    # At more than one iteration the reference's own trajectory jumps by
+    # orders of magnitude after a few steps (its lambda accumulates the
+    # XPBD multiplier step divided by C, so the alpha * lambda term of the
+    # later iterations is 1/C too large; tests/test_torch_tet_step.py);
+    # the kernel is held to the bar over the steps before that point and
+    # the rest of the 10 steps are recorded.
+    d5, m5, _ = tet_kernel_vs_plain(bar, 10, iters=5,
+                                    label="80x36x36 5 iterations")
+    assert max(d5[:5]) <= CHECK_TOL, d5
+    small = bar_scene((13, 7, 5), dev, scale=(2.0, 0.5, 0.5))
+    ds, ms, _ = tet_kernel_vs_plain(small, 10, iters=5, damping=0.01,
+                                    label="13x7x5 5 iterations damping 0.01")
+    assert max(ds[:4]) <= CHECK_TOL, ds
+    free = bar_scene((13, 7, 5), dev, stiffness=0.0, scale=(2.0, 0.5, 0.5))
+    d0, _, _ = tet_kernel_vs_plain(free, 10, label="13x7x5 stiffness 0")
+    assert max(d0) <= 1e-6, d0
+    record = {"bar_it5_dev": d5, "bar_it5_plain_moved": m5,
+              "small_it5_dev": ds, "small_it5_plain_moved": ms,
+              "stiffness0_dev": max(d0)}
+    return max(devs), x10, record
+
+
+def profile_busy(fn, state, n_prof, label):
+    """Steps ``n_prof`` times under ``torch.profiler``; returns the card's
+    busy share of the wall time and logs the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    s = state
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            s = fn(s)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(getattr(ev, "self_device_time_total", 0.0)
+                  for ev in prof.key_averages())
+    top = sorted(prof.key_averages(),
+                 key=lambda ev: -getattr(ev, "self_device_time_total", 0.0))
+    for ev in top[:5]:
+        log(f"  {label} device time: {ev.key[:60]!r} "
+            f"{getattr(ev, 'self_device_time_total', 0.0) / n_prof!r} us/step "
+            f"x{ev.count}")
+    busy = busy_us / 1e6 / wall
+    log(f"{label} under profiler: {n_prof / wall!r} steps/s, device busy "
+        f"{busy!r} of wall time")
+    return busy
+
+
+def run_tet_main_path(dev, x_plain10):
+    """Phase 4, tet: SceneBuilder -> make_step_fn -> 200 steps of the bench
+    bar on the card."""
+    from positionbaseddynamics_tpu_torch.solver import StepConfig, make_step_fn
+
+    cfg = StepConfig()
+    state, cset = bar_scene(BAR, dev)
+    fn = make_step_fn(cset, cfg)
+    n = state.particles.n
+    log(f"main path: {BAR} bar, {n} particles, route {fn.path}")
+    assert fn.path == "cuda_kernel", fn.path
+    x0 = state.particles.x.clone()
+
+    s10 = state
+    for _ in range(10):
+        s10 = fn(s10)
+    dev10 = max_dev(s10.particles.x, x_plain10)
+    log(f"main path bar 10 steps vs plain version: max|dx| = {dev10!r}")
+    assert dev10 <= CHECK_TOL, dev10
+
+    torch.cuda.synchronize()
+    reset_counts()
+    s = state
+    for _ in range(STEPS_MAIN):
+        s = fn(s)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    launches = counts["tet_substep"]
+    log(f"main path bar: launch counts {counts}")
+
+    x = s.particles.x
+    assert torch.isfinite(x).all() and torch.isfinite(s.particles.v).all()
+    n_pin = BAR[1] * BAR[2]
+    assert torch.equal(x[:n_pin], x0[:n_pin]), "pinned face moved"
+    fall = (x0[n_pin:, 1].mean() - x[n_pin:, 1].mean()).item()
+    assert fall > 0.01, f"free end fell only {fall}"
+    t_expect = np.float32(0.0)
+    for _ in range(STEPS_MAIN):
+        t_expect = np.float32(t_expect + np.float32(cfg.dt))
+    assert s.time.item() == float(t_expect), (s.time.item(), t_expect)
+    per_step = 2 * cfg.substeps * cfg.max_iterations
+    assert launches == STEPS_MAIN * per_step, launches
+    log(f"main path bar {STEPS_MAIN} steps: launches {launches}, "
+        f"mean fall of the free vertices {fall!r}, time {s.time.item()!r}")
+
+    st = [s]
+
+    def one_step():
+        st[0] = fn(st[0])
+
+    rate = rate_windows(one_step, 1)
+    assert torch.isfinite(st[0].particles.x).all()
+    log(f"main path bar steps/s: {rate}")
+    busy = profile_busy(fn, st[0], 200, "main path bar")
+    return launches, rate, busy, dev10
+
+
+def time_tet_kernel(dev, bar):
+    """Phase 5, tet: each kernel per launch and the substep (both), the
+    plain version per substep and the bound, at the main path's shape."""
+    from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
+
+    state, cset = bar
+    gt, p = cset.grid_tets[0], state.particles
+    dims = (gt.width, gt.height, gt.depth)
+    params = gtc.kernel_params(gt, h=0.001)
+    w = p.inv_mass.contiguous()
+    ic = gt.inv_cnt.reshape(-1).contiguous()
+    buf = [gtc.to_planes(p.x), gtc.to_planes(p.v)]
+
+    def launch():
+        buf[:] = gtc.tet_substep_cuda(buf[0], buf[1], w, ic, params, dims)
+
+    out = {"interval_ms": cuda_time_ms(launch, 500)}
+    for key, name in (("cell_ms", "tet_cell_kernel"),
+                      ("vertex_ms", "tet_vertex_kernel")):
+        out[key] = device_ms(launch, 200, name)
+    if out["cell_ms"] is None or out["vertex_ms"] is None:
+        out["ms"], out["ms_source"] = out["interval_ms"], "cuda events"
+    else:
+        out["ms"] = out["cell_ms"] + out["vertex_ms"]
+        out["ms_source"] = "profiler"
+    xs = [p.x, p.v]
+
+    def plain():
+        xs[:] = gtc.tet_substep_reference(gt, xs[0], xs[1], p.inv_mass,
+                                          h=0.001)
+
+    out["plain_ms"] = cuda_time_ms(plain, 20)
+    n_vert = p.n
+    n_cells = (dims[0] - 1) * (dims[1] - 1) * (dims[2] - 1)
+    bytes_moved = 4 * 14 * n_vert        # 6 planes + w + inv_cnt in, 6 out
+    flops = (TET_FLOPS_PER_CELL * n_cells
+             + (TET_FLOPS_PER_VERTEX + TET_FLOPS_FIXED) * n_vert)
+    t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_FP32_FLOPS * 1e3
+    out["bound_ms"] = max(t_bytes, t_ops)
+    out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    out["bound_bytes_ms"], out["bound_ops_ms"] = t_bytes, t_ops
+    for k, v in out.items():
+        log(f"timing tet {k}: {v!r}")
+    return out
 
 
 def time_cloth_kernel(dev):
@@ -397,8 +618,16 @@ def main() -> int:
                 log(f"  {stem}: {line.strip()}")
 
     err, x_plain10 = check_kernel_against_plain(dev)
+    t0 = time.perf_counter()
+    bar = bar_scene(BAR, dev)
+    log(f"built the {BAR} bar in {time.perf_counter() - t0!r} s")
+    tet_err, bar_plain10, tet_record = check_tet_kernel_against_plain(dev,
+                                                                      bar)
     launches, main_rate, busy = run_main_path(dev, x_plain10)
+    tet_launches, tet_rate, tet_busy, tet_main_dev = run_tet_main_path(
+        dev, bar_plain10)
     t = time_cloth_kernel(dev)
+    tt = time_tet_kernel(dev, bar)
 
     kernels = [{
         "name": "cloth_substep",
@@ -421,6 +650,28 @@ def main() -> int:
         "main_path_device_busy": busy,
         "steps_per_s_b1": t["steps_per_s_b1"],
         "steps_per_s_b4": t["steps_per_s_b4"],
+    }, {
+        "name": "tet_substep",
+        "route": "cuda",
+        "source": "positionbaseddynamics_tpu_torch/csrc/grid_tet_step.cu",
+        "replaces": "positionbaseddynamics_tpu/solver/grid_tet_pallas.py:99",
+        "launches": tet_launches,
+        "max_abs_err": tet_err,
+        "ms": tt["ms"],
+        "plain_ms": tt["plain_ms"],
+        "bound_ms": tt["bound_ms"],
+        "bound_by": tt["bound_by"],
+        "library_ms": None,
+        "ms_source": tt["ms_source"],
+        "cell_ms": tt["cell_ms"],
+        "vertex_ms": tt["vertex_ms"],
+        "interval_ms": tt["interval_ms"],
+        "bound_bytes_ms": tt["bound_bytes_ms"],
+        "bound_ops_ms": tt["bound_ops_ms"],
+        "main_path_max_abs_err": tet_main_dev,
+        "main_path_steps_per_s": tet_rate,
+        "main_path_device_busy": tet_busy,
+        **tet_record,
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

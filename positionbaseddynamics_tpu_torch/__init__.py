@@ -6,16 +6,21 @@ counterpart's path and public names, and the tests hold each one against
 the JAX function on the same inputs. This package imports ``torch`` and
 numpy only, never ``jax`` and never the JAX package.
 
-Ported so far (slice 1, the 320×320 XPBD cloth step):
+Ported so far (slice 1, the 320×320 XPBD cloth step; slice 2, the
+80×36×36 XPBD FEM-tet bar):
 
 * ``ops/integration.py`` — semi-implicit Euler and velocity updates;
+* ``ops/mathutils.py``, ``ops/xpbd.py`` — the 3×3 helpers, the signed SVD
+  and the inversion-safe FEM energy;
 * ``solver/state.py`` — ``ParticleState`` / ``SimState``;
-* ``solver/grid_cloth.py`` — the structured-grid stencil solver;
-* ``solver/grid_cloth_cuda.py`` + ``csrc/grid_cloth_step.cu`` — the fused
-  cloth substep as a hand-written CUDA kernel;
+* ``solver/grid_cloth.py``, ``solver/grid_tet.py`` — the structured-grid
+  stencil solvers of cloths and tet bars;
+* ``solver/grid_cloth_cuda.py`` + ``csrc/grid_cloth_step.cu`` and
+  ``solver/grid_tet_cuda.py`` + ``csrc/grid_tet_step.cu`` — the fused
+  cloth and tet substeps as hand-written CUDA kernels;
 * ``solver/step.py`` — ``StepConfig``, ``step``, ``make_step_fn``,
   ``rollout``;
-* ``models/`` — ``SceneBuilder`` for regular triangle grids.
+* ``models/`` — ``SceneBuilder`` for regular triangle and tet grids.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without CUDA they raise rather than run on the CPU.

@@ -1,4 +1,5 @@
 """Scene builders (port of ``positionbaseddynamics_tpu.models``)."""
 
-from .mesh import TriangleMesh
-from .builders import SceneBuilder, TriModelHandle, regular_triangle_grid
+from .mesh import TetMesh, TriangleMesh
+from .builders import (SceneBuilder, TetModelHandle, TriModelHandle,
+                       regular_tet_grid, regular_triangle_grid)

@@ -1,7 +1,8 @@
-"""Host-side mesh topology (numpy) — a copy of the triangle half of
-``positionbaseddynamics_tpu/models/mesh.py`` (``IndexedFaceMesh``): edge
-and adjacency extraction, run once at scene-build time. Edge order is
-face-major first-occurrence, as in the reference's per-face enumeration.
+"""Host-side mesh topology (numpy) — a copy of the topology classes of
+``positionbaseddynamics_tpu/models/mesh.py`` (``IndexedFaceMesh``,
+``IndexedTetMesh``): edge, adjacency and surface extraction, run once at
+scene-build time. Edge order is face-major first-occurrence, as in the
+reference's per-face enumeration.
 """
 from __future__ import annotations
 
@@ -80,3 +81,35 @@ class TriangleMesh:
         p0 = f0.astype(np.int64).sum(1) - a - b
         p1 = f1.astype(np.int64).sum(1) - a - b
         return np.stack([p0, p1, a, b], axis=1).astype(np.int32)
+
+
+@dataclass
+class TetMesh:
+    """Indexed tetrahedral mesh with edges and surface faces
+    (``Utils/IndexedTetMesh``)."""
+
+    n_vertices: int
+    tets: np.ndarray               # (T, 4) int32
+    edges: np.ndarray = field(init=False)
+    surface_faces: np.ndarray = field(init=False)
+
+    _TET_EDGES = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
+    # face i is opposite vertex i, wound so that its normal points out of a
+    # positively oriented tet
+    _TET_FACES = ((1, 3, 2), (0, 2, 3), (0, 3, 1), (0, 1, 2))
+
+    def __post_init__(self):
+        self.tets = np.asarray(self.tets, np.int32).reshape(-1, 4)
+        t = self.tets
+        he = np.stack([t[:, list(e)] for e in self._TET_EDGES],
+                      axis=1).reshape(-1, 2)
+        self.edges, _, _ = _unique_edges(he)
+
+        tris = np.stack([t[:, list(fa)] for fa in self._TET_FACES],
+                        axis=1).reshape(-1, 3)
+        key = np.sort(tris, axis=1)
+        _, first_idx, inv, counts = np.unique(
+            key, axis=0, return_index=True, return_inverse=True,
+            return_counts=True)
+        surface = counts[inv.reshape(-1)[first_idx]] == 1
+        self.surface_faces = tris[first_idx[surface]].astype(np.int32)

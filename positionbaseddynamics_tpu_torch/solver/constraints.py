@@ -1,10 +1,10 @@
 """Constraint containers and host-side constraint initialisation.
 
 Port of the parts of ``positionbaseddynamics_tpu/solver/constraints.py``
-that the grid-cloth slice needs: the numpy rank-1 isometric-bending
-factor (``:173-197``) and a ``ConstraintSet`` that holds structured grid
-cloths (``:1144-1222``, grid-cloth keys only). The unstructured batches
-come with slice 4.
+that the grid slices need: the numpy rank-1 isometric-bending factor
+(``:173-197``) and a ``ConstraintSet`` that holds structured grid cloths
+and tet grids (``:1144-1223``, the ``grid_cloth{i}`` and ``grid_tet{i}``
+keys). The unstructured batches come with slice 4.
 """
 from __future__ import annotations
 
@@ -43,24 +43,30 @@ def _init_isometric_bending_s_np(p: np.ndarray) -> np.ndarray:
 
 @dataclass(frozen=True)
 class ConstraintSet:
-    """All constraint batches of a scene. In this slice only the
-    structured grid cloths (``solver/grid_cloth.py``) exist.
-    ``n_particles`` is the scene's particle count (set by the builder);
-    the stepper uses it to tell whether one grid cloth covers the whole
-    scene."""
+    """All constraint batches of a scene. So far the port has the
+    structured grid cloths (``solver/grid_cloth.py``) and the structured
+    tet grids (``solver/grid_tet.py``). ``n_particles`` is the scene's
+    particle count (set by the builder); the stepper uses it to tell
+    whether one grid covers the whole scene."""
 
     grid_cloths: Tuple = ()
     n_particles: Optional[int] = None
+    grid_tets: Tuple = ()
 
     def init_lambdas(self):
-        return {f"grid_cloth{i}": gc.init_lambda()
+        lams = {f"grid_cloth{i}": gc.init_lambda()
                 for i, gc in enumerate(self.grid_cloths)}
+        for i, gt in enumerate(self.grid_tets):
+            lams[f"grid_tet{i}"] = gt.init_lambda()
+        return lams
 
     @property
     def device(self) -> Optional[torch.device]:
-        return self.grid_cloths[0].device if self.grid_cloths else None
+        batches = self.grid_cloths + self.grid_tets
+        return batches[0].device if batches else None
 
     def to(self, device) -> "ConstraintSet":
         """The same set with every tensor on ``device``."""
         return dataclasses.replace(
-            self, grid_cloths=tuple(gc.to(device) for gc in self.grid_cloths))
+            self, grid_cloths=tuple(gc.to(device) for gc in self.grid_cloths),
+            grid_tets=tuple(gt.to(device) for gt in self.grid_tets))

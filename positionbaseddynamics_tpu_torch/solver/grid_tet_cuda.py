@@ -1,0 +1,276 @@
+"""Fused XPBD FEM-tet substep as a hand-written CUDA kernel for Hopper —
+the counterpart of ``positionbaseddynamics_tpu/solver/grid_tet_pallas.py``
+(``make_pallas_tet_step``).
+
+A substep of a regular W×H×D tet grid runs as two launches of
+``csrc/grid_tet_step.cu`` per Jacobi iteration: a cell pass (one thread per
+hex cell solves its 5 tets and writes its 8 per-corner correction sums to
+a scratch buffer) and a vertex pass (one thread per vertex gathers from
+the up to 8 cells that own it and applies its Jacobi weight). The first
+cell and vertex pass of a substep integrate the positions they read; the
+last vertex pass updates the velocity and applies the damping. The state
+travels as component planes ``(3, W·H·D)``: :func:`make_tet_step` converts
+``(x, v)`` to planes once per call and back once at the end.
+
+Beside the kernel sits its plain PyTorch version,
+:func:`tet_substep_reference`, composed of the ported integration
+functions and :meth:`GridTetBatch.project`. The CPU tests run it, and the
+card's smoke run holds the kernel against it. The step function that
+:func:`make_tet_step` returns takes the plain version for CPU tensors
+only; for CUDA tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import _build
+from .._device import resolve_device
+from ..ops import integration
+from .grid_tet import GridTetBatch
+
+Tensor = torch.Tensor
+
+N_PARAMS = 112                  # floats in the kernel's TetParams struct
+
+
+def unsupported_reason(batch: GridTetBatch) -> Optional[str]:
+    """Why the kernel cannot run this batch, or None when it can: the TPU
+    kernel's preconditions (``grid_tet_pallas.py:57-62``)."""
+    if batch.offset != 0:
+        return "the tet kernel expects the tet grid at particle offset 0"
+    if batch.inversion_handling:
+        return ("the tet kernel does not implement the SVD inversion path; "
+                "inversion_handling=True runs the stencil path")
+    return None
+
+
+def kernel_params(batch: GridTetBatch, *, h: float,
+                  gravity=(0.0, -9.81, 0.0), damping: float = 0.0
+                  ) -> np.ndarray:
+    """The kernel's host-side scalars as ``N_PARAMS`` float32 values, in
+    the layout of ``struct TetParams`` in ``csrc/grid_tet_step.cu``, each
+    computed in float32 in the order the plain version computes it
+    (``GridTetBatch._solve_family``). Raises NotImplementedError for a
+    batch the kernel cannot run."""
+    reason = unsupported_reason(batch)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    f32 = np.float32
+    h32 = f32(h)
+    p = np.zeros((N_PARAMS,), f32)
+    # [parity 0 = even, 1 = odd][family][3x3 row-major], then volumes
+    irm = [batch.inv_rest_even, batch.inv_rest_odd]
+    vol = [batch.rest_vol_even, batch.rest_vol_odd]
+    p[0:90] = np.concatenate([m.detach().cpu().numpy().astype(f32).ravel()
+                              for m in irm])
+    p[90:100] = np.concatenate([v.detach().cpu().numpy().astype(f32)
+                                for v in vol])
+    nu = f32(batch.poisson.item())
+    e = f32(batch.youngs.item())
+    mu = f32(0.5) / (f32(1.0) + nu)
+    lame = nu / ((f32(1.0) + nu) * (f32(1.0) - f32(2.0) * nu))
+    p[100] = mu
+    p[101] = lame
+    p[102] = f32(2.0) * mu
+    p[103] = f32(0.5) * lame
+    eh2 = e * h32 * h32
+    p[104] = f32(1.0) / eh2 if abs(eh2) > f32(1e-30) else f32(0.0)
+    p[105] = 1.0 if e > 0 else 0.0
+    p[106] = h32
+    p[107:110] = np.asarray(gravity, f32)
+    p[110] = f32(1.0 - damping)
+    p[111] = 1.0 if damping else 0.0
+    return p
+
+
+def to_planes(a: Tensor) -> Tensor:
+    """``(N, 3)`` → contiguous component planes ``(3, N)``."""
+    return a.reshape(-1, 3).t().contiguous()
+
+
+def from_planes(p: Tensor) -> Tensor:
+    """Component planes ``(3, N)`` → ``(N, 3)``."""
+    return p.t()
+
+
+def _bind(lib):
+    fns = (lib.pbd_tet_cells, lib.pbd_tet_vertices)
+    if getattr(fns[0], "_pbd_bound", False):
+        return fns
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    # x_in, v_in, x_cur, w, lam, scratch, params, W, H, D, iteration,
+    # use_lam, stream
+    fns[0].argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+    # x_in, v_in, x_cur, w, inv_cnt, scratch, x_out, v_out, params,
+    # W, H, D, stream
+    fns[1].argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    for fn in fns:
+        fn.restype = ci
+    lib.pbd_tet_error_string.argtypes = [ci]
+    lib.pbd_tet_error_string.restype = ctypes.c_char_p
+    lib.pbd_tet_param_count.argtypes = []
+    lib.pbd_tet_param_count.restype = ci
+    if lib.pbd_tet_param_count() != N_PARAMS:
+        raise RuntimeError("grid_tet_step.cu and grid_tet_cuda.py disagree "
+                           "on the kernel's parameter layout")
+    fns[0]._pbd_bound = True
+    return fns
+
+
+def _ptr(t: Optional[Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def tet_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
+                     params: np.ndarray, dims, max_iterations: int = 1):
+    """Run one substep through the kernel: a cell pass and a vertex pass
+    per iteration. ``xp``, ``vp``: ``(3, N)`` float32 planes on one CUDA
+    device, ``N = W·H·D`` for ``dims = (W, H, D)``; ``w``: inverse masses
+    ``(N,)``; ``ic``: per-vertex Jacobi weights ``(N,)``; ``params`` from
+    :func:`kernel_params`. Returns new ``(xp, vp)`` buffers; the inputs
+    are left as they were. Counts its launches in
+    ``tet_substep_cuda.launches``."""
+    if xp.device.type != "cuda":
+        raise ValueError("tet_substep_cuda takes CUDA tensors; the plain "
+                         "version is tet_substep_reference")
+    wd, hd, dd = (int(s) for s in dims)
+    if min(wd, hd, dd) < 2:
+        raise ValueError(f"grid {dims}: each side needs 2 vertices or more")
+    n = wd * hd * dd
+    for name, t, shape in (("x", xp, (3, n)), ("v", vp, (3, n)),
+                           ("w", w, (n,)), ("inv_cnt", ic, (n,))):
+        if t.device != xp.device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: expected float32 on {xp.device}, got "
+                             f"{t.dtype} on {t.device}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous {shape}, got "
+                             f"{tuple(t.shape)}")
+    params = np.ascontiguousarray(params, np.float32)
+    if params.shape != (N_PARAMS,):
+        raise ValueError(f"params: expected ({N_PARAMS},), got {params.shape}")
+    if max_iterations < 1:
+        raise ValueError(f"max_iterations={max_iterations}: at least 1")
+    lib = _build.load("grid_tet_step")
+    cells_fn, verts_fn = _bind(lib)
+    n_cells = (wd - 1) * (hd - 1) * (dd - 1)
+    use_lam = max_iterations > 1
+    x_cur = vo = None
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream(xp.device).cuda_stream
+        scratch = xp.new_empty((24, n_cells))
+        lam = xp.new_empty((5, n_cells)) if use_lam else None
+        for it in range(max_iterations):
+            err = cells_fn(xp.data_ptr(), vp.data_ptr(), _ptr(x_cur),
+                           w.data_ptr(), _ptr(lam), scratch.data_ptr(),
+                           params.ctypes.data, wd, hd, dd, it, int(use_lam),
+                           stream)
+            _check(lib, err, "cell")
+            tet_substep_cuda.launches += 1
+            xo = torch.empty_like(xp)
+            if it == max_iterations - 1:
+                vo = torch.empty_like(vp)
+            err = verts_fn(xp.data_ptr(), vp.data_ptr(), _ptr(x_cur),
+                           w.data_ptr(), ic.data_ptr(), scratch.data_ptr(),
+                           xo.data_ptr(), _ptr(vo), params.ctypes.data,
+                           wd, hd, dd, stream)
+            _check(lib, err, "vertex")
+            tet_substep_cuda.launches += 1
+            x_cur = xo
+    return x_cur, vo
+
+
+tet_substep_cuda.launches = 0
+
+
+def _check(lib, err: int, which: str):
+    if err != 0:
+        raise RuntimeError(f"tet {which} kernel launch failed: "
+                           + lib.pbd_tet_error_string(err).decode())
+
+
+def run_substeps(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
+                 params: np.ndarray, dims, max_iterations: int, n: int):
+    """``n`` substeps through :func:`tet_substep_cuda`. Returns the final
+    ``(xp, vp)`` planes and the inputs of the last and of the second-last
+    substep (``old_x`` and ``last_x`` of the stepper), None where there
+    was no such substep."""
+    old = last = None
+    for _ in range(n):
+        last, old = old, xp
+        xp, vp = tet_substep_cuda(xp, vp, w, ic, params, dims,
+                                  max_iterations)
+    return xp, vp, old, last
+
+
+def tet_substep_reference(batch: GridTetBatch, x: Tensor, v: Tensor,
+                          inv_mass: Tensor, *, h: float,
+                          max_iterations: int = 1,
+                          gravity=(0.0, -9.81, 0.0), damping: float = 0.0):
+    """The kernel's plain PyTorch version: one substep of ``_substep`` for
+    a scene that is this tet grid alone, Jacobi with ``omega = 1``, λ
+    carried across the iterations. ``x``, ``v``: ``(N, 3)``; returns
+    ``(x, v)``."""
+    g = torch.as_tensor(gravity, dtype=torch.float32, device=x.device)
+    xn, vn = integration.semi_implicit_euler(h, inv_mass, x, v,
+                                             g.expand_as(x))
+    lam = batch.init_lambda()
+    for _ in range(max_iterations):
+        xn, lam = batch.project(xn, inv_mass, lam, h)
+    vn = integration.velocity_update_first_order(h, inv_mass, xn, x, vn)
+    if damping:
+        vn = vn * (1.0 - damping)
+    return xn, vn
+
+
+def make_tet_step(batch: GridTetBatch, inv_mass, *, dt: float, substeps: int,
+                  max_iterations: int = 1, gravity=(0.0, -9.81, 0.0),
+                  damping: float = 0.0, n_steps: int = 1, device=None):
+    """Build ``step(x (N, 3), v (N, 3)) -> (x, v)`` that advances
+    ``n_steps·substeps`` substeps of a scene that is this tet grid alone,
+    covering particles ``[0, W·H·D)`` — the counterpart of
+    ``make_pallas_tet_step``. Raises NotImplementedError for a batch the
+    kernel cannot run (offset ≠ 0, ``inversion_handling``), as the TPU
+    kernel does.
+
+    On ``device`` (None means CUDA) the step launches the kernel, two
+    launches per iteration of each substep; given CPU tensors it runs
+    :func:`tet_substep_reference`."""
+    dev = resolve_device(device)
+    dims = (batch.width, batch.height, batch.depth)
+    n = batch.width * batch.height * batch.depth
+    h = dt / substeps
+    params = kernel_params(batch, h=h, gravity=gravity, damping=damping)
+    if max_iterations < 1:
+        raise ValueError(f"max_iterations={max_iterations}: at least 1")
+    if batch.device != dev:
+        batch = batch.to(dev)
+    w = torch.as_tensor(inv_mass, dtype=torch.float32, device=dev)
+    if w.numel() != n:
+        raise ValueError(f"inv_mass: {w.numel()} values for a "
+                         f"{'x'.join(map(str, dims))} tet grid")
+    w = w.reshape(n).contiguous()
+    ic = batch.inv_cnt.reshape(n).contiguous()
+    n_sub = n_steps * substeps
+
+    def step(x: Tensor, v: Tensor):
+        if tuple(x.shape) != (n, 3) or tuple(v.shape) != (n, 3):
+            raise ValueError(f"expected x, v of shape {(n, 3)}, got "
+                             f"{tuple(x.shape)} and {tuple(v.shape)}")
+        if x.device != dev or v.device != dev:
+            raise ValueError(f"step was built for {dev}; got tensors on "
+                             f"{x.device} and {v.device}")
+        if dev.type == "cuda":
+            xp, vp, _, _ = run_substeps(to_planes(x), to_planes(v), w, ic,
+                                        params, dims, max_iterations, n_sub)
+            return from_planes(xp), from_planes(vp)
+        for _ in range(n_sub):
+            x, v = tet_substep_reference(
+                batch, x, v, w, h=h, max_iterations=max_iterations,
+                gravity=gravity, damping=damping)
+        return x, v
+
+    return step

@@ -1,29 +1,30 @@
 """The time stepper — port of ``positionbaseddynamics_tpu/solver/step.py``,
-particle path with structured grid cloths.
+particle path with structured grid cloths and tet grids.
 
 Per sim step: ``substeps`` × {integrate → position-constraint projection →
 velocity update → damping} (``TimeStepController.cpp:93-173``), then the
 time advances by ``dt``. The velocity-level projection of the JAX stepper
-does nothing without rigid bodies (``step.py:480-481``), so this slice
-has none; orientations, rigid bodies, joints, contacts and the
+does nothing without rigid bodies (``step.py:480-481``), so these slices
+have none; orientations, rigid bodies, joints, contacts and the
 unstructured batches come with later slices of the port.
 
 Two routes run the substeps, chosen once from the configuration:
 
-* ``"cuda_kernel"``: one launch of the fused cloth kernel per substep
-  (``grid_cloth_cuda.py``), when the scene is one grid cloth covering
-  every particle with uniform XPBD parameters, on a CUDA device, in
-  Jacobi mode with ``jacobi_omega = 1`` and the first-order velocity
-  update;
-* ``"torch_stencil"``: the PyTorch stencil ops of ``grid_cloth.py``, on
-  any device, for every other configuration — as the JAX package runs
-  its XLA path.
+* ``"cuda_kernel"``: the fused kernel of the scene's one grid, on a CUDA
+  device, in Jacobi mode with ``jacobi_omega = 1`` and the first-order
+  velocity update, when that grid covers every particle — either one grid
+  cloth with uniform XPBD parameters (``grid_cloth_cuda.py``, one launch
+  per substep) or one tet grid without ``inversion_handling``
+  (``grid_tet_cuda.py``, two launches per iteration of each substep);
+* ``"torch_stencil"``: the PyTorch stencil ops of ``grid_cloth.py`` and
+  ``grid_tet.py``, on any device, for every other configuration — as the
+  JAX package runs its XLA path.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -31,6 +32,7 @@ import torch
 from .._device import resolve_device
 from ..ops import integration
 from . import grid_cloth_cuda as gcc
+from . import grid_tet_cuda as gtc
 from .constraints import ConstraintSet
 from .state import SimState
 
@@ -65,20 +67,21 @@ class StepConfig:
 
 def project_positions(x: Tensor, inv_mass: Tensor, cset: ConstraintSet, dt,
                       cfg: StepConfig) -> Tensor:
-    """Position-constraint projection, grid-cloth branch
-    (``step.py:283-314``): λ starts at zero and accumulates across the
+    """Position-constraint projection, grid-cloth and grid-tet branches
+    (``step.py:283-322``): λ starts at zero and accumulates across the
     ``max_iterations`` passes; ``gauss_seidel`` runs the lattice-coloured
     sweeps of ``project_gs``."""
     lams = cset.init_lambdas()
     gs = cfg.solver_mode == "gauss_seidel"
+    grids = ([(f"grid_cloth{i}", b) for i, b in enumerate(cset.grid_cloths)]
+             + [(f"grid_tet{i}", b) for i, b in enumerate(cset.grid_tets)])
     for _ in range(cfg.max_iterations):
-        for gi, gc in enumerate(cset.grid_cloths):
-            key = f"grid_cloth{gi}"
+        for key, b in grids:
             if gs:
-                x, lams[key] = gc.project_gs(x, inv_mass, lams[key], dt)
+                x, lams[key] = b.project_gs(x, inv_mass, lams[key], dt)
             else:
-                x, lams[key] = gc.project(x, inv_mass, lams[key], dt,
-                                          cfg.jacobi_omega)
+                x, lams[key] = b.project(x, inv_mass, lams[key], dt,
+                                         cfg.jacobi_omega)
     return x
 
 
@@ -106,14 +109,52 @@ def _substep(state: SimState, cset: ConstraintSet, h, cfg: StepConfig
 
 @dataclass(frozen=True)
 class KernelPlan:
-    """What the kernel route needs, computed once per step function by
-    :func:`kernel_plan`."""
+    """The kernel route of a step function, computed once by
+    :func:`kernel_plan`: which kernel (``"cloth"`` or ``"tet"``), and
+    ``run(particles, n)``, which runs ``n`` substeps through it and returns
+    ``(x, v, old_x, last_x)``, with ``last_x`` None when ``n < 2``."""
 
-    params: np.ndarray
-    icd: Tensor          # (H, W)
-    icb: Tensor          # (H, W)
-    height: int
-    width: int
+    kernel: str
+    run: Callable
+
+
+def _cloth_plan(gc, cfg: StepConfig) -> KernelPlan:
+    hgt, wid = gc.height, gc.width
+    params = gcc.kernel_params(gc, h=cfg.dt / cfg.substeps,
+                               gravity=cfg.gravity, damping=cfg.damping)
+    icd = gc.inv_cnt_dist.reshape(hgt, wid).contiguous()
+    icb = gc.inv_cnt_bend.reshape(hgt, wid).contiguous()
+
+    def run(p, n):
+        lead = p.x.shape[:-2]
+        w = p.inv_mass.reshape(-1, hgt, wid)
+        w = w[0] if w.shape[0] == 1 else w.contiguous()
+        out = gcc.run_substeps(
+            gcc.to_planes(p.x, hgt, wid), gcc.to_planes(p.v, hgt, wid), w,
+            icd, icb, params, cfg.max_iterations, n)
+        return tuple(None if a is None else gcc.from_planes(a, lead)
+                     for a in out)
+
+    return KernelPlan("cloth", run)
+
+
+def _tet_plan(gt, cfg: StepConfig) -> KernelPlan:
+    dims = (gt.width, gt.height, gt.depth)
+    params = gtc.kernel_params(gt, h=cfg.dt / cfg.substeps,
+                               gravity=cfg.gravity, damping=cfg.damping)
+    ic = gt.inv_cnt.reshape(-1).contiguous()
+
+    def run(p, n):
+        if p.x.dim() != 2:
+            raise NotImplementedError(
+                "the grid-tet solver takes one scene's (N, 3) state, as the "
+                "JAX package's does; got a rollout axis")
+        out = gtc.run_substeps(gtc.to_planes(p.x), gtc.to_planes(p.v),
+                               p.inv_mass.contiguous(), ic, params, dims,
+                               cfg.max_iterations, n)
+        return tuple(None if a is None else gtc.from_planes(a) for a in out)
+
+    return KernelPlan("tet", run)
 
 
 def kernel_plan(cset: ConstraintSet, cfg: StepConfig
@@ -121,42 +162,37 @@ def kernel_plan(cset: ConstraintSet, cfg: StepConfig
     """The kernel route's plan when the scene and the configuration allow
     that route, else None (see the module docstring)."""
     dev = cset.device
-    if dev is None or dev.type != "cuda" or len(cset.grid_cloths) != 1:
-        return None
-    gc = cset.grid_cloths[0]
-    if cset.n_particles != gc.height * gc.width:
+    if dev is None or dev.type != "cuda":
         return None
     if not (cfg.solver_mode == "jacobi" and cfg.jacobi_omega == 1.0
             and cfg.velocity_update_method == 0):
         return None
-    if gcc.unsupported_reason(gc) is not None:
+    grids = cset.grid_cloths + cset.grid_tets
+    if len(grids) != 1:
         return None
-    h = cfg.dt / cfg.substeps
-    return KernelPlan(
-        params=gcc.kernel_params(gc, h=h, gravity=cfg.gravity,
-                                 damping=cfg.damping),
-        icd=gc.inv_cnt_dist.reshape(gc.height, gc.width).contiguous(),
-        icb=gc.inv_cnt_bend.reshape(gc.height, gc.width).contiguous(),
-        height=gc.height, width=gc.width)
+    if cset.grid_cloths:
+        gc = cset.grid_cloths[0]
+        if (cset.n_particles != gc.height * gc.width
+                or gcc.unsupported_reason(gc) is not None):
+            return None
+        return _cloth_plan(gc, cfg)
+    gt = cset.grid_tets[0]
+    if (cset.n_particles != gt.width * gt.height * gt.depth
+            or gtc.unsupported_reason(gt) is not None):
+        return None
+    return _tet_plan(gt, cfg)
 
 
 def _kernel_substeps(state: SimState, plan: KernelPlan, cfg: StepConfig
                      ) -> SimState:
-    """All substeps of one step through the fused kernel. ``old_x`` and
+    """All substeps of one step through the plan's kernel. ``old_x`` and
     ``last_x`` end as ``_substep`` leaves them: the inputs of the last and
     of the second-last substep."""
     p = state.particles
-    hgt, wid = plan.height, plan.width
-    lead = p.x.shape[:-2]
-    w = p.inv_mass.reshape(-1, hgt, wid)
-    w = w[0] if w.shape[0] == 1 else w.contiguous()
-    xp, vp, old_p, last_p = gcc.run_substeps(
-        gcc.to_planes(p.x, hgt, wid), gcc.to_planes(p.v, hgt, wid), w,
-        plan.icd, plan.icb, plan.params, cfg.max_iterations, cfg.substeps)
-    last_x = p.old_x if last_p is None else gcc.from_planes(last_p, lead)
+    x, v, old_x, last_x = plan.run(p, cfg.substeps)
     particles = dataclasses.replace(
-        p, x=gcc.from_planes(xp, lead), v=gcc.from_planes(vp, lead),
-        old_x=gcc.from_planes(old_p, lead), last_x=last_x)
+        p, x=x, v=v, old_x=old_x,
+        last_x=p.old_x if last_x is None else last_x)
     return dataclasses.replace(state, particles=particles)
 
 
@@ -164,7 +200,7 @@ def step(state: SimState, cset: ConstraintSet, cfg: StepConfig,
          plan: Optional[KernelPlan] = None) -> SimState:
     """One full sim step: ``substeps`` substeps, then ``time += dt``
     (``step.py:538-571``). With a ``plan`` from :func:`kernel_plan` the
-    substeps run through the fused kernel, else through the stencil ops;
+    substeps run through its kernel, else through the stencil ops;
     ``make_step_fn`` and ``rollout`` compute the plan once."""
     if state.orientations is not None or state.rigid is not None:
         raise NotImplementedError(
