@@ -22,7 +22,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``SceneBuilder`` on the card, ``make_step_fn`` → 200 steps; then each
    path's steps/s and the card's busy share;
 5. timings: each kernel per launch beside its plain version and its
-   bound, and ``make_cloth_step`` at 1 and 4 rollouts in steps/s.
+   bound, and ``make_cloth_step`` at 1 and 4 rollouts in steps/s;
+6. the fluid path, the 100k PBF breaking dam of ``bench.py --fluid``
+   (80×50×25 particles in its boundary box), built by ``FluidScene.create``
+   on the card: the three PBF kernels (density and λ, corrections, XSPH)
+   against their plain versions for one pass each at the dam's shapes and
+   on a cap-40 dam without boundary, and the kernel step against the plain
+   step over 10 steps; then ``make_fluid_step_fn`` → 100 steps with the
+   launch counts set to 0 just before and read just after (5/5/1 a step),
+   ``overflow`` 0 and every position finite; steps/s, the card's busy
+   share and its peak memory; each kernel per launch beside its plain
+   version and its bound; and that a step never syncs the host.
 
 Every steps/s figure is the median of ``N_WINDOWS`` windows of at least
 ``WINDOW_S`` seconds on the host clock, printed with the lowest and the
@@ -34,6 +44,7 @@ CUDA device it exits 1 and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -77,6 +88,34 @@ TET_FLOPS_PER_CELL = 5 * TET_FLOPS_PER_TET + 24
 TET_FLOPS_PER_VERTEX = 6
 TET_FLOPS_FIXED = 12 + 6
 
+DAM = (80, 50, 25)              # the bench dam (bench.py --fluid defaults)
+FLUID_STEPS_MAIN = 100
+FLUID_CHECK_STEPS = 10
+FLUID_STEP_TOL = 1e-4           # kernel step vs plain step over 10 steps
+FLUID_PASS_TOL = 1e-6           # one pass: max|dx|, max|dv|
+FLUID_RHO_RTOL = 1e-5           # one pass: max|d rho| / max rho
+FLUID_LAM_RTOL = 1e-4           # one pass: max|d lambda| / max|lambda|
+PLAIN_CHUNK = 2048              # active cells per piece of the plain passes
+
+# fp32 operations counted from csrc/pbf_cells.cu. Per candidate pair (an
+# occupied slot of a neighbour cell) the frozen test: the mass or psi
+# compare 1, three differences 3, the rounded r0^2 5, and the range
+# compares 2 (fluid) or 1 (boundary). Per pair inside the radius: the
+# displacement 3, r^2 5, sqrt 1, then W 10 (divide, min, compare, 7 of the
+# cubic) and the grad W coefficient 11 (divide, min, compare, 4 of the
+# polynomial, multiply, max, divide, compare) as each pass needs them:
+# B3 W with m W 2, the coefficient with gc 3, gc^2 r^2 3 and three gc d
+# sums 6; B4 the coefficient with gc 3, its factor 2 (lambda_i + lambda_j,
+# times gc; boundary 1) and three sums 6; B5 W, its factor 3 (max,
+# divide, multiply), v_i - v_j 3 and three sums 6. Per occupied slot the
+# closing arithmetic: B3 15 (density, grad C_i, lambda), B4 and B5 6.
+PBF_TEST_OPS = {"fluid": 11, "boundary": 10}
+PBF_PAIR_OPS = {"pbf_density_lambda": {"fluid": 44, "boundary": 44},
+                "pbf_corrections": {"fluid": 31, "boundary": 30},
+                "pbf_xsph": {"fluid": 31, "boundary": 0}}
+PBF_SLOT_OPS = {"pbf_density_lambda": 15, "pbf_corrections": 6,
+                "pbf_xsph": 6}
+
 
 def log(*args):
     print(*args, flush=True)
@@ -103,11 +142,15 @@ def cloth_scene(width, height, device):
 
 
 def kernel_counters():
+    from positionbaseddynamics_tpu_torch.fluids import cellgrid_cuda as fcc
     from positionbaseddynamics_tpu_torch.solver import grid_cloth_cuda as gcc
     from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
 
     return {"cloth_substep": gcc.cloth_substep_cuda,
-            "tet_substep": gtc.tet_substep_cuda}
+            "tet_substep": gtc.tet_substep_cuda,
+            "pbf_density_lambda": fcc.density_lambda_cuda,
+            "pbf_corrections": fcc.corrections_cuda,
+            "pbf_xsph": fcc.xsph_cuda}
 
 
 def reset_counts():
@@ -256,7 +299,7 @@ def run_main_path(dev, x_plain10):
     log(f"main path steps/s: {rate}")
 
     # device busy share of the main path: kernel time over wall time
-    busy = profile_busy(fn, st[0], 400, "main path")
+    busy, _ = profile_busy(fn, st[0], 400, "main path")
     return launches, rate, busy
 
 
@@ -401,9 +444,12 @@ def check_tet_kernel_against_plain(dev, bar):
     return max(devs), x10, record
 
 
-def profile_busy(fn, state, n_prof, label):
-    """Steps ``n_prof`` times under ``torch.profiler``; returns the card's
-    busy share of the wall time and logs the top kernels."""
+def profile_busy(fn, state, n_prof, label, top=5):
+    """Steps ``n_prof`` times under ``torch.profiler``. Returns the card's
+    busy share of the wall time and its busy microseconds per step, both
+    from the device-side events alone (an aten op's row repeats the device
+    time of the kernels it launched), and logs the ``top`` kernels."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     s = state
@@ -414,18 +460,16 @@ def profile_busy(fn, state, n_prof, label):
             s = fn(s)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy_us = sum(getattr(ev, "self_device_time_total", 0.0)
-                  for ev in prof.key_averages())
-    top = sorted(prof.key_averages(),
-                 key=lambda ev: -getattr(ev, "self_device_time_total", 0.0))
-    for ev in top[:5]:
+    device = [ev for ev in prof.key_averages()
+              if getattr(ev, "device_type", None) == DeviceType.CUDA]
+    busy_us = sum(ev.self_device_time_total for ev in device)
+    for ev in sorted(device, key=lambda ev: -ev.self_device_time_total)[:top]:
         log(f"  {label} device time: {ev.key[:60]!r} "
-            f"{getattr(ev, 'self_device_time_total', 0.0) / n_prof!r} us/step "
-            f"x{ev.count}")
+            f"{ev.self_device_time_total / n_prof!r} us/step x{ev.count}")
     busy = busy_us / 1e6 / wall
     log(f"{label} under profiler: {n_prof / wall!r} steps/s, device busy "
-        f"{busy!r} of wall time")
-    return busy
+        f"{busy!r} of wall time, {busy_us / n_prof!r} us/step")
+    return busy, busy_us / n_prof
 
 
 def run_tet_main_path(dev, x_plain10):
@@ -481,7 +525,7 @@ def run_tet_main_path(dev, x_plain10):
     rate = rate_windows(one_step, 1)
     assert torch.isfinite(st[0].particles.x).all()
     log(f"main path bar steps/s: {rate}")
-    busy = profile_busy(fn, st[0], 200, "main path bar")
+    busy, _ = profile_busy(fn, st[0], 200, "main path bar")
     return launches, rate, busy, dev10
 
 
@@ -596,6 +640,402 @@ def time_cloth_kernel(dev):
     return out
 
 
+def dam_scene(dims, device, cap_per_cell=12, boundary=True):
+    """The bench dam (``bench.py::bench_fluid``): an nx×ny×nz block of
+    particles at spacing 2r in a box of boundary particles 4(nx+2) by
+    2(ny+2) by (nz+2) spacings, through ``FluidScene.create`` (None means
+    the CUDA card). Returns the scene and the block's positions."""
+    from positionbaseddynamics_tpu_torch.fluids import model as fm
+
+    radius = 0.025
+    diam = 2 * radius
+    nx, ny, nz = dims
+    fluid = fm.block_positions((diam, diam, diam), dims, diam)
+    lo = (0.0, 0.0, 0.0)
+    hi = ((nx + 2) * diam * 4.0, (ny + 2) * diam * 2.0, (nz + 2) * diam)
+    bnd = (fm.box_boundary(lo, hi, diam) if boundary
+           else np.zeros((0, 3), np.float32))
+    scene = fm.FluidScene.create(len(fluid), bnd, particle_radius=radius,
+                                 cap_per_cell=cap_per_cell,
+                                 domain=(lo, hi), device=device)
+    return scene, fluid
+
+
+def step_tables(scene, state):
+    """The tables the next step of ``state`` builds, and its velocities
+    after the Euler update."""
+    from positionbaseddynamics_tpu_torch.fluids import cellgrid as fcg
+    from positionbaseddynamics_tpu_torch.fluids import model as fm
+
+    a = torch.tensor(scene.gravity, device=state.x.device).expand_as(state.x)
+    h = fm.cfl_dt(state.v, a, state.dt, scene)
+    v = state.v + h * a
+    x = state.x + h * v
+    return fcg.build_fluid_tables(scene.cellgrid, x, scene.mass), v
+
+
+class PassInputs:
+    """One step's tables with the kernels' outputs: the main path's first
+    two iterations of B3 and B4 (the first at ``x = x0 = xt``, the second
+    at the positions the first B4 wrote, ``x = x_out``, on the pair set
+    frozen at ``xt``), then B5 (pair set frozen at ``xt``) into
+    ``v_out``."""
+
+    def __init__(self, scene, state):
+        from positionbaseddynamics_tpu_torch.fluids import cellgrid as fcg
+        from positionbaseddynamics_tpu_torch.fluids import cellgrid_cuda as fcc
+
+        self.fcg, self.fcc = fcg, fcc
+        (slot, kept, self.xt, self.mt, self.active, self.nbr, self.nbr_ok,
+         _), v = step_tables(scene, state)
+        self.scene, self.spec = scene, scene.cellgrid
+        self.count = fcg.occupied_count(self.mt)
+        self.params = fcc.kernel_params(scene.density0, scene.support_radius,
+                                        scene.viscosity)
+        # per iteration: positions in, λ and density tables, positions out
+        self.iters = []
+        x = self.xt
+        for it in range(2):
+            self.iters.append((x, torch.zeros_like(self.mt),
+                               torch.zeros_like(self.mt), x.clone()))
+            self.b3(it)
+            self.b4(it)
+            x = self.iters[it][3]
+        self.x_out, self.lam_t, self.dens_t = (self.iters[0][3],
+                                               self.iters[0][1],
+                                               self.iters[0][2])
+        nslots = self.spec.n_cells * self.spec.cap
+        self.vt = fcg.scatter_planes(v, slot, kept, nslots, self.mt.shape)
+        self.v_out = self.vt.clone()
+        self.b5()
+
+    def cells(self):
+        return (self.active, self.nbr, self.nbr_ok)
+
+    def b3(self, it=0):
+        x, lam_t, dens_t, _ = self.iters[it]
+        self.fcc.density_lambda_cuda(self.spec, x, self.xt, self.mt,
+                                     self.count, *self.cells(), lam_t,
+                                     dens_t, self.params)
+
+    def b4(self, it=0):
+        x, lam_t, _, x_out = self.iters[it]
+        self.fcc.corrections_cuda(self.spec, x, self.xt, self.mt,
+                                  self.count, lam_t, *self.cells(), x_out,
+                                  self.params)
+
+    def b5(self):
+        self.fcc.xsph_cuda(self.spec, self.x_out, self.xt, self.vt, self.mt,
+                           self.count, self.dens_t, *self.cells(), self.v_out,
+                           self.params)
+
+    def plain_b3(self, it=0):
+        sc = self.scene
+        return self.fcc.density_lambda_reference(
+            self.spec, self.iters[it][0], self.xt, self.mt, *self.cells(),
+            sc.density0, sc.support_radius, chunk=PLAIN_CHUNK)
+
+    def plain_b4(self, it=0):
+        sc = self.scene
+        x, lam_t, _, _ = self.iters[it]
+        corr = self.fcc.corrections_reference(
+            self.spec, x, self.xt, self.mt, lam_t, *self.cells(),
+            sc.density0, sc.support_radius, chunk=PLAIN_CHUNK)
+        return x.index_add(1, self.active.long(), corr)
+
+    def plain_b5(self):
+        sc = self.scene
+        return self.fcg.xsph_cell(self.spec, self.x_out, self.vt, self.mt,
+                                  *self.cells(), self.dens_t, sc.viscosity,
+                                  sc.support_radius, self.xt,
+                                  chunk=PLAIN_CHUNK)
+
+
+def check_fluid_passes(pi, label, second_moves=True):
+    """Each PBF kernel's one pass against its plain version on the same
+    inputs: B3 and B4 at the first iteration (``x = x0``) and at the
+    second (``x ≠ x0``), B5 once. Returns the deviations; the keys of the
+    second iteration end in ``2``. ``second_moves``: the second iteration
+    must find compression (λ ≠ 0) and move particles."""
+    act = pi.active.long()
+    out = {}
+    for it, sfx in ((0, ""), (1, "2")):
+        x_in, lam_t, dens_t, x_out = pi.iters[it]
+        lam_r, dens_r = pi.plain_b3(it)
+        x_ref = pi.plain_b4(it)
+        torch.cuda.synchronize()
+        out.update({
+            f"rho{sfx}_max_abs_err": max_dev(dens_t[act], dens_r),
+            f"rho{sfx}_scale": dens_r.abs().max().item(),
+            f"lam{sfx}_max_abs_err": max_dev(lam_t[act], lam_r),
+            f"lam{sfx}_scale": lam_r.abs().max().item(),
+            f"x{sfx}_max_abs_err": max_dev(x_out, x_ref),
+            f"x{sfx}_moved": max_dev(x_ref, x_in),
+        })
+    out["x_moved_from_x0"] = max_dev(pi.iters[1][0], pi.xt)
+    v_ref = pi.plain_b5()
+    torch.cuda.synchronize()
+    out.update({
+        "v_max_abs_err": max_dev(pi.v_out, v_ref),
+        "v_smoothed": max_dev(v_ref, pi.vt),
+        "max_count": pi.count.max().item(),
+        "active": pi.active.shape[0],
+    })
+    log(f"check PBF passes {label}: {out}")
+    for sfx in ("", "2"):
+        assert (out[f"rho{sfx}_max_abs_err"]
+                <= FLUID_RHO_RTOL * out[f"rho{sfx}_scale"]), out
+        # λ = −max(ρ/ρ0 − 1, 0)/Σ|∇C|²: subtracting 1 at the dam's
+        # compression (ρ/ρ0 − 1 ≤ ~0.03) cancels about two of ρ's digits
+        assert (out[f"lam{sfx}_max_abs_err"]
+                <= FLUID_LAM_RTOL * out[f"lam{sfx}_scale"]), out
+        assert out[f"x{sfx}_max_abs_err"] <= FLUID_PASS_TOL, out
+        if sfx == "" or second_moves:
+            assert min(out[f"lam{sfx}_scale"], out[f"x{sfx}_moved"]) > 0, out
+    assert out["v_max_abs_err"] <= FLUID_PASS_TOL, out
+    assert min(out["x_moved_from_x0"], out["v_smoothed"]) > 0, out
+    return out
+
+
+def fluid_steps_vs_plain(scene, state, steps, label):
+    """``make_fluid_step_fn`` against the plain step on the card, one step
+    at a time. Returns the max|dx| after each step, the plain step's
+    median seconds and the kernel route's final state."""
+    from positionbaseddynamics_tpu_torch.fluids import model as fm
+
+    fn = fm.make_fluid_step_fn(scene)
+    assert fn.path == "cuda_kernel", fn.path
+    sk = sp = state
+    devs, plain_s = [], []
+    for _ in range(steps):
+        sk = fn(sk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sp = fm.fluid_step_reference(sp, scene, chunk=PLAIN_CHUNK)
+        torch.cuda.synchronize()
+        plain_s.append(time.perf_counter() - t0)
+        devs.append(max_dev(sk.x, sp.x))
+    assert torch.isfinite(sk.x).all() and torch.isfinite(sk.v).all()
+    assert sk.overflow.item() == 0.0 and sp.overflow.item() == 0.0
+    log(f"check fluid {label}: max|dx| kernel step vs plain step per step "
+        f"{devs!r}; plain step {statistics.median(plain_s)!r} s")
+    assert max(devs) <= FLUID_STEP_TOL, devs
+    return devs, statistics.median(plain_s), sk
+
+
+def check_fluid_kernels_against_plain(dev):
+    """Phase 6a: the PBF kernels against their plain versions on the 100k
+    dam (10 steps, then one pass each on the tables of the next step) and
+    on a cap-40 dam without boundary whose cells hold more than 32
+    particles."""
+    from positionbaseddynamics_tpu_torch.fluids import model as fm
+
+    t0 = time.perf_counter()
+    scene, fluid = dam_scene(DAM, dev)
+    spec = scene.cellgrid
+    log(f"built the {DAM} dam in {time.perf_counter() - t0!r} s: "
+        f"{scene.n_fluid} fluid and {scene.boundary_x.shape[0]} boundary "
+        f"particles, {spec.dims} cells of {spec.cap} slots, capb "
+        f"{spec.boundary.capb}, max_active {spec.max_active}")
+    devs, plain_step_s, s10 = fluid_steps_vs_plain(
+        scene, fm.FluidState.create(fluid, device=dev), FLUID_CHECK_STEPS,
+        f"{DAM} {FLUID_CHECK_STEPS} steps")
+    passes = check_fluid_passes(PassInputs(scene, s10), f"{DAM} step 11")
+
+    # a 6x8x6 block squeezed to 0.6 of its spacing (up to 36 particles a
+    # cell, more than a warp has lanes) with seeded random velocities; the
+    # 10 steps start from it squeezed to 0.85, which expands without
+    # crowding a cell past 40
+    small, block = dam_scene((6, 8, 6), dev, cap_per_cell=40, boundary=False)
+    diam = 0.05
+    v0 = torch.tensor(np.random.default_rng(0).normal(0.0, 0.05, block.shape),
+                      dtype=torch.float32, device=dev)
+
+    def squeezed(f):
+        x = (diam + f * (block - diam)).astype(np.float32)
+        return dataclasses.replace(fm.FluidState.create(x, device=dev), v=v0)
+
+    # the first correction spreads this block (4.6 times the rest density)
+    # below rest density, so its second iteration has λ = 0 everywhere; the
+    # dam above and the card test's cap-40 case run it with compression
+    small_passes = check_fluid_passes(PassInputs(small, squeezed(0.6)),
+                                      "6x8x6 cap 40, no boundary",
+                                      second_moves=False)
+    assert small.cellgrid.cap == 40 and small_passes["max_count"] > 32
+    small_devs, _, _ = fluid_steps_vs_plain(small, squeezed(0.85),
+                                            FLUID_CHECK_STEPS,
+                                            "6x8x6 cap 40, no boundary")
+    return {"step_devs": devs, "plain_step_s": plain_step_s,
+            "passes": passes, "cap40_passes": small_passes,
+            "cap40_step_devs": small_devs}
+
+
+def run_fluid_main_path(dev):
+    """Phase 6b: FluidScene.create -> make_fluid_step_fn -> 100 steps of
+    the 100k dam on the card, through the entry points' defaults."""
+    from positionbaseddynamics_tpu_torch.fluids import model as fm
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scene, fluid = dam_scene(DAM, None)
+    state = fm.FluidState.create(fluid)
+    fn = fm.make_fluid_step_fn(scene)
+    torch.cuda.synchronize()
+    peak_build = torch.cuda.max_memory_allocated()
+    log(f"main path: {DAM} dam, {scene.n_fluid} particles, route {fn.path}, "
+        f"peak device memory of the build {peak_build} B")
+    assert fn.path == "cuda_kernel", fn.path
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    s = state
+    for _ in range(FLUID_STEPS_MAIN):
+        s = fn(s)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"main path dam: launch counts {counts}")
+    x = s.x
+    assert torch.isfinite(x).all() and torch.isfinite(s.v).all()
+    overflow = s.overflow.item()
+    assert overflow == 0.0, f"capacity overflow {overflow}"
+    x0 = torch.tensor(fluid, device=x.device)
+    spread = (x[:, 0].max() - x0[:, 0].max()).item()
+    assert spread > 0.0, f"the dam's front did not move: {spread}"
+    # the reference ejects the first boundary-side layers at tens of m/s in
+    # the first steps (JAX does the same), so the mean height rises
+    rise = (x[:, 1].mean() - x0[:, 1].mean()).item()
+    vmax = s.v.abs().max().item()
+    want = {"pbf_density_lambda": FLUID_STEPS_MAIN * scene.iterations,
+            "pbf_corrections": FLUID_STEPS_MAIN * scene.iterations,
+            "pbf_xsph": FLUID_STEPS_MAIN}
+    for k, n in want.items():
+        assert counts[k] == n, (k, counts[k], n)
+    log(f"main path dam {FLUID_STEPS_MAIN} steps: simulated time "
+        f"{s.time.item()!r} s, last dt {s.dt.item()!r}, front moved "
+        f"{spread!r}, mean height {rise:+.6f}, max|v| {vmax!r}, overflow "
+        f"{overflow}, peak device memory of the steps {peak} B")
+
+    st = [s]
+
+    def one_step():
+        st[0] = fn(st[0])
+
+    rate = rate_windows(one_step, 1)
+    assert torch.isfinite(st[0].x).all()
+    log(f"main path dam steps/s: {rate}; after the windows: time "
+        f"{st[0].time.item()!r}, overflow {st[0].overflow.item()}")
+    busy, busy_us = profile_busy(fn, st[0], 50, "main path dam", top=10)
+
+    # a step must not sync the host (after the first, which copies the
+    # grid's constants to the card once)
+    sync_error = None
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st[0] = fn(st[0])
+    except RuntimeError as e:
+        sync_error = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"main path dam step under sync debug mode 'error': "
+        f"{'no host sync' if sync_error is None else sync_error}")
+    return {"launches": counts, "steps_per_s": rate, "device_busy": busy,
+            "device_us_per_step": busy_us, "peak_bytes": peak,
+            "peak_build_bytes": peak_build,
+            "overflow": overflow, "scene": scene,
+            "state": st[0], "sync_error": sync_error}
+
+
+def work_counts(spec, xt0, mt, active, nbr, nbr_ok, support, chunk=None):
+    """What one pass over these tables has to do, counted from the data
+    (for the kernels' bounds): ``rows`` occupied active cells; ``slots``
+    occupied active slots; ``fluid_candidates`` and
+    ``boundary_candidates``, per occupied active slot the occupied slots of
+    its 27 neighbor cells (the pairs whose frozen test the kernels
+    evaluate); ``fluid_pairs`` and ``boundary_pairs``, those that pass
+    it."""
+    from positionbaseddynamics_tpu_torch.fluids import cellgrid as fcg
+
+    bt = spec.boundary
+    count = fcg.occupied_count(mt).to(torch.float64)
+    bcount = None if bt is None else bt.count.to(torch.float64)
+
+    def run(active, nbr, nbr_ok, w):
+        p = fcg._Pairs(spec, xt0, xt0, mt, active, nbr, nbr_ok, support, w)
+        occ = (p.ma > 0.0).to(torch.float64)
+        nb = nbr.to(torch.int64)
+        ok = nbr_ok.to(torch.float64)
+        rows = [occ, occ * torch.sum(count[nb] * ok, -1)[:, None],
+                p.ok.sum(-1).to(torch.float64)]
+        if bt is None:
+            rows += [torch.zeros_like(occ)] * 2
+        else:
+            rows += [occ * torch.sum(bcount[nb] * ok, -1)[:, None],
+                     p.okb.sum(-1).to(torch.float64)]
+        return torch.stack(rows)
+
+    totals = fcg._chunked(run, chunk, mt, active, nbr, nbr_ok).sum(dim=(1, 2))
+    names = ("slots", "fluid_candidates", "fluid_pairs",
+             "boundary_candidates", "boundary_pairs")
+    out = {k: int(v) for k, v in zip(names, totals.tolist())}
+    out["rows"] = int((count[active.long()] > 0).sum().item())
+    return out
+
+
+def time_fluid_kernels(scene, state):
+    """Phase 6c: each PBF kernel per launch, its plain version per pass and
+    its bound, on the tables of the next step of ``state`` at the main
+    path's shapes."""
+    pi = PassInputs(scene, state)
+    spec = pi.spec
+    work = work_counts(spec, pi.xt, pi.mt, *pi.cells(),
+                       scene.support_radius, chunk=PLAIN_CHUNK)
+    # bytes the function needs, each read once: per occupied active cell
+    # its id, 27 neighbour ids and flags; per neighbour cell of those its
+    # occupied count and (B3, B4) its boundary count and occupied boundary
+    # slots (x, y, z, psi); per occupied active slot the floats below. The
+    # empty slots and unoccupied rows the kernels also touch are not work
+    # the function needs.
+    nb = torch.unique(pi.nbr[pi.nbr_ok].long())
+    common = work["rows"] * (4 + 27 * 4 + 27) + 4 * nb.numel()
+    bcount = spec.boundary.count[nb].long()
+    boundary_bytes = int((bcount * 16).sum().item()) + 4 * nb.numel()
+    sizes = {  # (floats read, floats written per slot, reads the boundary)
+        "pbf_density_lambda": (7, 2, True),     # x, x0, m; lambda, rho
+        "pbf_corrections": (8, 3, True),        # x, x0, m, lambda; x
+        "pbf_xsph": (11, 3, False)}             # x, x0, m, v, rho; v
+    runs = {"pbf_density_lambda": (pi.b3, pi.plain_b3),
+            "pbf_corrections": (pi.b4, pi.plain_b4),
+            "pbf_xsph": (pi.b5, pi.plain_b5)}
+    out = {"work": work}
+    for name, (kernel, plain) in runs.items():
+        r = {"interval_ms": cuda_time_ms(kernel, 200)}
+        kms = device_ms(kernel, 100, name + "_kernel")
+        r["ms"] = r["interval_ms"] if kms is None else kms
+        r["ms_source"] = "cuda events" if kms is None else "profiler"
+        r["plain_ms"] = cuda_time_ms(plain, 3)
+        n_in, n_out, bnd = sizes[name]
+        r["bytes"] = 4 * work["slots"] * (n_in + n_out) + common + (
+            boundary_bytes if bnd else 0)
+        ops = PBF_PAIR_OPS[name]
+        r["ops"] = (PBF_SLOT_OPS[name] * work["slots"]
+                    + PBF_TEST_OPS["fluid"] * work["fluid_candidates"]
+                    + ops["fluid"] * work["fluid_pairs"])
+        if bnd:
+            r["ops"] += (PBF_TEST_OPS["boundary"] * work["boundary_candidates"]
+                         + ops["boundary"] * work["boundary_pairs"])
+        t_bytes = r["bytes"] / H100_BYTES_PER_S * 1e3
+        t_ops = r["ops"] / H100_FP32_FLOPS * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        r["bound_bytes_ms"], r["bound_ops_ms"] = t_bytes, t_ops
+        out[name] = r
+    for key, v in out.items():
+        log(f"timing dam {key}: {v!r}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -628,6 +1068,10 @@ def main() -> int:
         dev, bar_plain10)
     t = time_cloth_kernel(dev)
     tt = time_tet_kernel(dev, bar)
+    del bar
+    fc = check_fluid_kernels_against_plain(dev)
+    dam = run_fluid_main_path(dev)
+    ft = time_fluid_kernels(dam["scene"], dam["state"])
 
     kernels = [{
         "name": "cloth_substep",
@@ -673,6 +1117,44 @@ def main() -> int:
         "main_path_device_busy": tet_busy,
         **tet_record,
     }]
+    pbf = {"pbf_density_lambda": ("fluids/cellgrid_pallas.py:94", "rho"),
+           "pbf_corrections": ("fluids/cellgrid_pallas.py:125", "x"),
+           "pbf_xsph": ("fluids/cellgrid_pallas.py:149", "v")}
+    for kname, (replaces, what) in pbf.items():
+        r = ft[kname]
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "positionbaseddynamics_tpu_torch/csrc/pbf_cells.cu",
+            "replaces": "positionbaseddynamics_tpu/" + replaces,
+            "launches": dam["launches"][kname],
+            "max_abs_err": max(fc["passes"].get(f"{what}{sfx}_max_abs_err",
+                                                0.0) for sfx in ("", "2")),
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+            "ms_source": r["ms_source"],
+            "interval_ms": r["interval_ms"],
+            "bound_bytes_ms": r["bound_bytes_ms"],
+            "bound_ops_ms": r["bound_ops_ms"],
+            "ops": r["ops"],
+            "bytes": r["bytes"],
+            "cap40_max_abs_err": max(
+                fc["cap40_passes"].get(f"{what}{sfx}_max_abs_err", 0.0)
+                for sfx in ("", "2")),
+            "step10_max_abs_err": max(fc["step_devs"]),
+            "cap40_step10_max_abs_err": max(fc["cap40_step_devs"]),
+            "main_path_steps_per_s": dam["steps_per_s"],
+            "main_path_device_busy": dam["device_busy"],
+            "main_path_device_us_per_step": dam["device_us_per_step"],
+            "main_path_peak_bytes": dam["peak_bytes"],
+            "build_peak_bytes": dam["peak_build_bytes"],
+            "plain_step_s": fc["plain_step_s"],
+            "work": ft["work"],
+        })
+    assert dam["sync_error"] is None, dam["sync_error"]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

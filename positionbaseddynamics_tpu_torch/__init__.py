@@ -7,7 +7,7 @@ the JAX function on the same inputs. This package imports ``torch`` and
 numpy only, never ``jax`` and never the JAX package.
 
 Ported so far (slice 1, the 320×320 XPBD cloth step; slice 2, the
-80×36×36 XPBD FEM-tet bar):
+80×36×36 XPBD FEM-tet bar; slice 3, the 100k PBF breaking dam):
 
 * ``ops/integration.py`` — semi-implicit Euler and velocity updates;
 * ``ops/mathutils.py``, ``ops/xpbd.py`` — the 3×3 helpers, the signed SVD
@@ -20,12 +20,16 @@ Ported so far (slice 1, the 320×320 XPBD cloth step; slice 2, the
   cloth and tet substeps as hand-written CUDA kernels;
 * ``solver/step.py`` — ``StepConfig``, ``step``, ``make_step_fn``,
   ``rollout``;
-* ``models/`` — ``SceneBuilder`` for regular triangle and tet grids.
+* ``models/`` — ``SceneBuilder`` for regular triangle and tet grids;
+* ``fluids/`` — the SPH kernel, the hash neighbor search, the cell-dense
+  PBF pipeline (``cellgrid.py``) with its density, correction and XSPH
+  passes as hand-written CUDA kernels (``cellgrid_cuda.py`` +
+  ``csrc/pbf_cells.cu``), and ``FluidScene`` / ``make_fluid_step_fn``.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without CUDA they raise rather than run on the CPU.
 """
 
-from . import convert, models, ops, solver
+from . import convert, fluids, models, ops, solver
 
 __version__ = "0.1.0"

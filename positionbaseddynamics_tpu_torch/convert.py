@@ -3,18 +3,21 @@
 The JAX package's ``SimState``, ``GridClothBatch`` and ``GridTetBatch``
 leaves, taken out as numpy arrays (``np.asarray`` of each leaf) together
 with the batches' static fields, become the port's ``(SimState,
-ConstraintSet)``. Both
-packages then compute the same trajectory from the same scene. This
-module reads numpy only; it never imports the JAX package.
+ConstraintSet)``; a JAX ``FluidScene`` (with its ``CellGridSpec`` and
+``BoundaryTables``) and ``FluidState`` become the port's. Both packages
+then compute the same trajectory from the same scene. This module reads
+numpy only; it never imports the JAX package.
 """
 from __future__ import annotations
 
-from typing import Mapping, Sequence, Tuple
+from typing import Any, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ._device import resolve_device
+from .fluids.cellgrid import CellGridSpec, boundary_tables
+from .fluids.model import FluidScene, FluidState
 from .solver.constraints import ConstraintSet
 from .solver.grid_cloth import GridClothBatch
 from .solver.grid_tet import GridTetBatch
@@ -85,3 +88,76 @@ def scene_from_numpy(state_arrays: Mapping[str, np.ndarray],
                          n_particles=particles.x.shape[-2],
                          grid_tets=tuple(gts))
     return state, cset
+
+
+_FLUID_ARRAYS = ("mass", "boundary_x", "boundary_psi")
+_FLUID_STATICS = ("density0", "support_radius", "viscosity", "iterations",
+                  "cap_per_cell", "min_dt", "max_dt", "particle_radius",
+                  "gravity", "hash_cap")
+_GRID_STATICS = ("origin", "dims", "cell", "cap", "max_active")
+_BOUNDARY_FIELDS = ("xt", "psit", "capb", "near", "near_frac")
+_FLUID_STATE_FIELDS = ("x", "v", "old_x", "last_x", "time", "dt")
+
+
+def _cellgrid_from_numpy(grid: Optional[Mapping[str, Any]], dev
+                         ) -> Optional[CellGridSpec]:
+    if grid is None:
+        return None
+    missing = [k for k in _GRID_STATICS if k not in grid]
+    if missing:
+        raise ValueError(f"cellgrid lacks {missing}")
+    bnd = grid.get("boundary")
+    if bnd is not None:
+        missing = [k for k in _BOUNDARY_FIELDS if k not in bnd]
+        if missing:
+            raise ValueError(f"cellgrid.boundary lacks {missing}")
+        bnd = boundary_tables(bnd["xt"], bnd["psit"], bnd["capb"],
+                              bnd["near"], bnd["near_frac"], dev)
+    return CellGridSpec(origin=tuple(float(v) for v in grid["origin"]),
+                        dims=tuple(int(v) for v in grid["dims"]),
+                        cell=float(grid["cell"]), cap=int(grid["cap"]),
+                        max_active=int(grid["max_active"]), boundary=bnd)
+
+
+def fluid_scene_from_numpy(scene: Mapping[str, Any], device=None
+                           ) -> FluidScene:
+    """A JAX ``FluidScene`` as the port's. ``scene`` maps each field of the
+    JAX scene to its value: ``mass``, ``boundary_x`` and ``boundary_psi``
+    as numpy arrays, the statics (``density0, support_radius, viscosity,
+    iterations, cap_per_cell, min_dt, max_dt, particle_radius, gravity,
+    hash_cap``) as Python values, and ``cellgrid`` as None or a mapping of
+    the ``CellGridSpec``'s fields (``origin, dims, cell, cap, max_active,
+    boundary``), whose ``boundary`` is None or a mapping of the
+    ``BoundaryTables``' fields (``xt`` a sequence of three ``(n_cells,
+    capb)`` planes, ``psit``, ``capb``, ``near``, ``near_frac``). Arrays
+    are copied to ``device`` (None means CUDA)."""
+    dev = resolve_device(device)
+    missing = [k for k in _FLUID_ARRAYS + _FLUID_STATICS + ("cellgrid",)
+               if k not in scene]
+    if missing:
+        raise ValueError(f"scene lacks {missing}")
+    arrays = {k: torch.tensor(np.asarray(scene[k], np.float32), device=dev)
+              for k in _FLUID_ARRAYS}
+    arrays["boundary_x"] = arrays["boundary_x"].reshape(-1, 3)
+    statics = {k: scene[k] for k in _FLUID_STATICS}
+    statics["gravity"] = tuple(float(g) for g in statics["gravity"])
+    return FluidScene(**arrays, **statics,
+                      cellgrid=_cellgrid_from_numpy(scene["cellgrid"], dev))
+
+
+def fluid_state_from_numpy(state: Mapping[str, Any], device=None
+                           ) -> FluidState:
+    """A JAX ``FluidState`` as the port's: ``x, v, old_x, last_x`` ``(N,
+    3)``, ``time`` and ``dt`` scalars and ``overflow`` (optional) as numpy
+    arrays, copied to ``device`` (None means CUDA) as float32."""
+    dev = resolve_device(device)
+    missing = [k for k in _FLUID_STATE_FIELDS if k not in state]
+    if missing:
+        raise ValueError(f"state lacks {missing}")
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    overflow = state.get("overflow")
+    return FluidState(**{k: f32(state[k]) for k in _FLUID_STATE_FIELDS},
+                      overflow=None if overflow is None else f32(overflow))

@@ -27,7 +27,9 @@ def test_port_has_the_slice_modules():
                  "solver.state", "solver.constraints", "solver.grid_cloth",
                  "solver.grid_cloth_cuda", "solver.grid_tet",
                  "solver.grid_tet_cuda", "solver.step", "models.mesh",
-                 "models.builders", "_build", "convert"):
+                 "models.builders", "_build", "convert", "fluids.sph",
+                 "fluids.neighborhood", "fluids.cellgrid",
+                 "fluids.cellgrid_cuda", "fluids.model"):
         assert f"positionbaseddynamics_tpu_torch.{name}" in mods, name
 
 

@@ -1,5 +1,5 @@
-"""The CUDA cloth and tet kernels against their plain PyTorch versions, on
-the card.
+"""The CUDA cloth, tet and PBF kernels against their plain PyTorch
+versions, on the card.
 
 These tests import only torch and the port, so they run on a machine with
 the card (``python -m pytest tests/test_torch_kernel_card.py``); without a
@@ -153,3 +153,155 @@ def test_tet_step_fn_takes_the_kernel_on_card(cuda, iters):
         tol = 1e-5 if f != "v" else 2e-5 / 1e-3
         assert dev.abs().max().item() <= tol, f
     assert out.time.item() == cpu.time.item()
+
+
+def _fluid_dam(cuda, block=(12, 10, 8), hi=(1.4, 1.1, 0.5), cap=12,
+               squeeze=0.85, boundary=True):
+    """A small dam on the card with positions squeezed below the lattice
+    spacing and jittered (seeded), so every pass does work; its tables."""
+    import numpy as np
+
+    from positionbaseddynamics_tpu_torch.fluids import cellgrid as fcg
+    from positionbaseddynamics_tpu_torch.fluids import model as fm
+
+    d = 0.05
+    fluid = fm.block_positions((d, d, d), block, d)
+    bnd = (fm.box_boundary((0, 0, 0), hi, d) if boundary
+           else np.zeros((0, 3), np.float32))
+    scene = fm.FluidScene.create(len(fluid), bnd, cap_per_cell=cap,
+                                 domain=((0, 0, 0), hi), device=cuda)
+    rng = np.random.default_rng(11)
+    x = (d + squeeze * (fluid - d) + rng.uniform(-0.0075, 0.0075, fluid.shape)
+         - np.float32([0.0, 0.01, 0.0])).astype(np.float32)
+    tables = fcg.build_fluid_tables(scene.cellgrid,
+                                    torch.tensor(x, device=cuda), scene.mass)
+    v = torch.tensor(rng.normal(0, 0.5, fluid.shape).astype(np.float32),
+                     device=cuda)
+    return scene, tables, v
+
+
+# ρ within 1e-5 relative and Δx, Δv within 1e-6: the kernels add each
+# cell's terms in another order than torch.sum and contract into FMAs;
+# their pair sets equal the plain versions' exactly.
+@pytest.mark.parametrize("kw", [
+    {}, {"block": (6, 8, 6), "hi": (1.2, 0.5, 0.4), "cap": 40,
+         "squeeze": 0.61}, {"boundary": False}],
+    ids=["12x10x8", "cap40", "no_boundary"])
+def test_pbf_kernels_match_plain_versions_on_card(cuda, kw):
+    from positionbaseddynamics_tpu_torch.fluids import cellgrid as fcg
+    from positionbaseddynamics_tpu_torch.fluids import cellgrid_cuda as fcc
+
+    scene, (slot, kept, xt, mt, active, nbr, nbr_ok, ov), v = _fluid_dam(
+        cuda, **kw)
+    spec, d0, h = scene.cellgrid, scene.density0, scene.support_radius
+    count = fcg.occupied_count(mt)
+    if "cap" in kw:
+        assert count.max().item() > 32
+    params = fcc.kernel_params(d0, h, scene.viscosity)
+    act = active.long()
+    lam_t, dens_t = torch.zeros_like(mt), torch.zeros_like(mt)
+    fcc.density_lambda_cuda(spec, xt, xt, mt, count, active, nbr, nbr_ok,
+                            lam_t, dens_t, params)
+    lam_r, dens_r = fcc.density_lambda_reference(spec, xt, xt, mt, active,
+                                                 nbr, nbr_ok, d0, h)
+    torch.cuda.synchronize()
+    assert (lam_r < 0).any()
+    assert ((dens_t[act] - dens_r).abs().max()
+            <= 1e-5 * dens_r.abs().max())
+    assert (lam_t[act] - lam_r).abs().max() <= 1e-5 * lam_r.abs().max()
+
+    x_out = xt.clone()
+    fcc.corrections_cuda(spec, xt, xt, mt, count, lam_t, active, nbr,
+                         nbr_ok, x_out, params)
+    corr = fcc.corrections_reference(spec, xt, xt, mt, lam_t, active, nbr,
+                                     nbr_ok, d0, h)
+    x_ref = xt.index_add(1, act, corr)
+    assert (x_ref - xt).abs().max().item() > 1e-4
+    assert (x_out - x_ref).abs().max().item() <= 1e-6
+
+    # the main path's second iteration: positions moved by the first B4,
+    # the pair set still frozen at xt
+    lam2, dens2 = torch.zeros_like(mt), torch.zeros_like(mt)
+    fcc.density_lambda_cuda(spec, x_out, xt, mt, count, active, nbr, nbr_ok,
+                            lam2, dens2, params)
+    lam2_r, dens2_r = fcc.density_lambda_reference(spec, x_out, xt, mt,
+                                                   active, nbr, nbr_ok, d0, h)
+    torch.cuda.synchronize()
+    assert (lam2_r < 0).any()
+    assert ((dens2[act] - dens2_r).abs().max()
+            <= 1e-5 * dens2_r.abs().max())
+    assert (lam2[act] - lam2_r).abs().max() <= 1e-5 * lam2_r.abs().max()
+    x_out2 = x_out.clone()
+    fcc.corrections_cuda(spec, x_out, xt, mt, count, lam2, active, nbr,
+                         nbr_ok, x_out2, params)
+    corr2 = fcc.corrections_reference(spec, x_out, xt, mt, lam2, active,
+                                      nbr, nbr_ok, d0, h)
+    x2_ref = x_out.index_add(1, act, corr2)
+    assert (x2_ref - x_out).abs().max().item() > 0.0
+    assert (x_out2 - x2_ref).abs().max().item() <= 1e-6
+
+    nslots = spec.n_cells * spec.cap
+    vt = fcg.scatter_planes(v, slot, kept, nslots, mt.shape)
+    v_out = vt.clone()
+    # positions moved by the corrections, pair set frozen at xt
+    fcc.xsph_cuda(spec, x_out, xt, vt, mt, count, dens_t, active, nbr,
+                  nbr_ok, v_out, params)
+    v_ref = fcg.xsph_cell(spec, x_out, vt, mt, active, nbr, nbr_ok, dens_t,
+                          scene.viscosity, h, xt)
+    assert (v_ref - vt).abs().max().item() > 1e-4
+    assert (v_out - v_ref).abs().max().item() <= 1e-6
+
+
+def test_pbf_kernels_refuse_what_they_do_not_take(cuda):
+    from positionbaseddynamics_tpu_torch.fluids import cellgrid as fcg
+    from positionbaseddynamics_tpu_torch.fluids import cellgrid_cuda as fcc
+
+    scene, (_, _, xt, mt, active, nbr, nbr_ok, _), _ = _fluid_dam(cuda)
+    spec = scene.cellgrid
+    count = fcg.occupied_count(mt)
+    params = fcc.kernel_params(scene.density0, scene.support_radius)
+    lam_t, dens_t = torch.zeros_like(mt), torch.zeros_like(mt)
+    before = fcc.density_lambda_cuda.launches
+    with pytest.raises(ValueError, match="nbr"):
+        fcc.density_lambda_cuda(spec, xt, xt, mt, count, active,
+                                nbr.to(torch.int64), nbr_ok, lam_t, dens_t,
+                                params)
+    with pytest.raises(ValueError, match="CUDA"):
+        fcc.density_lambda_cuda(spec, xt.cpu(), xt.cpu(), mt.cpu(),
+                                count.cpu(), active.cpu(), nbr.cpu(),
+                                nbr_ok.cpu(), lam_t.cpu(), dens_t.cpu(),
+                                params)
+    with pytest.raises(ValueError, match="x_out"):
+        fcc.corrections_cuda(spec, xt, xt, mt, count, lam_t, active, nbr,
+                             nbr_ok, xt, params)
+    assert fcc.density_lambda_cuda.launches == before
+
+
+def test_fluid_step_fn_takes_the_kernels_on_card(cuda):
+    """5 density and 5 correction launches and one XSPH launch a step, and
+    the same trajectory as the plain step on the CPU."""
+    import numpy as np
+
+    from positionbaseddynamics_tpu_torch.fluids import cellgrid_cuda as fcc
+    from positionbaseddynamics_tpu_torch.fluids import model as fm
+
+    d = 0.05
+    fluid = fm.block_positions((d, d, d), (12, 10, 8), d)
+    hi = (1.4, 1.1, 0.5)
+    bnd = fm.box_boundary((0, 0, 0), hi, d)
+    scene = fm.FluidScene.create(len(fluid), bnd, domain=((0, 0, 0), hi),
+                                 device=cuda)
+    fn = fm.make_fluid_step_fn(scene, device=cuda)
+    assert fn.path == "cuda_kernel"
+    ref = fm.make_fluid_step_fn(scene.to("cpu"), device="cpu")
+    s, r = (fm.FluidState.create(fluid, device=cuda),
+            fm.FluidState.create(fluid, device="cpu"))
+    wrappers = (fcc.density_lambda_cuda, fcc.corrections_cuda, fcc.xsph_cuda)
+    before = [w.launches for w in wrappers]
+    for _ in range(5):
+        s, r = fn(s), ref(r)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [25, 25, 5]
+    assert s.overflow.item() == 0.0 and r.overflow.item() == 0.0
+    assert np.isfinite(s.x.cpu().numpy()).all()
+    assert (s.x.cpu() - r.x).abs().max().item() <= 1e-4
+    assert abs(s.time.item() - r.time.item()) <= 1e-5 * r.time.item()
