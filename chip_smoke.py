@@ -32,7 +32,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    launch counts set to 0 just before and read just after (5/5/1 a step),
    ``overflow`` 0 and every position finite; steps/s, the card's busy
    share and its peak memory; each kernel per launch beside its plain
-   version and its bound; and that a step never syncs the host.
+   version and its bound, logged beside the recorded times of their
+   first design (``RECORDED_FIRST_DESIGN_MS``); the staging and lane use
+   that the dam's tables give B3 and B4; and that a step never syncs the
+   host.
+
+The build log's ``-Xptxas -v`` lines are printed per ``__global__``
+(registers, shared memory, spills), and for the PBF kernels the
+registers, shared memory and resident blocks an SM that the CUDA runtime
+reports (``cellgrid_cuda.kernel_resources``).
 
 Every steps/s figure is the median of ``N_WINDOWS`` windows of at least
 ``WINDOW_S`` seconds on the host clock, printed with the lowest and the
@@ -47,6 +55,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -96,6 +105,13 @@ FLUID_PASS_TOL = 1e-6           # one pass: max|dx|, max|dv|
 FLUID_RHO_RTOL = 1e-5           # one pass: max|d rho| / max rho
 FLUID_LAM_RTOL = 1e-4           # one pass: max|d lambda| / max|lambda|
 PLAIN_CHUNK = 2048              # active cells per piece of the plain passes
+# B3-B5 per launch at the 100k dam in their first design (one warp per
+# active cell, one lane per slot, neighbour rows read from global memory),
+# as PERF.md records them: chip_smoke.py on an NVIDIA H100 80GB HBM3 at
+# 700.00 W. Kernel times held within 3% between calls. Only logged beside
+# this run's times, as recorded figures; no result is computed from them.
+RECORDED_FIRST_DESIGN_MS = {"pbf_density_lambda": 0.3036,
+                            "pbf_corrections": 0.2917, "pbf_xsph": 0.2629}
 
 # fp32 operations counted from csrc/pbf_cells.cu. Per candidate pair (an
 # occupied slot of a neighbour cell) the frozen test: the mass or psi
@@ -127,6 +143,37 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(logs):
+    """``{kernel: {"registers", "smem", "stack", "spill_stores",
+    "spill_loads"}}`` from ``nvcc -Xptxas -v`` output (``{source stem:
+    text}``), and the lines it read, each prefixed with its kernel."""
+    out, lines = {}, []
+    for stem, text in logs.items():
+        name = None
+        for line in text.splitlines():
+            m = re.search(r"(?:entry function|Function properties for) "
+                          r"'?(\S+?)'?(?: |$)", line)
+            if m:
+                # the kernels' names hold no digits; a mangled name puts
+                # digits (a length, a file hash) before each part
+                short = re.search(r"[a-z][a-z_]*_kernel", m.group(1))
+                name = short.group(0) if short else m.group(1)
+                out.setdefault(name, {})
+                continue
+            if name is None or not ("registers" in line or "spill" in line):
+                continue
+            lines.append(f"{stem} {name}: {line.strip()}")
+            for key, pat in (("registers", r"(\d+) registers"),
+                             ("smem", r"(\d+) bytes smem"),
+                             ("stack", r"(\d+) bytes stack frame"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads")):
+                hit = re.search(pat, line)
+                if hit:
+                    out[name][key] = int(hit.group(1))
+    return out, lines
 
 
 def cloth_scene(width, height, device):
@@ -983,6 +1030,47 @@ def work_counts(spec, xt0, mt, active, nbr, nbr_ok, support, chunk=None):
     return out
 
 
+def neighbourhood_counts(spec, mt, active, nbr, nbr_ok):
+    """Per occupied active cell: its particles, and the fluid and boundary
+    candidates of its 27-cell neighbourhood (the occupied slots of its
+    neighbours), the rows B3 and B4 stage."""
+    from positionbaseddynamics_tpu_torch.fluids import cellgrid as fcg
+
+    count = fcg.occupied_count(mt).long()
+    n = count[active.long()]
+    occ = n > 0
+    nb_ids, ok = nbr.long()[occ], nbr_ok[occ]
+    nf = (count[nb_ids] * ok).sum(-1)
+    bt = spec.boundary
+    nb = (torch.zeros_like(nf) if bt is None
+          else (bt.count.long()[nb_ids] * ok).sum(-1))
+    return n[occ], nf, nb
+
+
+def staging_counts(spec, mt, active, nbr, nbr_ok, stage):
+    """How B3 and B4 take these tables, ``stage`` being the fluid and
+    boundary candidates a warp stages at a time: per occupied active cell
+    its candidates, the staging chunks they need, and the share of the
+    warp's lanes that hold a particle, beside the share in the first
+    design (one lane per slot, 32 lanes a round)."""
+    n, nf, nb = neighbourhood_counts(spec, mt, active, nbr, nbr_ok)
+    chunks = torch.maximum(-(-nf // stage[0]), -(-nb // stage[1]))
+    g = torch.full_like(n, 32)                  # lanes a particle
+    for _ in range(5):
+        g = torch.where(n * g > 32, g // 2, g)
+    rounds = -(-n * g // 32)
+    return {"cells": int(n.numel()),
+            "max_fluid_candidates": int(nf.max()),
+            "max_boundary_candidates": int(nb.max()),
+            "mean_fluid_candidates": nf.double().mean().item(),
+            "cells_in_one_chunk": int((chunks == 1).sum()),
+            "max_chunks": int(chunks.max()),
+            "max_particles": int(n.max()),
+            "lane_use": (n * g).sum().item() / (32 * rounds).sum().item(),
+            "lane_use_first_design": n.sum().item() / (
+                32 * -(-spec.cap // 32) * n.numel())}
+
+
 def time_fluid_kernels(scene, state):
     """Phase 6c: each PBF kernel per launch, its plain version per pass and
     its bound, on the tables of the next step of ``state`` at the main
@@ -1008,7 +1096,11 @@ def time_fluid_kernels(scene, state):
     runs = {"pbf_density_lambda": (pi.b3, pi.plain_b3),
             "pbf_corrections": (pi.b4, pi.plain_b4),
             "pbf_xsph": (pi.b5, pi.plain_b5)}
-    out = {"work": work}
+    from positionbaseddynamics_tpu_torch.fluids import cellgrid_cuda as fcc
+
+    out = {"work": work,
+           "staging": staging_counts(spec, pi.mt, *pi.cells(),
+                                     fcc.stage_capacity())}
     for name, (kernel, plain) in runs.items():
         r = {"interval_ms": cuda_time_ms(kernel, 200)}
         kms = device_ms(kernel, 100, name + "_kernel")
@@ -1033,6 +1125,10 @@ def time_fluid_kernels(scene, state):
         out[name] = r
     for key, v in out.items():
         log(f"timing dam {key}: {v!r}")
+    for name, ms in RECORDED_FIRST_DESIGN_MS.items():
+        log(f"timing dam {name}: {out[name]['ms']!r} ms a launch in this "
+            f"run; PERF.md records {ms} ms for its first design (not "
+            "measured in this run)")
     return out
 
 
@@ -1052,10 +1148,13 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f"built {sorted(libs)} in {time.perf_counter() - t0!r} s")
-    for stem, text in _build.build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {stem}: {line.strip()}")
+    ptxas, lines = ptxas_report(_build.build_logs)
+    for line in lines:
+        log(f"  ptxas {line}")
+    from positionbaseddynamics_tpu_torch.fluids import cellgrid_cuda as fcc
+    resources = fcc.kernel_resources()
+    for kname, r in resources.items():
+        log(f"  runtime {kname}: {r}")
 
     err, x_plain10 = check_kernel_against_plain(dev)
     t0 = time.perf_counter()
@@ -1153,6 +1252,9 @@ def main() -> int:
             "build_peak_bytes": dam["peak_build_bytes"],
             "plain_step_s": fc["plain_step_s"],
             "work": ft["work"],
+            **({"staging": ft["staging"]} if kname != "pbf_xsph" else {}),
+            "ptxas": ptxas.get(kname + "_kernel"),
+            "runtime_resources": resources[kname],
         })
     assert dam["sync_error"] is None, dam["sync_error"]
     print(json.dumps({"kernels": kernels}))

@@ -41,28 +41,56 @@
 // unoccupied rows that a warp also touches are not work the function
 // needs.
 //
-// Design: the TPU kernels evaluate dense (cap, 27 cap) pair planes per
-// cell, ~95% of them dead, and the JAX default adds occupancy classes to
-// shrink them. Here one warp takes one active cell and each lane one of
-// its slots (lane + 32 r when cap > 32); every lane walks the 27
-// neighbour cells in the _OFFS order of cellgrid.py, each only over its
-// occupied prefix, so the loop bounds are the real counts, uniform across
-// the warp, and the neighbour loads are warp-wide broadcasts. No shared
-// memory, no atomics: each thread writes only its own slot. B3 writes its
-// lambda and density rows into tables B4 and B5 read; B4 and B5 write to
-// tables other than their inputs, since neighbours read the values they
-// replace. No --use_fast_math: sqrtf and division stay IEEE-rounded.
+// Design of B3 and B4, against what held the first design (one lane per
+// slot, ~1/4 of the lanes busy, each waiting on a chain of dependent
+// global loads per candidate) back: one warp per active cell and per
+// block, so a cell's warp leaves the SM when it is done. Lanes 0-26 read
+// the 27 neighbours' flags and ids together with the cell's id, then all
+// the counts at once; a warp scan (__shfl_up_sync) lays the neighbours'
+// occupied prefixes end to end as one candidate list, which all 32 lanes
+// copy with cp.async, every copy in flight together and no register held,
+// into the warp's shared memory as float4 records: {x0, y0, z0, m} and
+// {x, y, z, lambda} per fluid candidate (lambda in B4 only), {x, y, z,
+// psi} per boundary candidate. A list longer than the buffer
+// (kStageFluid, kStageBoundary) is staged and walked in chunks. The
+// cell's n particles then share the 32 lanes: a group of G lanes per
+// particle, G the largest power of two with G n <= 32 (past 32 particles
+// G = 1 and the groups take 32 particles at a time). A group's lanes
+// stride over the staged candidates; each lane tests up to 64 of its
+// candidates without branches into a bit mask, then walks the pairs that
+// passed, so the warp does the in-range arithmetic only as often as the
+// lane with the most pairs needs it. Each lane keeps partial sums in
+// registers and a __shfl_xor_sync tree adds them in a fixed order (no
+// atomics: the result is the same from run to run). The group's first
+// lane finishes lambda or x + dx and writes its slot. B3 writes its lambda
+// and density rows into tables B4 and B5 read; B4 and B5 write to tables
+// other than their inputs, since neighbours read the values they replace.
+// 10.3 KB of static shared memory and <= 64 registers a block (one warp)
+// let 20 blocks share an SM; pbd_pbf_kernel_resources reports both.
+//
+// B5 keeps the first design: one warp per active cell, one lane per slot
+// (lane + 32 r past 32), each lane walking the 27 neighbour cells'
+// occupied prefixes with warp-wide broadcast loads from global memory.
+// No --use_fast_math: sqrtf and division stay IEEE-rounded.
 #include <climits>
 #include <cstdint>
 #include <cstring>
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int N_PARAMS = 8;
 constexpr int kWarp = 32;
-constexpr int kThreads = 128;    // 4 warps: 4 active cells per block
+constexpr int kThreads = 128;    // B5: 4 warps, 4 active cells a block
+// B3 and B4: one warp (one active cell) a block, so that a cell's warp
+// leaves the SM as soon as it is done; 20 such blocks an SM fit the
+// shared memory, and registers are held to what 20 allow
+constexpr int kMinBlocks = 20;
+constexpr unsigned kAll = 0xffffffffu;
+constexpr int kStageFluid = 256;     // fluid candidates a warp stages
+constexpr int kStageBoundary = 128;  // boundary candidates a warp stages
 
 // Host-side scalars, laid out as the float vector the Python wrapper builds
 // (cellgrid_cuda.kernel_params), each rounded from the double the plain
@@ -123,7 +151,7 @@ __device__ __forceinline__ float grad_w_coef(float rl, const PbfParams& P) {
   return rl > 1.0e-6f ? s : 0.0f;
 }
 
-// Calls f(jj, m_j) for every frozen fluid pair of a slot whose
+// B5: calls f(jj, m_j) for every frozen fluid pair of a slot whose
 // pre-projection position is xi0 (m_i > 0 is the caller's test): the 27
 // neighbour cells of active cell a in order, each over its occupied prefix.
 template <class F>
@@ -149,132 +177,374 @@ __device__ __forceinline__ void for_fluid_pairs(const Cells& C,
   }
 }
 
-// Calls f(xb, yb, zb, psi_b) for every frozen boundary pair of a slot.
-template <class F>
-__device__ __forceinline__ void for_boundary_pairs(const Cells& C,
-                                                   const PbfParams& P, int a,
-                                                   const float* xi0, F&& f) {
-  if (C.capb == 0) return;
-  const int plane = C.n_cells * C.capb;
-  for (int o = 0; o < 27; ++o) {
-    if (!C.ok[a * 27 + o]) continue;
-    const int nc = C.nbr[a * 27 + o];
-    const int n = C.bcount[nc];
-    const int base = nc * C.capb;
-    for (int b = 0; b < n; ++b) {
-      const int bb = base + b;
-      const float pb = C.bpsi[bb];
-      if (!(pb > 0.0f)) continue;
-      const float xb = C.bx[bb], yb = C.bx[plane + bb],
-                  zb = C.bx[2 * plane + bb];
-      const float r2_0 = dist2_rn(__fsub_rn(xi0[0], xb),
-                                  __fsub_rn(xi0[1], yb),
-                                  __fsub_rn(xi0[2], zb));
-      if (!(r2_0 < P.h2)) continue;
-      f(xb, yb, zb, pb);
+__device__ __forceinline__ int warp_cell(const Cells& C) {
+  return (blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
+}
+
+// ---------------------------------------------------------------------------
+// B3 and B4: the staged neighbourhood
+// ---------------------------------------------------------------------------
+
+// One warp's copy of (a chunk of) its cell's candidate list.
+struct Stage {
+  float4 f0[kStageFluid];      // x0, y0, z0, m of a fluid candidate
+  float4 f1[kStageFluid];      // x, y, z of the same slot; lambda (B4)
+  float4 b[kStageBoundary];    // x, y, z, psi of a boundary candidate
+  int foff[27];                // fluid candidates before neighbour o
+  int boff[27];                // boundary candidates before neighbour o
+  int nc[27];                  // neighbour o's cell id
+};
+
+struct Hood {
+  int row, n;     // the cell's first slot and occupied prefix
+  int nf, nb;     // fluid and boundary candidates of the 27 neighbours
+  int chunks;     // staging rounds they take
+};
+
+// Opens active cell a with two rounds of loads: its id and lane o < 27's
+// neighbour flag and id, then the cell's count and neighbour o's counts.
+// A warp scan turns the counts into each neighbour's offset in the
+// candidate lists.
+__device__ Hood open_hood(const Cells& C, int a, Stage& S, int lane) {
+  const int cell = __ldg(C.active + a);
+  bool ok = false;
+  int nc = 0, cf = 0, cb = 0;
+  if (lane < 27) {
+    ok = __ldg(C.ok + a * 27 + lane);
+    nc = __ldg(C.nbr + a * 27 + lane);
+  }
+  Hood h;
+  h.row = cell * C.cap;
+  h.n = __ldg(C.count + cell);
+  if (ok) {
+    cf = __ldg(C.count + nc);
+    if (C.capb > 0) cb = __ldg(C.bcount + nc);
+  }
+  int sf = cf, sb = cb;
+#pragma unroll
+  for (int d = 1; d < kWarp; d <<= 1) {
+    const int tf = __shfl_up_sync(kAll, sf, d);
+    const int tb = __shfl_up_sync(kAll, sb, d);
+    if (lane >= d) {
+      sf += tf;
+      sb += tb;
+    }
+  }
+  if (lane < 27) {
+    S.foff[lane] = sf - cf;
+    S.boff[lane] = sb - cb;
+    S.nc[lane] = nc;
+  }
+  h.nf = __shfl_sync(kAll, sf, kWarp - 1);
+  h.nb = __shfl_sync(kAll, sb, kWarp - 1);
+  h.chunks = max((h.nf + kStageFluid - 1) / kStageFluid,
+                 (h.nb + kStageBoundary - 1) / kStageBoundary);
+  __syncwarp();
+  return h;
+}
+
+// The neighbour whose stretch of a candidate list holds candidate g: the
+// last o with off[o] <= g (a neighbour with no candidates has the same
+// offset as the next one, so it is never the last).
+__device__ __forceinline__ int hood_of(const int* off, int g) {
+  int o = 0;
+#pragma unroll
+  for (int step = 16; step > 0; step >>= 1)
+    if (o + step < 27 && off[o + step] <= g) o += step;
+  return o;
+}
+
+__device__ __forceinline__ int chunk_len(int total, int chunk, int size) {
+  return min(size, max(total - chunk * size, 0));
+}
+
+// One 4-byte asynchronous copy from global into shared memory (cp.async):
+// it holds no register while in flight.
+__device__ __forceinline__ void copy_async(float* dst_shared,
+                                           const float* src) {
+  __pipeline_memcpy_async(dst_shared, src, sizeof(float));
+}
+
+// Starts the copies of chunk `ch` of the fluid and boundary candidate
+// lists into S, all lanes at once and every copy in flight together, as
+// two groups: the fluid candidates (lambda from lam_t where it is given),
+// then the boundary candidates. staged_fluid() and staged_all() wait for
+// them.
+__device__ void stage_chunk(const Cells& C, const float* lam_t, Stage& S,
+                            const Hood& h, int ch, int lane) {
+  __syncwarp();                  // every lane is done with the last chunk
+  const int plane = C.n_cells * C.cap;
+  const int nf = chunk_len(h.nf, ch, kStageFluid);
+  for (int e = lane; e < nf; e += kWarp) {
+    const int g = ch * kStageFluid + e;
+    const int o = hood_of(S.foff, g);
+    const int jj = S.nc[o] * C.cap + (g - S.foff[o]);
+    float4& p0 = S.f0[e];
+    float4& p1 = S.f1[e];
+    copy_async(&p0.x, C.x0 + jj);
+    copy_async(&p0.y, C.x0 + plane + jj);
+    copy_async(&p0.z, C.x0 + 2 * plane + jj);
+    copy_async(&p0.w, C.m + jj);
+    copy_async(&p1.x, C.x + jj);
+    copy_async(&p1.y, C.x + plane + jj);
+    copy_async(&p1.z, C.x + 2 * plane + jj);
+    if (lam_t) copy_async(&p1.w, lam_t + jj);
+  }
+  __pipeline_commit();
+  const int bplane = C.n_cells * C.capb;
+  const int nb = chunk_len(h.nb, ch, kStageBoundary);
+  for (int e = lane; e < nb; e += kWarp) {
+    const int g = ch * kStageBoundary + e;
+    const int o = hood_of(S.boff, g);
+    const int bb = S.nc[o] * C.capb + (g - S.boff[o]);
+    float4& pb = S.b[e];
+    copy_async(&pb.x, C.bx + bb);
+    copy_async(&pb.y, C.bx + bplane + bb);
+    copy_async(&pb.z, C.bx + 2 * bplane + bb);
+    copy_async(&pb.w, C.bpsi + bb);
+  }
+  __pipeline_commit();
+}
+
+__device__ __forceinline__ void staged_fluid() {
+  __pipeline_wait_prior(1);
+  __syncwarp();
+}
+
+__device__ __forceinline__ void staged_all() {
+  __pipeline_wait_prior(0);
+  __syncwarp();
+}
+
+// How a cell's n >= 1 particles share the warp: `g` lanes each (a power
+// of two), `per_round` particles at a time; this lane serves particle
+// round * per_round + grp and walks candidates sub, sub + g, ...
+struct Lanes {
+  int g, per_round, grp, sub;
+};
+
+__device__ __forceinline__ Lanes lanes_for(int n, int lane) {
+  Lanes L;
+  L.g = n >= kWarp ? 1 : kWarp >> (32 - __clz(n - 1));
+  L.per_round = kWarp / L.g;
+  L.grp = lane / L.g;
+  L.sub = lane % L.g;
+  return L;
+}
+
+// Sum over a group of g lanes (g a power of two, the same in the warp), in
+// a fixed order; every lane of the group gets the sum.
+__device__ __forceinline__ float group_sum(float v, int g) {
+  for (int off = g >> 1; off > 0; off >>= 1)
+    v += __shfl_xor_sync(kAll, v, off);
+  return v;
+}
+
+// The frozen tests, without branches (one 16-byte shared load each, so
+// the unrolled tests of for_passing overlap).
+__device__ __forceinline__ bool fluid_pair(const float4 c, const float* xi0,
+                                           const PbfParams& P) {
+  const float r2_0 = dist2_rn(__fsub_rn(xi0[0], c.x), __fsub_rn(xi0[1], c.y),
+                              __fsub_rn(xi0[2], c.z));
+  return (c.w > 0.0f) & (r2_0 > 1e-18f) & (r2_0 < P.h2);
+}
+
+__device__ __forceinline__ bool boundary_pair(const float4 c,
+                                              const float* xi0,
+                                              const PbfParams& P) {
+  const float r2_0 = dist2_rn(__fsub_rn(xi0[0], c.x), __fsub_rn(xi0[1], c.y),
+                              __fsub_rn(xi0[2], c.z));
+  return (c.w > 0.0f) & (r2_0 < P.h2);
+}
+
+constexpr int kTests = 64;       // candidates a lane tests before walking
+constexpr int kTestGroup = 8;    // tests unrolled together
+
+// Calls f(c) for every staged candidate c = L.sub, L.sub + L.g, ... below
+// n that passes test(c), in that order. The tests of up to kTests of them
+// come first, kTestGroup at a time without branches, into a bit mask;
+// then the arithmetic of those that passed. So a lane's in-range branch
+// does not hold the warp on every candidate that some other lane takes:
+// the walk takes as many steps as the most pairs a lane found.
+template <class Test, class F>
+__device__ __forceinline__ void for_passing(int n, const Lanes& L,
+                                            Test&& test, F&& f) {
+  for (int base = L.sub; base < n; base += kTests * L.g) {
+    unsigned long long mask = 0;
+    for (int t0 = 0; t0 < kTests && base + t0 * L.g < n; t0 += kTestGroup) {
+#pragma unroll
+      for (int u = 0; u < kTestGroup; ++u) {
+        const int t = t0 + u, c = base + t * L.g;
+        // past the chunk's end, test its last candidate and drop the bit
+        const bool pass = test(min(c, n - 1));
+        mask |= (unsigned long long)((c < n) & pass) << t;
+      }
+    }
+    while (mask) {
+      const int t = __ffsll(mask) - 1;
+      mask &= mask - 1;
+      f(base + t * L.g);
     }
   }
 }
 
-__device__ __forceinline__ int warp_cell(const Cells& C) {
-  return (blockIdx.x * kThreads + threadIdx.x) / kWarp;
+// Walks this lane's share of its particle's staged neighbourhood (xi0 its
+// pre-projection position; nothing when `live` is false), chunk by chunk:
+// calls fluid(m_j, {x_j, y_j, z_j, lambda_j}) for every frozen fluid pair
+// and boundary({x_b, y_b, z_b, psi_b}) for every frozen boundary pair. A
+// chunk is staged in the first particle round, and again in later rounds
+// only when the neighbourhood takes more than one chunk.
+template <class Fluid, class Boundary>
+__device__ __forceinline__ void walk_hood(const Cells& C, const PbfParams& P,
+                                          const float* lam_t, Stage& S,
+                                          const Hood& h, const Lanes& L,
+                                          int s0, bool live, const float* xi0,
+                                          int lane, Fluid&& fluid,
+                                          Boundary&& boundary) {
+  for (int ch = 0; ch < h.chunks; ++ch) {
+    const bool restage = h.chunks > 1 || s0 == 0;
+    if (restage) {
+      stage_chunk(C, lam_t, S, h, ch, lane);
+      staged_fluid();
+    }
+    const int nf = live ? chunk_len(h.nf, ch, kStageFluid) : 0;
+    for_passing(
+        nf, L, [&](int c) { return fluid_pair(S.f0[c], xi0, P); },
+        [&](int c) { fluid(S.f0[c].w, S.f1[c]); });
+    if (restage) staged_all();
+    const int nb = live ? chunk_len(h.nb, ch, kStageBoundary) : 0;
+    for_passing(
+        nb, L, [&](int c) { return boundary_pair(S.b[c], xi0, P); },
+        [&](int c) { boundary(S.b[c]); });
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWarp, kMinBlocks)
     pbf_density_lambda_kernel(Cells C, PbfParams P, float* lam_t,
                               float* dens_t) {
-  const int a = warp_cell(C);
+  __shared__ Stage S;
+  const int a = blockIdx.x;
   if (a >= C.K) return;
+  const int lane = threadIdx.x;
   const int plane = C.n_cells * C.cap;
-  const int cell = C.active[a];
-  for (int s = threadIdx.x % kWarp; s < C.cap; s += kWarp) {
-    const int i = cell * C.cap + s;
-    const float mi = C.m[i];
-    float dens = mi * P.k, lam = 0.0f;
-    if (mi > 0.0f) {
-      const float xi[3] = {C.x[i], C.x[plane + i], C.x[2 * plane + i]};
-      const float xi0[3] = {C.x0[i], C.x0[plane + i], C.x0[2 * plane + i]};
-      float fd = 0.0f, fs2 = 0.0f, fgx = 0.0f, fgy = 0.0f, fgz = 0.0f;
-      for_fluid_pairs(C, P, a, xi0, [&](int jj, float mj) {
-        const float dx = xi[0] - C.x[jj], dy = xi[1] - C.x[plane + jj],
-                    dz = xi[2] - C.x[2 * plane + jj];
-        const float r2 = dist2_rn(dx, dy, dz);
-        const float rl = sqrtf(r2);
-        fd += mj * w_r(rl, P);
-        const float gc = -(mj / P.density0) * grad_w_coef(rl, P);
-        fs2 += gc * gc * r2;
-        fgx += gc * dx;
-        fgy += gc * dy;
-        fgz += gc * dz;
-      });
-      float bd = 0.0f, bs2 = 0.0f, bgx = 0.0f, bgy = 0.0f, bgz = 0.0f;
-      for_boundary_pairs(C, P, a, xi0,
-                         [&](float xb, float yb, float zb, float pb) {
-        const float dx = xi[0] - xb, dy = xi[1] - yb, dz = xi[2] - zb;
-        const float r2 = dist2_rn(dx, dy, dz);
-        const float rl = sqrtf(r2);
-        bd += pb * w_r(rl, P);
-        const float gc = -(pb / P.density0) * grad_w_coef(rl, P);
-        bs2 += gc * gc * r2;
-        bgx += gc * dx;
-        bgy += gc * dy;
-        bgz += gc * dz;
-      });
-      dens = (dens + fd) + bd;
-      const float gx = -fgx - bgx, gy = -fgy - bgy, gz = -fgz - bgz;
-      const float s2 = (fs2 + bs2) + ((gx * gx + gy * gy) + gz * gz);
-      const float c = fmaxf(dens / P.density0 - 1.0f, 0.0f);
-      lam = c > 0.0f ? -c / (s2 + 1.0e-6f) : 0.0f;
+  const Hood h = open_hood(C, a, S, lane);
+  const int row = h.row, n = h.n;
+  for (int s = n + lane; s < C.cap; s += kWarp) {      // empty slots
+    lam_t[row + s] = 0.0f;
+    dens_t[row + s] = __ldg(C.m + row + s) * P.k;
+  }
+  if (n == 0) return;
+  const Lanes L = lanes_for(n, lane);
+  for (int s0 = 0; s0 < n; s0 += L.per_round) {
+    const int s = s0 + L.grp, i = row + s;
+    const float mi = s < n ? __ldg(C.m + i) : 0.0f;
+    const bool live = mi > 0.0f;
+    float xi[3] = {0.0f, 0.0f, 0.0f}, xi0[3] = {0.0f, 0.0f, 0.0f};
+    if (s < n) {
+      for (int c = 0; c < 3; ++c) {
+        xi[c] = __ldg(C.x + c * plane + i);
+        xi0[c] = __ldg(C.x0 + c * plane + i);
+      }
     }
-    lam_t[i] = lam;
-    dens_t[i] = dens;
+    // density, sum |grad C_j|^2 and grad C_i's sum over this lane's pairs
+    float rho = 0.0f, s2 = 0.0f, gx = 0.0f, gy = 0.0f, gz = 0.0f;
+    // a pair with weight w (m_j or psi_b) at position pj
+    auto add = [&](float w, const float4& pj) {
+      const float dx = xi[0] - pj.x, dy = xi[1] - pj.y, dz = xi[2] - pj.z;
+      const float r2 = dist2_rn(dx, dy, dz);
+      const float rl = sqrtf(r2);
+      rho += w * w_r(rl, P);
+      const float gc = -(w / P.density0) * grad_w_coef(rl, P);
+      s2 += gc * gc * r2;
+      gx += gc * dx;
+      gy += gc * dy;
+      gz += gc * dz;
+    };
+    walk_hood(
+        C, P, nullptr, S, h, L, s0, live, xi0, lane,
+        [&](float mj, const float4& pj) { add(mj, pj); },
+        [&](const float4& pb) { add(pb.w, pb); });
+    rho = group_sum(rho, L.g);
+    s2 = group_sum(s2, L.g);
+    gx = group_sum(gx, L.g);
+    gy = group_sum(gy, L.g);
+    gz = group_sum(gz, L.g);
+    if (L.sub == 0 && s < n) {
+      const float dens = mi * P.k + rho;
+      float lam = 0.0f;
+      if (live) {
+        const float sum2 = s2 + ((gx * gx + gy * gy) + gz * gz);
+        const float c = fmaxf(dens / P.density0 - 1.0f, 0.0f);
+        lam = c > 0.0f ? -c / (sum2 + 1.0e-6f) : 0.0f;
+      }
+      lam_t[i] = lam;
+      dens_t[i] = dens;
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWarp, kMinBlocks)
     pbf_corrections_kernel(Cells C, PbfParams P, const float* lam_t,
                            float* x_out) {
-  const int a = warp_cell(C);
+  __shared__ Stage S;
+  const int a = blockIdx.x;
   if (a >= C.K) return;
+  const int lane = threadIdx.x;
   const int plane = C.n_cells * C.cap;
-  const int cell = C.active[a];
-  for (int s = threadIdx.x % kWarp; s < C.cap; s += kWarp) {
-    const int i = cell * C.cap + s;
-    const float mi = C.m[i];
-    float xi[3] = {C.x[i], C.x[plane + i], C.x[2 * plane + i]};
-    if (mi > 0.0f) {
-      const float xi0[3] = {C.x0[i], C.x0[plane + i], C.x0[2 * plane + i]};
-      const float li = lam_t[i];
-      float fx = 0.0f, fy = 0.0f, fz = 0.0f;
-      for_fluid_pairs(C, P, a, xi0, [&](int jj, float mj) {
-        const float dx = xi[0] - C.x[jj], dy = xi[1] - C.x[plane + jj],
-                    dz = xi[2] - C.x[2 * plane + jj];
-        const float rl = sqrtf(dist2_rn(dx, dy, dz));
-        const float gc = -(mj / P.density0) * grad_w_coef(rl, P);
-        const float coef = (li + lam_t[jj]) * gc;
-        fx += coef * dx;
-        fy += coef * dy;
-        fz += coef * dz;
-      });
-      float bx = 0.0f, by = 0.0f, bz = 0.0f;
-      for_boundary_pairs(C, P, a, xi0,
-                         [&](float xb, float yb, float zb, float pb) {
-        const float dx = xi[0] - xb, dy = xi[1] - yb, dz = xi[2] - zb;
-        const float rl = sqrtf(dist2_rn(dx, dy, dz));
-        const float coef = li * (-(pb / P.density0) * grad_w_coef(rl, P));
-        bx += coef * dx;
-        by += coef * dy;
-        bz += coef * dz;
-      });
-      xi[0] = xi[0] + (-fx - bx);
-      xi[1] = xi[1] + (-fy - by);
-      xi[2] = xi[2] + (-fz - bz);
+  const Hood h = open_hood(C, a, S, lane);
+  const int row = h.row, n = h.n;
+  for (int s = n + lane; s < C.cap; s += kWarp)        // empty slots
+    for (int c = 0; c < 3; ++c)
+      x_out[c * plane + row + s] = __ldg(C.x + c * plane + row + s);
+  if (n == 0) return;
+  const Lanes L = lanes_for(n, lane);
+  for (int s0 = 0; s0 < n; s0 += L.per_round) {
+    const int s = s0 + L.grp, i = row + s;
+    const float mi = s < n ? __ldg(C.m + i) : 0.0f;
+    const bool live = mi > 0.0f;
+    float xi[3] = {0.0f, 0.0f, 0.0f}, xi0[3] = {0.0f, 0.0f, 0.0f};
+    float li = 0.0f;
+    if (s < n) {
+      for (int c = 0; c < 3; ++c) {
+        xi[c] = __ldg(C.x + c * plane + i);
+        xi0[c] = __ldg(C.x0 + c * plane + i);
+      }
+      li = __ldg(lam_t + i);
     }
-    x_out[i] = xi[0];
-    x_out[plane + i] = xi[1];
-    x_out[2 * plane + i] = xi[2];
+    float fx = 0.0f, fy = 0.0f, fz = 0.0f;   // this lane's share of -dx
+    // a pair with weight w (m_j or psi_b) at position pj, whose gradient
+    // term is scaled by lsum (lambda_i + lambda_j, or lambda_i)
+    auto add = [&](float w, float lsum, const float4& pj) {
+      const float dx = xi[0] - pj.x, dy = xi[1] - pj.y, dz = xi[2] - pj.z;
+      const float rl = sqrtf(dist2_rn(dx, dy, dz));
+      const float coef = lsum * (-(w / P.density0) * grad_w_coef(rl, P));
+      fx += coef * dx;
+      fy += coef * dy;
+      fz += coef * dz;
+    };
+    walk_hood(
+        C, P, lam_t, S, h, L, s0, live, xi0, lane,
+        [&](float mj, const float4& pj) { add(mj, li + pj.w, pj); },
+        [&](const float4& pb) { add(pb.w, li, pb); });
+    fx = group_sum(fx, L.g);
+    fy = group_sum(fy, L.g);
+    fz = group_sum(fz, L.g);
+    if (L.sub == 0 && s < n) {
+      if (live) {
+        xi[0] = xi[0] + -fx;
+        xi[1] = xi[1] + -fy;
+        xi[2] = xi[2] + -fz;
+      }
+      x_out[i] = xi[0];
+      x_out[plane + i] = xi[1];
+      x_out[2 * plane + i] = xi[2];
+    }
   }
 }
+
+// ---------------------------------------------------------------------------
+// B5
+// ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads)
     pbf_xsph_kernel(Cells C, PbfParams P, const float* vt,
@@ -348,6 +618,37 @@ extern "C" {
 
 int pbd_pbf_param_count() { return N_PARAMS; }
 
+// The candidates one warp of B3 and B4 stages at a time: out[0] fluid,
+// out[1] boundary.
+void pbd_pbf_stage_capacity(int* out) {
+  out[0] = kStageFluid;
+  out[1] = kStageBoundary;
+}
+
+// Resources of kernel `which` (0 B3, 1 B4, 2 B5) as the runtime sees them:
+// out[0] registers a thread, out[1] static shared bytes a block, out[2]
+// local (spill) bytes a thread, out[3] resident blocks an SM at the
+// launch's block size. Returns a CUDA error code.
+int pbd_pbf_kernel_resources(int which, int* out) {
+  const void* fn = which == 0   ? (const void*)pbf_density_lambda_kernel
+                   : which == 1 ? (const void*)pbf_corrections_kernel
+                   : which == 2 ? (const void*)pbf_xsph_kernel
+                                : nullptr;
+  if (!fn || !out) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes at;
+  cudaError_t err = cudaFuncGetAttributes(&at, fn);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, fn, which == 2 ? kThreads : kWarp, 0);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = at.numRegs;
+  out[1] = (int)at.sharedSizeBytes;
+  out[2] = (int)at.localSizeBytes;
+  out[3] = blocks;
+  return 0;
+}
+
 // B3. Writes lam_t and dens_t, (n_cells, cap), at the slots of the K active
 // cells. `params` points to N_PARAMS host floats. Returns a CUDA error code,
 // 0 when the launch was queued.
@@ -364,7 +665,7 @@ int pbd_pbf_density_lambda(const void* x, const void* x0, const void* m,
     return (int)cudaErrorInvalidValue;
   PbfParams P;
   std::memcpy(&P, params, sizeof(P));
-  pbf_density_lambda_kernel<<<blocks_for(K), kThreads, 0,
+  pbf_density_lambda_kernel<<<K, kWarp, 0,
                               (cudaStream_t)stream>>>(C, P, (float*)lam_t,
                                                       (float*)dens_t);
   return (int)cudaGetLastError();
@@ -385,7 +686,7 @@ int pbd_pbf_corrections(const void* x, const void* x0, const void* m,
     return (int)cudaErrorInvalidValue;
   PbfParams P;
   std::memcpy(&P, params, sizeof(P));
-  pbf_corrections_kernel<<<blocks_for(K), kThreads, 0,
+  pbf_corrections_kernel<<<K, kWarp, 0,
                            (cudaStream_t)stream>>>(C, P, (const float*)lam_t,
                                                    (float*)x_out);
   return (int)cudaGetLastError();

@@ -1,8 +1,7 @@
 """The cell-dense PBF passes as hand-written CUDA kernels for Hopper — the
 counterpart of ``positionbaseddynamics_tpu/fluids/cellgrid_pallas.py``.
 
-Three kernels in ``csrc/pbf_cells.cu``, one warp per active cell and one
-lane per slot:
+Three kernels in ``csrc/pbf_cells.cu``, one warp per active cell:
 
 * ``density_lambda_cuda`` (B3, ``_density_lambda_kernel``): density with
   the boundary ψ terms, then λ, written into the ``(n_cells, cap)`` λ and
@@ -13,12 +12,23 @@ lane per slot:
 * ``xsph_cuda`` (B5, ``_xsph_kernel``): the XSPH velocity smoothing,
   written as the new velocities of the active rows into a separate table.
 
-Every pass recomputes the step's frozen pair set from the pre-projection
-table ``xt0`` with explicitly rounded operations, so its pairs equal the
-plain version's. Each wrapper checks device, dtype, shape and contiguity
-and raises on anything the kernel does not take; it counts its launches
-in ``<wrapper>.launches``. There is no fallback: :func:`pbf_step_cuda`
-takes CUDA tensors only.
+All three are bound by their fp32 operations on the H100 (the candidate
+pair tests and the kernel arithmetic of the pairs in range). B3 and B4
+copy each cell's 27-cell neighbourhood into the warp's shared memory with
+``cp.async`` (:func:`stage_capacity` fluid and boundary candidates at a
+time, in chunks past that), one warp and one cell a
+block, and share the 32 lanes among the cell's particles, a power-of-two
+group of lanes each: a lane tests its candidates into a bit mask, then
+walks the pairs that passed, and a shuffle tree adds the group's partial
+sums in a fixed order. B5 keeps one lane per slot walking the neighbour
+rows in global memory. Every pass recomputes the step's frozen pair set
+from the pre-projection table ``xt0`` with explicitly rounded
+operations, so its pairs equal the plain version's. Each wrapper checks
+device, dtype, shape and contiguity and raises on anything the kernel
+does not take; it counts its launches in ``<wrapper>.launches``. There
+is no fallback: :func:`pbf_step_cuda` takes CUDA tensors only.
+:func:`kernel_resources` reports each kernel's registers, shared memory,
+spills and resident blocks an SM.
 
 Their plain PyTorch versions are :func:`cellgrid.density_lambda_reference`,
 :func:`cellgrid.corrections_reference` and :func:`cellgrid.xsph_reference`
@@ -41,6 +51,7 @@ from .cellgrid import (corrections_reference,  # noqa: F401 (plain versions)
 Tensor = torch.Tensor
 
 N_PARAMS = 8                    # floats in the kernel's PbfParams struct
+KERNELS = ("pbf_density_lambda", "pbf_corrections", "pbf_xsph")
 
 
 # ---------------------------------------------------------------------------
@@ -81,11 +92,45 @@ def _bind(lib):
     lib.pbd_pbf_error_string.restype = ctypes.c_char_p
     lib.pbd_pbf_param_count.argtypes = []
     lib.pbd_pbf_param_count.restype = ci
+    lib.pbd_pbf_stage_capacity.argtypes = [vp]
+    lib.pbd_pbf_stage_capacity.restype = None
+    lib.pbd_pbf_kernel_resources.argtypes = [ci, vp]
+    lib.pbd_pbf_kernel_resources.restype = ci
     if lib.pbd_pbf_param_count() != N_PARAMS:
         raise RuntimeError("pbf_cells.cu and cellgrid_cuda.py disagree on "
                            "the kernels' parameter layout")
     fns[0]._pbd_bound = True
     return fns
+
+
+def stage_capacity() -> tuple:
+    """``(fluid, boundary)``: the candidates a warp of B3 and B4 stages in
+    shared memory at a time, as ``csrc/pbf_cells.cu`` defines them; a
+    longer neighbourhood is walked in chunks."""
+    lib = _build.load("pbf_cells")
+    _bind(lib)
+    out = (ctypes.c_int * 2)()
+    lib.pbd_pbf_stage_capacity(out)
+    return tuple(out)
+
+
+def kernel_resources() -> dict:
+    """Each kernel's resources as the CUDA runtime reports them on the
+    current card: ``{name: {"registers", "shared_bytes", "local_bytes",
+    "blocks_per_sm"}}``, the last at each launch's block size (one warp
+    for B3 and B4, four for B5)."""
+    lib = _build.load("pbf_cells")
+    _bind(lib)
+    out = {}
+    for which, name in enumerate(KERNELS):
+        vals = (ctypes.c_int * 4)()
+        err = lib.pbd_pbf_kernel_resources(which, vals)
+        if err != 0:
+            raise RuntimeError(f"{name}: " + lib.pbd_pbf_error_string(
+                err).decode())
+        out[name] = dict(zip(("registers", "shared_bytes", "local_bytes",
+                              "blocks_per_sm"), vals))
+    return out
 
 
 def _expect(name, t, shape, dtype, device):

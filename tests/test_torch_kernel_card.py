@@ -1,8 +1,9 @@
 """The CUDA cloth, tet and PBF kernels against their plain PyTorch
 versions, on the card.
 
-These tests import only torch and the port, so they run on a machine with
-the card (``python -m pytest tests/test_torch_kernel_card.py``); without a
+These tests import only torch, the port and ``chip_smoke.py``'s
+neighbourhood counts, so they run on a machine with the card
+(``python -m pytest tests/test_torch_kernel_card.py``); without a
 CUDA device they skip, since the kernel has no CPU mode. Tolerance 1e-5
 over 5 steps, the repo's kernel-against-stencil bar (``bench.py --check``):
 the kernel contracts products into FMAs where the plain version rounds
@@ -155,10 +156,11 @@ def test_tet_step_fn_takes_the_kernel_on_card(cuda, iters):
     assert out.time.item() == cpu.time.item()
 
 
-def _fluid_dam(cuda, block=(12, 10, 8), hi=(1.4, 1.1, 0.5), cap=12,
-               squeeze=0.85, boundary=True):
-    """A small dam on the card with positions squeezed below the lattice
-    spacing and jittered (seeded), so every pass does work; its tables."""
+def _fluid_dam(device, block=(12, 10, 8), hi=(1.4, 1.1, 0.5), cap=12,
+               squeeze=0.85, boundary=True, extra=()):
+    """A small dam with positions squeezed below the lattice spacing and
+    jittered (seeded), so every pass does work, plus the particles
+    ``extra`` as they are; its tables and seeded velocities."""
     import numpy as np
 
     from positionbaseddynamics_tpu_torch.fluids import cellgrid as fcg
@@ -168,35 +170,87 @@ def _fluid_dam(cuda, block=(12, 10, 8), hi=(1.4, 1.1, 0.5), cap=12,
     fluid = fm.block_positions((d, d, d), block, d)
     bnd = (fm.box_boundary((0, 0, 0), hi, d) if boundary
            else np.zeros((0, 3), np.float32))
-    scene = fm.FluidScene.create(len(fluid), bnd, cap_per_cell=cap,
-                                 domain=((0, 0, 0), hi), device=cuda)
     rng = np.random.default_rng(11)
     x = (d + squeeze * (fluid - d) + rng.uniform(-0.0075, 0.0075, fluid.shape)
          - np.float32([0.0, 0.01, 0.0])).astype(np.float32)
+    x = np.concatenate([x, np.asarray(extra, np.float32).reshape(-1, 3)])
+    scene = fm.FluidScene.create(len(x), bnd, cap_per_cell=cap,
+                                 domain=((0, 0, 0), hi), device=device)
     tables = fcg.build_fluid_tables(scene.cellgrid,
-                                    torch.tensor(x, device=cuda), scene.mass)
-    v = torch.tensor(rng.normal(0, 0.5, fluid.shape).astype(np.float32),
-                     device=cuda)
+                                    torch.tensor(x, device=device), scene.mass)
+    v = torch.tensor(rng.normal(0, 0.5, x.shape).astype(np.float32),
+                     device=device)
     return scene, tables, v
+
+
+def _kernel_edges(scene, tables, stage=None):
+    """Which edges of B3 and B4's design the tables reach: cells of more
+    than 32 particles (several lane rounds), cells of one particle (32
+    lanes on it), such a cell whose neighbourhood holds no other fluid but
+    boundary candidates, and, given ``stage`` (the fluid and boundary
+    candidates a warp stages at once), a neighbourhood that holds more."""
+    from chip_smoke import neighbourhood_counts
+
+    _, _, _, mt, active, nbr, nbr_ok, _ = tables
+    own, fluid, bnd = neighbourhood_counts(scene.cellgrid, mt, active, nbr,
+                                           nbr_ok)
+    out = {"over_32": bool((own > 32).any()),
+           "single": bool((own == 1).any()),
+           "boundary_only": bool(((own == 1) & (fluid == 1)
+                                  & (bnd > 0)).any())}
+    if stage is not None:
+        out["fluid_chunks"] = bool((fluid > stage[0]).any())
+        out["boundary_chunks"] = bool((bnd > stage[1]).any())
+    return out
+
+
+_CAP40 = {"block": (6, 8, 6), "hi": (1.2, 0.5, 0.4), "cap": 40,
+          "squeeze": 0.61}
+# name: (arguments of _fluid_dam, the kernel edges its tables must reach)
+PBF_CASES = {
+    "12x10x8": ({}, ("fluid_chunks", "boundary_chunks")),
+    "cap40": (_CAP40, ("fluid_chunks", "over_32")),
+    "no_boundary": ({"boundary": False}, ("fluid_chunks",)),
+    # two full fluid chunks in the densest neighbourhoods, cells of 40
+    "cap40_chunks": ({"block": (8, 8, 8), "hi": (1.2, 0.6, 0.5), "cap": 40,
+                      "squeeze": 0.6}, ("fluid_chunks", "over_32")),
+    # lone particles on the floor, by a wall and in the open beside the
+    # squeezed block
+    "lone_particles": (dict(_CAP40, extra=((1.0, 0.04, 0.2),
+                                           (1.15, 0.3, 0.2),
+                                           (0.7, 0.3, 0.2))),
+                       ("single", "boundary_only", "over_32")),
+}
+
+
+@pytest.mark.parametrize("name", list(PBF_CASES))
+def test_pbf_card_cases_reach_the_kernel_edges(name):
+    """On the CPU: no particle or cell is crowded out of each card case's
+    tables, and they reach the edges it is there for that do not depend on
+    the staging sizes (the card test checks the rest with the sizes of the
+    built kernel)."""
+    kw, edges = PBF_CASES[name]
+    scene, tables, _ = _fluid_dam("cpu", **kw)
+    assert int(tables[-1]) == 0
+    reached = _kernel_edges(scene, tables)
+    assert all(reached[e] for e in edges if e in reached), reached
 
 
 # ρ within 1e-5 relative and Δx, Δv within 1e-6: the kernels add each
 # cell's terms in another order than torch.sum and contract into FMAs;
 # their pair sets equal the plain versions' exactly.
-@pytest.mark.parametrize("kw", [
-    {}, {"block": (6, 8, 6), "hi": (1.2, 0.5, 0.4), "cap": 40,
-         "squeeze": 0.61}, {"boundary": False}],
-    ids=["12x10x8", "cap40", "no_boundary"])
-def test_pbf_kernels_match_plain_versions_on_card(cuda, kw):
+@pytest.mark.parametrize("name", list(PBF_CASES))
+def test_pbf_kernels_match_plain_versions_on_card(cuda, name):
     from positionbaseddynamics_tpu_torch.fluids import cellgrid as fcg
     from positionbaseddynamics_tpu_torch.fluids import cellgrid_cuda as fcc
 
-    scene, (slot, kept, xt, mt, active, nbr, nbr_ok, ov), v = _fluid_dam(
-        cuda, **kw)
+    kw, edges = PBF_CASES[name]
+    scene, tables, v = _fluid_dam(cuda, **kw)
+    slot, kept, xt, mt, active, nbr, nbr_ok, ov = tables
+    reached = _kernel_edges(scene, tables, fcc.stage_capacity())
+    assert all(reached[e] for e in edges), reached
     spec, d0, h = scene.cellgrid, scene.density0, scene.support_radius
     count = fcg.occupied_count(mt)
-    if "cap" in kw:
-        assert count.max().item() > 32
     params = fcc.kernel_params(d0, h, scene.viscosity)
     act = active.long()
     lam_t, dens_t = torch.zeros_like(mt), torch.zeros_like(mt)
@@ -209,6 +263,18 @@ def test_pbf_kernels_match_plain_versions_on_card(cuda, kw):
     assert ((dens_t[act] - dens_r).abs().max()
             <= 1e-5 * dens_r.abs().max())
     assert (lam_t[act] - lam_r).abs().max() <= 1e-5 * lam_r.abs().max()
+    # rows outside `active` are left as they were, and a second launch
+    # gives the same bits (sums in a fixed order)
+    lam_s, dens_s = (torch.full_like(mt, float("nan")),
+                     torch.full_like(mt, float("nan")))
+    fcc.density_lambda_cuda(spec, xt, xt, mt, count, active, nbr, nbr_ok,
+                            lam_s, dens_s, params)
+    outside = torch.ones(mt.shape[0], dtype=torch.bool, device=cuda)
+    outside[act] = False
+    assert torch.isnan(lam_s[outside]).all()
+    assert torch.isnan(dens_s[outside]).all()
+    assert torch.equal(lam_s[act], lam_t[act])
+    assert torch.equal(dens_s[act], dens_t[act])
 
     x_out = xt.clone()
     fcc.corrections_cuda(spec, xt, xt, mt, count, lam_t, active, nbr,
