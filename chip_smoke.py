@@ -22,25 +22,30 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``SceneBuilder`` on the card, ``make_step_fn`` → 200 steps; then each
    path's steps/s and the card's busy share;
 5. timings: each kernel per launch beside its plain version and its
-   bound, and ``make_cloth_step`` at 1 and 4 rollouts in steps/s;
+   bound (the cloth kernel's logged beside its first design's recorded
+   times, ``RECORDED_FIRST_DESIGN_CLOTH_MS``), and ``make_cloth_step`` at 1
+   and 4 rollouts in steps/s;
 6. the fluid path, the 100k PBF breaking dam of ``bench.py --fluid``
    (80×50×25 particles in its boundary box), built by ``FluidScene.create``
    on the card: the three PBF kernels (density and λ, corrections, XSPH)
    against their plain versions for one pass each at the dam's shapes and
-   on a cap-40 dam without boundary, and the kernel step against the plain
-   step over 10 steps; then ``make_fluid_step_fn`` → 100 steps with the
+   on a cap-40 dam without boundary (Δx and v under ``one_pass_bar``),
+   and the kernel step against the plain step over 10 steps; then
+   ``make_fluid_step_fn`` → 100 steps with the
    launch counts set to 0 just before and read just after (5/5/1 a step),
    ``overflow`` 0 and every position finite; steps/s, the card's busy
    share and its peak memory; each kernel per launch beside its plain
    version and its bound, logged beside the recorded times of their
    first design (``RECORDED_FIRST_DESIGN_MS``); the staging and lane use
-   that the dam's tables give B3 and B4; and that a step never syncs the
+   that the dam's tables give the three; and that a step never syncs the
    host.
 
-The build log's ``-Xptxas -v`` lines are printed per ``__global__``
-(registers, shared memory, spills), and for the PBF kernels the
+The build log's ``-Xptxas -v`` lines are printed per ``__global__`` and
+template instance (registers, shared memory, spills), and for the cloth
+kernel (each iteration count a launch holds) and the PBF kernels the
 registers, shared memory and resident blocks an SM that the CUDA runtime
-reports (``cellgrid_cuda.kernel_resources``).
+reports (``grid_cloth_cuda.kernel_resources``,
+``cellgrid_cuda.kernel_resources``).
 
 Every steps/s figure is the median of ``N_WINDOWS`` windows of at least
 ``WINDOW_S`` seconds on the host clock, printed with the lowest and the
@@ -101,7 +106,11 @@ DAM = (80, 50, 25)              # the bench dam (bench.py --fluid defaults)
 FLUID_STEPS_MAIN = 100
 FLUID_CHECK_STEPS = 10
 FLUID_STEP_TOL = 1e-4           # kernel step vs plain step over 10 steps
-FLUID_PASS_TOL = 1e-6           # one pass: max|dx|, max|dv|
+# one pass: a value of Δx (B4) or v (B5) passes within FLUID_PASS_TOL of
+# the plain version's, or within one float32 step of it where the plain
+# value's magnitude is FLUID_STEP_FROM or more (one_pass_bar)
+FLUID_PASS_TOL = 1e-6
+FLUID_STEP_FROM = 8.0
 FLUID_RHO_RTOL = 1e-5           # one pass: max|d rho| / max rho
 FLUID_LAM_RTOL = 1e-4           # one pass: max|d lambda| / max|lambda|
 PLAIN_CHUNK = 2048              # active cells per piece of the plain passes
@@ -112,6 +121,12 @@ PLAIN_CHUNK = 2048              # active cells per piece of the plain passes
 # this run's times, as recorded figures; no result is computed from them.
 RECORDED_FIRST_DESIGN_MS = {"pbf_density_lambda": 0.3036,
                             "pbf_corrections": 0.2917, "pbf_xsph": 0.2629}
+# B1 per launch at 320x320, 1 iteration, at 1 and 4 rollouts in its first
+# design (a 32x16 tile of 512 threads, lambda and the Jacobi weights in
+# shared memory, the bending stencil from a constant table), as PERF.md
+# records them: chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W.
+# Logged only, as B1's recorded figures.
+RECORDED_FIRST_DESIGN_CLOTH_MS = {1: 0.02602, 4: 0.07495}
 
 # fp32 operations counted from csrc/pbf_cells.cu. Per candidate pair (an
 # occupied slot of a neighbour cell) the frozen test: the mass or psi
@@ -148,7 +163,8 @@ def nvidia_smi_line() -> str:
 def ptxas_report(logs):
     """``{kernel: {"registers", "smem", "stack", "spill_stores",
     "spill_loads"}}`` from ``nvcc -Xptxas -v`` output (``{source stem:
-    text}``), and the lines it read, each prefixed with its kernel."""
+    text}``), one entry per template instance (``name<args>``), and the
+    lines it read, each prefixed with its kernel."""
     out, lines = {}, []
     for stem, text in logs.items():
         name = None
@@ -157,9 +173,17 @@ def ptxas_report(logs):
                           r"'?(\S+?)'?(?: |$)", line)
             if m:
                 # the kernels' names hold no digits; a mangled name puts
-                # digits (a length, a file hash) before each part
-                short = re.search(r"[a-z][a-z_]*_kernel", m.group(1))
-                name = short.group(0) if short else m.group(1)
+                # digits (a length, a file hash) before each part, and a
+                # template instance its integer arguments after the name
+                # (I Li1E ... E), kept as name<1,...>
+                short = re.search(r"([a-z][a-z_]*_kernel)(I(?:Li\d+E)+E)?",
+                                  m.group(1))
+                name = m.group(1)
+                if short:
+                    name = short.group(1)
+                    if short.group(2):
+                        name += "<" + ",".join(re.findall(
+                            r"Li(\d+)E", short.group(2))) + ">"
                 out.setdefault(name, {})
                 continue
             if name is None or not ("registers" in line or "spill" in line):
@@ -669,6 +693,10 @@ def time_cloth_kernel(dev):
                                             h=h)
 
     out["plain_ms"] = cuda_time_ms(plain, 50)
+    for nb, ms in RECORDED_FIRST_DESIGN_CLOTH_MS.items():
+        log(f"timing cloth_substep at {nb} rollouts: {out[f'ms_b{nb}']!r} ms "
+            f"a launch in this run; PERF.md records {ms} ms for its first "
+            "design (not measured in this run)")
 
     for nb in (1, 4):
         f = gcc.make_cloth_step(gc, p.inv_mass, gc.inv_cnt_dist,
@@ -798,6 +826,33 @@ class PassInputs:
                                   chunk=PLAIN_CHUNK)
 
 
+def one_pass_bar(kernel, plain, tol=FLUID_PASS_TOL,
+                 step_from=FLUID_STEP_FROM):
+    """Hold one pass's output to its plain version value by value: a value
+    passes within ``tol`` of the plain value or, where the plain value's
+    magnitude is ``step_from`` or more, within one float32 step of it. At
+    8 m/s and up ``tol`` is at most one float32 step (9.5e-7 from 8, 1.9e-6
+    from 16, 3.8e-6 from 32), and a kernel that adds a slot's terms in
+    another order than the plain version may round the last bit of
+    ``v + (−ν)·dv`` the other way; the dam's particles reach 33 m/s.
+    Returns the values under each kind of bar, how many differ at all and
+    fail, the largest deviation, the largest plain magnitude among the
+    values that differ, and ``ok``."""
+    k, p = kernel.float(), plain.float()
+    diff = (k - p).abs()
+    mag = p.abs()
+    step = torch.nextafter(mag, torch.full_like(mag, math.inf)) - mag
+    big = mag >= step_from
+    ok = (diff <= tol) | (big & (diff <= step))
+    differ = diff > 0
+    return {"values_abs": int((~big).sum()), "values_step": int(big.sum()),
+            "differ": int(differ.sum()), "fail": int((~ok).sum()),
+            "max_abs_err": diff.max().item(),
+            "max_magnitude_differing": (mag[differ].max().item()
+                                        if bool(differ.any()) else 0.0),
+            "ok": bool(ok.all())}
+
+
 def check_fluid_passes(pi, label, second_moves=True):
     """Each PBF kernel's one pass against its plain version on the same
     inputs: B3 and B4 at the first iteration (``x = x0``) and at the
@@ -818,12 +873,14 @@ def check_fluid_passes(pi, label, second_moves=True):
             f"lam{sfx}_scale": lam_r.abs().max().item(),
             f"x{sfx}_max_abs_err": max_dev(x_out, x_ref),
             f"x{sfx}_moved": max_dev(x_ref, x_in),
+            f"x{sfx}_bar": one_pass_bar(x_out, x_ref),
         })
     out["x_moved_from_x0"] = max_dev(pi.iters[1][0], pi.xt)
     v_ref = pi.plain_b5()
     torch.cuda.synchronize()
     out.update({
         "v_max_abs_err": max_dev(pi.v_out, v_ref),
+        "v_bar": one_pass_bar(pi.v_out, v_ref),
         "v_smoothed": max_dev(v_ref, pi.vt),
         "max_count": pi.count.max().item(),
         "active": pi.active.shape[0],
@@ -836,10 +893,10 @@ def check_fluid_passes(pi, label, second_moves=True):
         # compression (ρ/ρ0 − 1 ≤ ~0.03) cancels about two of ρ's digits
         assert (out[f"lam{sfx}_max_abs_err"]
                 <= FLUID_LAM_RTOL * out[f"lam{sfx}_scale"]), out
-        assert out[f"x{sfx}_max_abs_err"] <= FLUID_PASS_TOL, out
+        assert out[f"x{sfx}_bar"]["ok"], out
         if sfx == "" or second_moves:
             assert min(out[f"lam{sfx}_scale"], out[f"x{sfx}_moved"]) > 0, out
-    assert out["v_max_abs_err"] <= FLUID_PASS_TOL, out
+    assert out["v_bar"]["ok"], out
     assert min(out["x_moved_from_x0"], out["v_smoothed"]) > 0, out
     return out
 
@@ -1098,9 +1155,12 @@ def time_fluid_kernels(scene, state):
             "pbf_xsph": (pi.b5, pi.plain_b5)}
     from positionbaseddynamics_tpu_torch.fluids import cellgrid_cuda as fcc
 
+    stage = fcc.stage_capacity()
     out = {"work": work,
-           "staging": staging_counts(spec, pi.mt, *pi.cells(),
-                                     fcc.stage_capacity())}
+           "staging": staging_counts(spec, pi.mt, *pi.cells(), stage),
+           # B5 stages the fluid candidates alone
+           "staging_xsph": staging_counts(spec, pi.mt, *pi.cells(),
+                                          (stage[0], 2**31 - 1))}
     for name, (kernel, plain) in runs.items():
         r = {"interval_ms": cuda_time_ms(kernel, 200)}
         kms = device_ms(kernel, 100, name + "_kernel")
@@ -1152,6 +1212,10 @@ def main() -> int:
     for line in lines:
         log(f"  ptxas {line}")
     from positionbaseddynamics_tpu_torch.fluids import cellgrid_cuda as fcc
+    from positionbaseddynamics_tpu_torch.solver import grid_cloth_cuda as gcc
+    cloth_resources = gcc.kernel_resources()
+    for iters, r in cloth_resources.items():
+        log(f"  runtime cloth_substep_kernel<{iters}>: {r}")
     resources = fcc.kernel_resources()
     for kname, r in resources.items():
         log(f"  runtime {kname}: {r}")
@@ -1193,6 +1257,9 @@ def main() -> int:
         "main_path_device_busy": busy,
         "steps_per_s_b1": t["steps_per_s_b1"],
         "steps_per_s_b4": t["steps_per_s_b4"],
+        "ptxas": {iters: ptxas.get(f"cloth_substep_kernel<{iters}>")
+                  for iters in cloth_resources},
+        "runtime_resources": cloth_resources,
     }, {
         "name": "tet_substep",
         "route": "cuda",
@@ -1252,7 +1319,8 @@ def main() -> int:
             "build_peak_bytes": dam["peak_build_bytes"],
             "plain_step_s": fc["plain_step_s"],
             "work": ft["work"],
-            **({"staging": ft["staging"]} if kname != "pbf_xsph" else {}),
+            "staging": ft["staging_xsph" if kname == "pbf_xsph"
+                          else "staging"],
             "ptxas": ptxas.get(kname + "_kernel"),
             "runtime_resources": resources[kname],
         })

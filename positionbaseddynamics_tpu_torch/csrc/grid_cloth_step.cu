@@ -18,24 +18,34 @@
 // latency rather than either.
 //
 // Design: the state lives in component planes (B, 3, H, W). A block owns a
-// TX x TY tile and loads it with a halo of R = 3 * max_iterations on both
-// axes into shared memory (one projection iteration moves information 1
-// cell in the distance pass and 2 in the bending pass). Each pass first
-// computes every anchor's correction into shared arrays, then every particle
-// gathers its terms at the fixed stencil offsets, in the same order as the
-// plain PyTorch version scatters them, so the sum needs no atomics and its
-// order is fixed. Lambda per family stays in shared memory across
-// iterations. Only the tile interior is written, to output buffers distinct
-// from the inputs, because neighbouring blocks read this block's cells as
-// their halo. Family masks and the triangulation parity come from global
-// indices (row + row_offset), so a row-sharded caller can reuse the kernel.
+// TX x TY tile and loads it with a halo of R = 3 * ITERS on both axes into
+// shared memory (one projection iteration moves information 1 cell in the
+// distance pass and 2 in the bending pass). ITERS, the iterations a launch
+// runs (1 to kMaxIters), is a template parameter, so the window, its size
+// and every cell's coordinates are compile-time arithmetic. Each thread
+// owns a fixed set of the window's cells for the whole launch (cells
+// t + k * threads, k < Window::NC): it loads them, solves the constraints
+// anchored there, gathers their corrections and writes them back, so each
+// anchor's 6 lambdas and the cell's Jacobi weights icd, icb live in its
+// registers. Shared memory holds only what neighbours read: the positions,
+// the inverse masses and 3 correction planes per family. Each pass first
+// computes every anchor's correction into that scratch, then every
+// particle gathers its terms at the fixed stencil offsets, in the same
+// order as the plain PyTorch version scatters them, so the sum needs no
+// atomics and its order is fixed. The bending stencils are literal offsets
+// for each anchor parity (bend_point; no table), selected per lane, and
+// the S vectors are read at compile-time offsets of the launch parameters.
+// Only the tile interior is written, to output buffers distinct from the
+// inputs, because neighbouring blocks read this block's cells as their
+// halo. Family masks and the triangulation parity come from global indices
+// (row + row_offset), so a row-sharded caller can reuse the kernel.
 //
-// A tile with its halo holds at most kMaxIters iterations in shared memory
-// (188 KB at 4). More iterations run as several launches of one substep:
-// each launch after the first starts from the positions and the lambda
-// planes (B, 6, H, W) that the launch before it wrote, only the first
-// integrates, and only the last updates the velocity. Every launch repeats
-// the same operations in the same order, so the split changes no result.
+// A launch holds at most kMaxIters iterations. More iterations run as
+// several launches of one substep: each launch after the first starts from
+// the positions and the lambda planes (B, 6, H, W) that the launch before
+// it wrote, only the first integrates, and only the last updates the
+// velocity. Every launch repeats the same operations in the same order, so
+// the split changes no result.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -43,14 +53,34 @@
 
 namespace {
 
-constexpr int TX = 32;   // tile width  (one warp along a row)
+constexpr int TX = 32;   // tile width
 constexpr int TY = 16;   // tile height
-// shared planes: x(3) w icd icb, per-family scratch (3 families x 3
-// components, reused by the distance and the bending pass), lambda (6)
-constexpr int N_PLANES = 3 + 3 + 9 + 6;
+// shared planes: x(3) w, per-family scratch (3 families x 3 components,
+// reused by the distance and the bending pass)
+constexpr int N_PLANES = 3 + 1 + 9;
 constexpr int N_PARAMS = 40;
-constexpr int kMaxIters = 4;   // iterations one launch holds
+constexpr int kMaxIters = 4;     // iterations one launch holds
 constexpr int kMaxDevices = 64;
+// cells a thread owns beyond ITERS. At one iteration one cell a thread
+// (864 threads a 32x16 tile) took 14.1 us a launch at 320x320 against
+// 15.2 us for two (448 threads) at one rollout, and 44.0-47.7 against
+// 43.5 us at four (scripts/cloth_tile_sweep.py, an H100 SXM at 700 W)
+constexpr int kExtraCells = 0;
+
+// The window of a launch that runs ITERS iterations: the tile with a halo
+// of R on every side, S cells, NC of them owned by each of its `threads`.
+template <int ITERS>
+struct Window {
+  static constexpr int R = 3 * ITERS;
+  static constexpr int SX = TX + 2 * R, SY = TY + 2 * R, S = SX * SY;
+  static constexpr int NC = ITERS + kExtraCells;
+  static constexpr int threads = ((S + NC - 1) / NC + 31) / 32 * 32;
+  // blocks an SM the registers are held to allow: 3 at one iteration,
+  // fewer where the threads do not fit 3 times
+  static constexpr int min_blocks =
+      ITERS > 1 ? 1 : (2048 / threads < 3 ? 2048 / threads : 3);
+  static constexpr size_t smem = (size_t)S * N_PLANES * sizeof(float);
+};
 
 // Host-side scalars, laid out as the float vector the Python wrapper builds
 // (grid_cloth_cuda.kernel_params).
@@ -68,31 +98,25 @@ struct Params {
 };
 static_assert(sizeof(Params) == N_PARAMS * sizeof(float), "param layout");
 
-// One term of a bending stencil point: kind 0 always, 1 where the anchor's
-// parity helper(i,j) is 1, 2 where it is 0; (di, dj) from the anchor.
-struct Term {
-  int kind, di, dj;
+// Offset (di, dj) from its anchor of point j (a, b, f0, f1: the S index
+// order of the bending factor, grid_cloth_pallas.py:117-131) of bending
+// family f (bh, bv, bd), at an anchor whose parity helper(i,j) is `par`.
+struct Off {
+  int di, dj;
 };
-struct Slot {
-  int n;
-  Term t[2];
-};
-// Points [a, b, f0, f1] of the families bh, bv, bd, matching the S index
-// order of the bending factor (grid_cloth_pallas.py:117-131).
-__constant__ Slot kBend[3][4] = {
-    {{1, {{0, 0, 0}, {0, 0, 0}}},
-     {1, {{0, 0, 1}, {0, 0, 0}}},
-     {2, {{1, 1, 1}, {2, 1, 0}}},
-     {2, {{1, -1, 1}, {2, -1, 0}}}},
-    {{1, {{0, 0, 0}, {0, 0, 0}}},
-     {1, {{0, 1, 0}, {0, 0, 0}}},
-     {2, {{1, 1, 1}, {2, 0, 1}}},
-     {2, {{1, 1, -1}, {2, 0, -1}}}},
-    {{2, {{1, 0, 0}, {2, 0, 1}}},
-     {2, {{1, 1, 1}, {2, 1, 0}}},
-     {2, {{1, 0, 1}, {2, 0, 0}}},
-     {2, {{1, 1, 0}, {2, 1, 1}}}},
-};
+
+__host__ __device__ constexpr Off bend_point(int f, int j, bool par) {
+  return f == 0   ? (j == 0   ? Off{0, 0}
+                     : j == 1 ? Off{0, 1}
+                              : Off{j == 2 ? 1 : -1, par ? 1 : 0})
+         : f == 1 ? (j == 0   ? Off{0, 0}
+                     : j == 1 ? Off{1, 0}
+                              : Off{par ? 1 : 0, j == 2 ? 1 : -1})
+         : j == 0 ? (par ? Off{0, 0} : Off{0, 1})
+         : j == 1 ? (par ? Off{1, 1} : Off{1, 0})
+         : j == 2 ? (par ? Off{0, 1} : Off{0, 0})
+                  : (par ? Off{1, 0} : Off{1, 1});
+}
 
 __device__ __forceinline__ bool parity(int gi, int gj) {
   return (gi & 1) == (gj & 1);
@@ -122,7 +146,9 @@ __device__ __forceinline__ bool bend_mask(int f, int gi, int gj, int H, int W) {
 // launch (integrate, lambda = 0). v_out null: not the last launch, so write
 // the positions to x_out and the lambdas to lam_out; else finish the
 // substep into x_out, v_out.
-__global__ void __launch_bounds__(TX * TY)
+template <int ITERS>
+__global__ void __launch_bounds__(Window<ITERS>::threads,
+                                  Window<ITERS>::min_blocks)
 cloth_substep_kernel(const float* __restrict__ x_in,
                      const float* __restrict__ v_in,
                      const float* __restrict__ x_cur,
@@ -132,16 +158,14 @@ cloth_substep_kernel(const float* __restrict__ x_in,
                      const float* __restrict__ w_g, long long w_bstride,
                      const float* __restrict__ icd_g,
                      const float* __restrict__ icb_g, const Params P, int H,
-                     int W, int iters, int row_offset, int H_global) {
+                     int W, int row_offset, int H_global) {
+  using Wd = Window<ITERS>;
+  constexpr int R = Wd::R, SX = Wd::SX, SY = Wd::SY, S = Wd::S, NC = Wd::NC;
+  constexpr int NT = Wd::threads;
   extern __shared__ float smem[];
-  const int R = 3 * iters;
-  const int SX = TX + 2 * R, SY = TY + 2 * R, S = SX * SY;
   float* sx[3] = {smem, smem + S, smem + 2 * S};
   float* sw = smem + 3 * S;
-  float* sicd = smem + 4 * S;
-  float* sicb = smem + 5 * S;
-  float* scr = smem + 6 * S;       // 9 planes: family f, component c
-  float* slam = smem + 15 * S;     // 6 planes: h v d bh bv bd
+  float* scr = smem + 4 * S;       // 9 planes: family f, component q
 
   const long long plane = (long long)H * W;
   const long long boff = (long long)blockIdx.z * 3 * plane;
@@ -151,57 +175,66 @@ cloth_substep_kernel(const float* __restrict__ x_in,
   const float* wb = w_g + (long long)blockIdx.z * w_bstride;
   const int gi0 = blockIdx.y * TY - R;   // local grid row of shared row 0
   const int gj0 = blockIdx.x * TX - R;
-  const int tid = threadIdx.y * TX + threadIdx.x;
-  const int nthr = TX * TY;
+  const int t = threadIdx.x;
   const float h = P.h;
+  // the owned cells' lambdas (h v d bh bv bd) and Jacobi weights
+  float lam[NC][6], icd[NC], icb[NC];
 
   // ---- load the tile + halo; in the first launch of a substep,
   //      integrate (TimeIntegration.cpp:7-19) ----
-  for (int c = tid; c < S; c += nthr) {
-    const int ly = c / SX, lx = c - ly * SX;
-    const int gi = gi0 + ly, gj = gj0 + lx;
-    float x0 = 0.f, x1 = 0.f, x2 = 0.f, w = 0.f, cd = 0.f, cb = 0.f;
-    float lam[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (gi >= 0 && gi < H && gj >= 0 && gj < W) {
-      const long long g = (long long)gi * W + gj;
-      w = wb[g];
-      cd = icd_g[g];
-      cb = icb_g[g];
-      if (x_cur != nullptr) {
-        const float* xc = x_cur + boff;
-        x0 = xc[g];
-        x1 = xc[plane + g];
-        x2 = xc[2 * plane + g];
 #pragma unroll
-        for (int f = 0; f < 6; ++f) lam[f] = lam_in[loff + f * plane + g];
-      } else {
-        x0 = xb[g];
-        x1 = xb[plane + g];
-        x2 = xb[2 * plane + g];
-        if (w > 0.f) {
-          const float v0 = vb[g] + P.g[0] * h;
-          const float v1 = vb[plane + g] + P.g[1] * h;
-          const float v2 = vb[2 * plane + g] + P.g[2] * h;
-          x0 = x0 + v0 * h;
-          x1 = x1 + v1 * h;
-          x2 = x2 + v2 * h;
+  for (int k = 0; k < NC; ++k) {
+    const int c = t + k * NT;
+    float x0 = 0.f, x1 = 0.f, x2 = 0.f, w = 0.f, cd = 0.f, cb = 0.f;
+#pragma unroll
+    for (int f = 0; f < 6; ++f) lam[k][f] = 0.f;
+    if (c < S) {
+      const int ly = c / SX, lx = c - ly * SX;
+      const int gi = gi0 + ly, gj = gj0 + lx;
+      if (gi >= 0 && gi < H && gj >= 0 && gj < W) {
+        const long long g = (long long)gi * W + gj;
+        w = wb[g];
+        cd = icd_g[g];
+        cb = icb_g[g];
+        if (x_cur != nullptr) {
+          const float* xc = x_cur + boff;
+          x0 = xc[g];
+          x1 = xc[plane + g];
+          x2 = xc[2 * plane + g];
+#pragma unroll
+          for (int f = 0; f < 6; ++f)
+            lam[k][f] = lam_in[loff + f * plane + g];
+        } else {
+          x0 = xb[g];
+          x1 = xb[plane + g];
+          x2 = xb[2 * plane + g];
+          if (w > 0.f) {
+            const float v0 = vb[g] + P.g[0] * h;
+            const float v1 = vb[plane + g] + P.g[1] * h;
+            const float v2 = vb[2 * plane + g] + P.g[2] * h;
+            x0 = x0 + v0 * h;
+            x1 = x1 + v1 * h;
+            x2 = x2 + v2 * h;
+          }
         }
       }
+      sx[0][c] = x0;
+      sx[1][c] = x1;
+      sx[2][c] = x2;
+      sw[c] = w;
     }
-    sx[0][c] = x0;
-    sx[1][c] = x1;
-    sx[2][c] = x2;
-    sw[c] = w;
-    sicd[c] = cd;
-    sicb[c] = cb;
-#pragma unroll
-    for (int f = 0; f < 6; ++f) slam[f * S + c] = lam[f];
+    icd[k] = cd;
+    icb[k] = cb;
   }
   __syncthreads();
 
-  for (int it = 0; it < iters; ++it) {
+#pragma unroll 1
+  for (int it = 0; it < ITERS; ++it) {
     // ---- distance families, per anchor (XPBD.cpp:14-60) ----
-    for (int c = tid; c < S; c += nthr) {
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int c = t + k * NT;
+      if (c >= S) continue;
       const int ly = c / SX, lx = c - ly * SX;
       const int gi = gi0 + ly + row_offset, gj = gj0 + lx;
       const bool par = parity(gi, gj);
@@ -230,11 +263,10 @@ cloth_substep_kernel(const float* __restrict__ x_in,
           const float cc = d - P.rest[f];
           const float dm = fmaxf(d, 1e-6f);
           const float alpha = P.alpha_d[f];
-          const float k = sw[ia] + sw[ib] + alpha;
-          const bool valid = (d > 1e-6f) && (fabsf(k) > 1e-6f);
-          float* lam = slam + f * S + c;
-          const float dl = valid ? -(cc + alpha * *lam) / k : 0.f;
-          *lam = *lam + dl;
+          const float kk = sw[ia] + sw[ib] + alpha;
+          const bool valid = (d > 1e-6f) && (fabsf(kk) > 1e-6f);
+          const float dl = valid ? -(cc + alpha * lam[k][f]) / kk : 0.f;
+          lam[k][f] = lam[k][f] + dl;
           p0 = (n0 / dm) * dl;
           p1 = (n1 / dm) * dl;
           p2 = (n2 / dm) * dl;
@@ -246,40 +278,49 @@ cloth_substep_kernel(const float* __restrict__ x_in,
     }
     __syncthreads();
     // ---- distance gather: a += w*pt, b -= w*pt, in scatter order ----
-    for (int c = tid; c < S; c += nthr) {
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int c = t + k * NT;
+      if (c >= S) continue;
       const int ly = c / SX, lx = c - ly * SX;
-      const int gi = gi0 + ly + row_offset, gj = gj0 + lx;
+      const bool par = parity(gi0 + ly + row_offset, gj0 + lx);
       const float wP = sw[c], nwP = -wP;
       float acc[3] = {0.f, 0.f, 0.f};
       // h: a at (0,0), b at (0,1)
-      for (int k = 0; k < 3; ++k) acc[k] = acc[k] + wP * scr[k * S + c];
+      for (int q = 0; q < 3; ++q) acc[q] = acc[q] + wP * scr[q * S + c];
       if (lx >= 1)
-        for (int k = 0; k < 3; ++k) acc[k] = acc[k] + nwP * scr[k * S + c - 1];
+        for (int q = 0; q < 3; ++q)
+          acc[q] = acc[q] + nwP * scr[q * S + c - 1];
       // v: a at (0,0), b at (1,0)
-      for (int k = 0; k < 3; ++k) acc[k] = acc[k] + wP * scr[(3 + k) * S + c];
+      for (int q = 0; q < 3; ++q)
+        acc[q] = acc[q] + wP * scr[(3 + q) * S + c];
       if (ly >= 1)
-        for (int k = 0; k < 3; ++k)
-          acc[k] = acc[k] + nwP * scr[(3 + k) * S + c - SX];
-      // d: a = p(0,0) q(0,1); b = p(1,1) q(1,0)
+        for (int q = 0; q < 3; ++q)
+          acc[q] = acc[q] + nwP * scr[(3 + q) * S + c - SX];
+      // d: a = p(0,0) q(0,1); b = p(1,1) q(1,0). The anchors at (0,-1)
+      // and (-1,0) have the other parity than this cell, (-1,-1) the same.
       const float* sd = scr + 6 * S;
-      if (parity(gi, gj))
-        for (int k = 0; k < 3; ++k) acc[k] = acc[k] + wP * sd[k * S + c];
-      if (lx >= 1 && !parity(gi, gj - 1))
-        for (int k = 0; k < 3; ++k) acc[k] = acc[k] + wP * sd[k * S + c - 1];
-      if (lx >= 1 && ly >= 1 && parity(gi - 1, gj - 1))
-        for (int k = 0; k < 3; ++k)
-          acc[k] = acc[k] + nwP * sd[k * S + c - SX - 1];
-      if (ly >= 1 && !parity(gi - 1, gj))
-        for (int k = 0; k < 3; ++k)
-          acc[k] = acc[k] + nwP * sd[k * S + c - SX];
-      const float icd = sicd[c];
-      for (int k = 0; k < 3; ++k) sx[k][c] = sx[k][c] + icd * acc[k];
+      if (par)
+        for (int q = 0; q < 3; ++q) acc[q] = acc[q] + wP * sd[q * S + c];
+      if (lx >= 1 && par)
+        for (int q = 0; q < 3; ++q)
+          acc[q] = acc[q] + wP * sd[q * S + c - 1];
+      if (lx >= 1 && ly >= 1 && par)
+        for (int q = 0; q < 3; ++q)
+          acc[q] = acc[q] + nwP * sd[q * S + c - SX - 1];
+      if (ly >= 1 && par)
+        for (int q = 0; q < 3; ++q)
+          acc[q] = acc[q] + nwP * sd[q * S + c - SX];
+      for (int q = 0; q < 3; ++q) sx[q][c] = sx[q][c] + icd[k] * acc[q];
     }
     __syncthreads();
 
     // ---- isometric bending, rank-1 (XPBD.cpp:153-213):
     //      t = sum_j S_j x_j, C = -|t|^2/2, grad_j C = -S_j t ----
-    for (int c = tid; c < S; c += nthr) {
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int c = t + k * NT;
+      if (c >= S) continue;
       const int ly = c / SX, lx = c - ly * SX;
       const int gi = gi0 + ly + row_offset, gj = gj0 + lx;
       const bool par = parity(gi, gj);
@@ -287,17 +328,18 @@ cloth_substep_kernel(const float* __restrict__ x_in,
       for (int f = 0; f < 3; ++f) {
         float o0 = 0.f, o1 = 0.f, o2 = 0.f;
         int idx[4];
+        float s[4];
         bool inb = bend_mask(f, gi, gj, H_global, W);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const Slot& sl = kBend[f][j];
-          const Term& t = (sl.n == 1 || par) ? sl.t[0] : sl.t[1];
-          const int py = ly + t.di, px = lx + t.dj;
+          const Off a = bend_point(f, j, true), b = bend_point(f, j, false);
+          const int py = ly + (par ? a.di : b.di);
+          const int px = lx + (par ? a.dj : b.dj);
           inb = inb && py >= 0 && py < SY && px >= 0 && px < SX;
           idx[j] = py * SX + px;
+          s[j] = par ? P.s_par[f][j] : P.s_npar[f][j];
         }
         if (inb) {
-          const float* s = par ? P.s_par[f] : P.s_npar[f];
           float t0 = s[0] * sx[0][idx[0]];
           float t1 = s[0] * sx[1][idx[0]];
           float t2 = s[0] * sx[2][idx[0]];
@@ -314,9 +356,9 @@ cloth_substep_kernel(const float* __restrict__ x_in,
           const float alpha = P.alpha_b[f];
           const float kk = ws2 * tt + alpha;
           const bool valid = fabsf(kk) > 1e-9f;
-          float* lam = slam + (3 + f) * S + c;
-          const float dl = valid ? -(energy + alpha * *lam) / kk : 0.f;
-          *lam = *lam + dl;
+          const float dl =
+              valid ? -(energy + alpha * lam[k][3 + f]) / kk : 0.f;
+          lam[k][3 + f] = lam[k][3 + f] + dl;
           o0 = dl * t0;
           o1 = dl * t1;
           o2 = dl * t2;
@@ -327,75 +369,85 @@ cloth_substep_kernel(const float* __restrict__ x_in,
       }
     }
     __syncthreads();
-    // ---- bending gather: point j of anchor A takes -w S_j(A) (dl t)(A) ----
-    for (int c = tid; c < S; c += nthr) {
+    // ---- bending gather: point j of anchor A takes -w S_j(A) (dl t)(A).
+    //      Per point, in the plain version's order: where its offset does
+    //      not depend on the anchor's parity, the one term; else the term
+    //      of an anchor of parity 1, then of one of parity 0 ----
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int c = t + k * NT;
+      if (c >= S) continue;
       const int ly = c / SX, lx = c - ly * SX;
-      const int gi = gi0 + ly + row_offset, gj = gj0 + lx;
+      const bool ppar = parity(gi0 + ly + row_offset, gj0 + lx);
       const float nwP = -sw[c];
       float acc[3] = {0.f, 0.f, 0.f};
+      // the term of point j of family f at offset o from its anchor, an
+      // anchor of parity `want` unless `any`
+      auto term = [&](int f, int j, Off o, bool any, bool want) {
+        const int ay = ly - o.di, ax = lx - o.dj;
+        if (ay < 0 || ay >= SY || ax < 0 || ax >= SX) return;
+        const bool apar = ((o.di + o.dj) & 1) ? !ppar : ppar;
+        if (!any && apar != want) return;
+        const float sj = apar ? P.s_par[f][j] : P.s_npar[f][j];
+        const float cw = nwP * sj;
+        const int a = ay * SX + ax;
+        for (int q = 0; q < 3; ++q)
+          acc[q] = acc[q] + cw * scr[(3 * f + q) * S + a];
+      };
 #pragma unroll
       for (int f = 0; f < 3; ++f) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const Slot& sl = kBend[f][j];
-          for (int q = 0; q < sl.n; ++q) {
-            const Term& t = sl.t[q];
-            const int ay = ly - t.di, ax = lx - t.dj;
-            if (ay < 0 || ay >= SY || ax < 0 || ax >= SX) continue;
-            const bool apar = parity(gi - t.di, gj - t.dj);
-            if (t.kind == 1 && !apar) continue;
-            if (t.kind == 2 && apar) continue;
-            const float sj = apar ? P.s_par[f][j] : P.s_npar[f][j];
-            const float cw = nwP * sj;
-            const int a = ay * SX + ax;
-            for (int k = 0; k < 3; ++k)
-              acc[k] = acc[k] + cw * scr[(3 * f + k) * S + a];
+          const Off a = bend_point(f, j, true), b = bend_point(f, j, false);
+          if (a.di == b.di && a.dj == b.dj) {
+            term(f, j, a, true, true);
+          } else {
+            term(f, j, a, false, true);
+            term(f, j, b, false, false);
           }
         }
       }
-      const float icb = sicb[c];
-      for (int k = 0; k < 3; ++k) sx[k][c] = sx[k][c] + icb * acc[k];
+      for (int q = 0; q < 3; ++q) sx[q][c] = sx[q][c] + icb[k] * acc[q];
     }
     __syncthreads();
   }
 
   // ---- tile interior: in the last launch of a substep, the first-order
   //      velocity update (TimeIntegration.cpp:42-51) and damping; the
-  //      write-back ----
-  const int gi = blockIdx.y * TY + threadIdx.y;
-  const int gj = blockIdx.x * TX + threadIdx.x;
-  if (gi < H && gj < W) {
-    const int c = (threadIdx.y + R) * SX + threadIdx.x + R;
+  //      write-back, each owned cell by its thread ----
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    const int c = t + k * NT;
+    if (c >= S) continue;
+    const int ly = c / SX, lx = c - ly * SX;
+    const int gi = gi0 + ly, gj = gj0 + lx;
+    if (ly < R || ly >= R + TY || lx < R || lx >= R + TX || gi >= H ||
+        gj >= W)
+      continue;
     const long long g = (long long)gi * W + gj;
     const float w = sw[c];
     float* xo = x_out + boff;
 #pragma unroll
-    for (int k = 0; k < 3; ++k) xo[k * plane + g] = sx[k][c];
+    for (int q = 0; q < 3; ++q) xo[q * plane + g] = sx[q][c];
     if (v_out != nullptr) {
       float* vo = v_out + boff;
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float x = sx[k][c];
-        float v = w > 0.f ? (x - xb[k * plane + g]) / h : vb[k * plane + g];
+      for (int q = 0; q < 3; ++q) {
+        const float x = sx[q][c];
+        float v = w > 0.f ? (x - xb[q * plane + g]) / h : vb[q * plane + g];
         if (P.use_damp != 0.f) v = v * P.damp;
-        vo[k * plane + g] = v;
+        vo[q * plane + g] = v;
       }
     } else {
 #pragma unroll
-      for (int f = 0; f < 6; ++f)
-        lam_out[loff + f * plane + g] = slam[f * S + c];
+      for (int f = 0; f < 6; ++f) lam_out[loff + f * plane + g] = lam[k][f];
     }
   }
-}
+}  // cloth_substep_kernel
 
-// Dynamic shared memory one block needs for `iters` projection iterations.
-long long smem_bytes(int iters) {
-  const long long r = 3LL * iters;
-  return (TX + 2 * r) * (TY + 2 * r) * N_PLANES * (long long)sizeof(float);
-}
-
-// Opt in to the largest tile's dynamic shared memory once per device: the
+// Opt in to the window's dynamic shared memory once per device: the
 // attribute holds for every later launch there.
+template <int ITERS>
 cudaError_t allow_smem() {
   static bool done[kMaxDevices] = {};
   int dev = 0;
@@ -403,11 +455,57 @@ cudaError_t allow_smem() {
   if (e != cudaSuccess) return e;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (done[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(cloth_substep_kernel,
+  e = cudaFuncSetAttribute(cloth_substep_kernel<ITERS>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem_bytes(kMaxIters));
+                           (int)Window<ITERS>::smem);
   if (e == cudaSuccess) done[dev] = true;
   return e;
+}
+
+// The arguments of one launch.
+struct Launch {
+  const float *x_in, *v_in, *x_cur, *lam_in;
+  float *x_out, *v_out, *lam_out;
+  const float* w;
+  long long w_bstride;
+  const float *icd, *icb;
+  Params P;
+  int n_batch, H, W, row_offset, H_global;
+  cudaStream_t stream;
+};
+
+template <int ITERS>
+cudaError_t launch(const Launch& L) {
+  const cudaError_t e = allow_smem<ITERS>();
+  if (e != cudaSuccess) return e;
+  const dim3 grid((L.W + TX - 1) / TX, (L.H + TY - 1) / TY, L.n_batch);
+  cloth_substep_kernel<ITERS>
+      <<<grid, Window<ITERS>::threads, Window<ITERS>::smem, L.stream>>>(
+          L.x_in, L.v_in, L.x_cur, L.lam_in, L.x_out, L.v_out, L.lam_out,
+          L.w, L.w_bstride, L.icd, L.icb, L.P, L.H, L.W, L.row_offset,
+          L.H_global);
+  return cudaGetLastError();
+}
+
+template <int ITERS>
+cudaError_t resources(int* out) {
+  cudaError_t err = allow_smem<ITERS>();
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes at;
+  err = cudaFuncGetAttributes(&at, cloth_substep_kernel<ITERS>);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, cloth_substep_kernel<ITERS>, Window<ITERS>::threads,
+      Window<ITERS>::smem);
+  if (err != cudaSuccess) return err;
+  out[0] = at.numRegs;
+  out[1] = (int)at.sharedSizeBytes;
+  out[2] = (int)Window<ITERS>::smem;
+  out[3] = (int)at.localSizeBytes;
+  out[4] = blocks;
+  out[5] = Window<ITERS>::threads;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -417,6 +515,22 @@ extern "C" {
 int pbd_cloth_param_count() { return N_PARAMS; }
 
 int pbd_cloth_max_iterations() { return kMaxIters; }
+
+// Resources of the kernel that runs `iters` iterations (1 to kMaxIters),
+// as the runtime sees them: out[0] registers a thread, out[1] static
+// shared bytes a block, out[2] dynamic shared bytes a block, out[3] local
+// (spill) bytes a thread, out[4] resident blocks an SM, out[5] threads a
+// block. Returns a CUDA error code.
+int pbd_cloth_kernel_resources(int iters, int* out) {
+  if (!out) return (int)cudaErrorInvalidValue;
+  switch (iters) {
+    case 1: return (int)resources<1>(out);
+    case 2: return (int)resources<2>(out);
+    case 3: return (int)resources<3>(out);
+    case 4: return (int)resources<4>(out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 // One launch of a substep for `n_batch` rollouts, running `iters` (1 to
 // kMaxIters) iterations. State planes are (B, 3, H, W) float32 and lambda
@@ -433,22 +547,21 @@ int pbd_cloth_substep(const void* x_in, const void* v_in, const void* x_cur,
                       int n_batch, int height, int width, int iters,
                       int row_offset, int global_height, void* stream) {
   const bool first = x_cur == nullptr, last = v_out != nullptr;
-  if (iters < 1 || iters > kMaxIters || first != (lam_in == nullptr) ||
-      last != (lam_out == nullptr))
+  if (first != (lam_in == nullptr) || last != (lam_out == nullptr))
     return (int)cudaErrorInvalidValue;
-  Params P;
-  std::memcpy(&P, params, sizeof(P));
-  const cudaError_t e = allow_smem();
-  if (e != cudaSuccess) return (int)e;
-  const dim3 block(TX, TY, 1);
-  const dim3 grid((width + TX - 1) / TX, (height + TY - 1) / TY, n_batch);
-  cloth_substep_kernel<<<grid, block, (size_t)smem_bytes(iters),
-                         (cudaStream_t)stream>>>(
-      (const float*)x_in, (const float*)v_in, (const float*)x_cur,
-      (const float*)lam_in, (float*)x_out, (float*)v_out, (float*)lam_out,
-      (const float*)w, w_bstride, (const float*)icd, (const float*)icb, P,
-      height, width, iters, row_offset, global_height);
-  return (int)cudaGetLastError();
+  Launch L{(const float*)x_in, (const float*)v_in, (const float*)x_cur,
+           (const float*)lam_in, (float*)x_out, (float*)v_out,
+           (float*)lam_out, (const float*)w, w_bstride, (const float*)icd,
+           (const float*)icb, Params{}, n_batch, height, width, row_offset,
+           global_height, (cudaStream_t)stream};
+  std::memcpy(&L.P, params, sizeof(L.P));
+  switch (iters) {
+    case 1: return (int)launch<1>(L);
+    case 2: return (int)launch<2>(L);
+    case 3: return (int)launch<3>(L);
+    case 4: return (int)launch<4>(L);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* pbd_error_string(int err) {

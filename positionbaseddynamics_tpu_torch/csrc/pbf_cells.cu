@@ -41,7 +41,7 @@
 // unoccupied rows that a warp also touches are not work the function
 // needs.
 //
-// Design of B3 and B4, against what held the first design (one lane per
+// Design of all three, against what held the first design (one lane per
 // slot, ~1/4 of the lanes busy, each waiting on a chain of dependent
 // global loads per candidate) back: one warp per active cell and per
 // block, so a cell's warp leaves the SM when it is done. Lanes 0-26 read
@@ -50,8 +50,10 @@
 // occupied prefixes end to end as one candidate list, which all 32 lanes
 // copy with cp.async, every copy in flight together and no register held,
 // into the warp's shared memory as float4 records: {x0, y0, z0, m} and
-// {x, y, z, lambda} per fluid candidate (lambda in B4 only), {x, y, z,
-// psi} per boundary candidate. A list longer than the buffer
+// {x, y, z, lambda} per fluid candidate (lambda in B4 only, rho in B5),
+// and a third record: {x, y, z, psi} per boundary candidate in B3 and B4,
+// {vx, vy, vz, -} per fluid candidate in B5, which walks fluid pairs only
+// and opens no boundary list. A list longer than the buffer
 // (kStageFluid, kStageBoundary) is staged and walked in chunks. The
 // cell's n particles then share the 32 lanes: a group of G lanes per
 // particle, G the largest power of two with G n <= 32 (past 32 particles
@@ -62,19 +64,21 @@
 // lane with the most pairs needs it. Each lane keeps partial sums in
 // registers and a __shfl_xor_sync tree adds them in a fixed order (no
 // atomics: the result is the same from run to run). The group's first
-// lane finishes lambda or x + dx and writes its slot. B3 writes its lambda
-// and density rows into tables B4 and B5 read; B4 and B5 write to tables
-// other than their inputs, since neighbours read the values they replace.
-// 10.3 KB of static shared memory and <= 64 registers a block (one warp)
-// let 20 blocks share an SM; pbd_pbf_kernel_resources reports both.
+// lane finishes lambda, x + dx or v - nu dv and writes its slot. B3
+// writes its lambda and density rows into tables B4 and B5 read; B4 and
+// B5 write to tables other than their inputs, since neighbours read the
+// values they replace. 10.3 KB (B3, B4) and 12.3 KB (B5) of static shared
+// memory and <= 64 registers a block (one warp) let 17-20 blocks share an
+// SM; pbd_pbf_kernel_resources reports both.
 //
-// B5 keeps the first design: one warp per active cell, one lane per slot
-// (lane + 32 r past 32), each lane walking the 27 neighbour cells'
-// occupied prefixes with warp-wide broadcast loads from global memory.
+// B5 cannot join the last B4's walk: it reads every neighbour's velocity
+// (x_new - x_old) / h, which exists only once the last B4 has written all
+// cells, a dependency across the whole grid between two launches.
 // No --use_fast_math: sqrtf and division stay IEEE-rounded.
 #include <climits>
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -83,10 +87,9 @@ namespace {
 
 constexpr int N_PARAMS = 8;
 constexpr int kWarp = 32;
-constexpr int kThreads = 128;    // B5: 4 warps, 4 active cells a block
-// B3 and B4: one warp (one active cell) a block, so that a cell's warp
-// leaves the SM as soon as it is done; 20 such blocks an SM fit the
-// shared memory, and registers are held to what 20 allow
+// one warp (one active cell) a block, so that a cell's warp leaves the SM
+// as soon as it is done; 20 blocks of B3 or B4 an SM fit the shared
+// memory, and registers are held to what 20 allow
 constexpr int kMinBlocks = 20;
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kStageFluid = 256;     // fluid candidates a warp stages
@@ -151,41 +154,11 @@ __device__ __forceinline__ float grad_w_coef(float rl, const PbfParams& P) {
   return rl > 1.0e-6f ? s : 0.0f;
 }
 
-// B5: calls f(jj, m_j) for every frozen fluid pair of a slot whose
-// pre-projection position is xi0 (m_i > 0 is the caller's test): the 27
-// neighbour cells of active cell a in order, each over its occupied prefix.
-template <class F>
-__device__ __forceinline__ void for_fluid_pairs(const Cells& C,
-                                                const PbfParams& P, int a,
-                                                const float* xi0, F&& f) {
-  const int plane = C.n_cells * C.cap;
-  for (int o = 0; o < 27; ++o) {
-    if (!C.ok[a * 27 + o]) continue;
-    const int nc = C.nbr[a * 27 + o];
-    const int n = C.count[nc];
-    const int base = nc * C.cap;
-    for (int j = 0; j < n; ++j) {
-      const int jj = base + j;
-      const float mj = C.m[jj];
-      if (!(mj > 0.0f)) continue;
-      const float r2_0 = dist2_rn(__fsub_rn(xi0[0], C.x0[jj]),
-                                  __fsub_rn(xi0[1], C.x0[plane + jj]),
-                                  __fsub_rn(xi0[2], C.x0[2 * plane + jj]));
-      if (!(r2_0 > 1e-18f && r2_0 < P.h2)) continue;
-      f(jj, mj);
-    }
-  }
-}
-
-__device__ __forceinline__ int warp_cell(const Cells& C) {
-  return (blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
-}
-
 // ---------------------------------------------------------------------------
-// B3 and B4: the staged neighbourhood
+// The staged neighbourhood
 // ---------------------------------------------------------------------------
 
-// One warp's copy of (a chunk of) its cell's candidate list.
+// One warp's copy of (a chunk of) its cell's candidate list, in B3 and B4.
 struct Stage {
   float4 f0[kStageFluid];      // x0, y0, z0, m of a fluid candidate
   float4 f1[kStageFluid];      // x, y, z of the same slot; lambda (B4)
@@ -195,6 +168,19 @@ struct Stage {
   int nc[27];                  // neighbour o's cell id
 };
 
+// B5's: fluid candidates only, each with its velocity.
+struct VelStage {
+  float4 f0[kStageFluid];      // x0, y0, z0, m of a fluid candidate
+  float4 f1[kStageFluid];      // x, y, z, rho of the same slot
+  float4 v[kStageFluid];       // vx, vy, vz of the same slot
+  int foff[27];
+  int boff[27];                // all 0: no boundary list
+  int nc[27];
+};
+
+template <class St>
+constexpr bool kHasBoundary = std::is_same<St, Stage>::value;
+
 struct Hood {
   int row, n;     // the cell's first slot and occupied prefix
   int nf, nb;     // fluid and boundary candidates of the 27 neighbours
@@ -202,10 +188,12 @@ struct Hood {
 };
 
 // Opens active cell a with two rounds of loads: its id and lane o < 27's
-// neighbour flag and id, then the cell's count and neighbour o's counts.
-// A warp scan turns the counts into each neighbour's offset in the
-// candidate lists.
-__device__ Hood open_hood(const Cells& C, int a, Stage& S, int lane) {
+// neighbour flag and id, then the cell's count and neighbour o's counts
+// (fluid, and boundary where the stage holds a boundary list). A warp
+// scan turns the counts into each neighbour's offset in the candidate
+// lists.
+template <class St>
+__device__ Hood open_hood(const Cells& C, int a, St& S, int lane) {
   const int cell = __ldg(C.active + a);
   bool ok = false;
   int nc = 0, cf = 0, cb = 0;
@@ -218,7 +206,7 @@ __device__ Hood open_hood(const Cells& C, int a, Stage& S, int lane) {
   h.n = __ldg(C.count + cell);
   if (ok) {
     cf = __ldg(C.count + nc);
-    if (C.capb > 0) cb = __ldg(C.bcount + nc);
+    if (kHasBoundary<St> && C.capb > 0) cb = __ldg(C.bcount + nc);
   }
   int sf = cf, sb = cb;
 #pragma unroll
@@ -265,13 +253,48 @@ __device__ __forceinline__ void copy_async(float* dst_shared,
   __pipeline_memcpy_async(dst_shared, src, sizeof(float));
 }
 
+// Copies of fluid candidate e's third record, the velocity in B5.
+__device__ __forceinline__ void stage_velocity(Stage&, int, const float*,
+                                               int, int) {}
+
+__device__ __forceinline__ void stage_velocity(VelStage& S, int e,
+                                               const float* vel, int jj,
+                                               int plane) {
+  copy_async(&S.v[e].x, vel + jj);
+  copy_async(&S.v[e].y, vel + plane + jj);
+  copy_async(&S.v[e].z, vel + 2 * plane + jj);
+}
+
+// Copies of chunk `ch` of the boundary candidate list (B3, B4).
+__device__ __forceinline__ void stage_boundary(const Cells& C, Stage& S,
+                                               const Hood& h, int ch,
+                                               int lane) {
+  const int bplane = C.n_cells * C.capb;
+  const int nb = chunk_len(h.nb, ch, kStageBoundary);
+  for (int e = lane; e < nb; e += kWarp) {
+    const int g = ch * kStageBoundary + e;
+    const int o = hood_of(S.boff, g);
+    const int bb = S.nc[o] * C.capb + (g - S.boff[o]);
+    float4& pb = S.b[e];
+    copy_async(&pb.x, C.bx + bb);
+    copy_async(&pb.y, C.bx + bplane + bb);
+    copy_async(&pb.z, C.bx + 2 * bplane + bb);
+    copy_async(&pb.w, C.bpsi + bb);
+  }
+}
+
+__device__ __forceinline__ void stage_boundary(const Cells&, VelStage&,
+                                               const Hood&, int, int) {}
+
 // Starts the copies of chunk `ch` of the fluid and boundary candidate
 // lists into S, all lanes at once and every copy in flight together, as
-// two groups: the fluid candidates (lambda from lam_t where it is given),
-// then the boundary candidates. staged_fluid() and staged_all() wait for
-// them.
-__device__ void stage_chunk(const Cells& C, const float* lam_t, Stage& S,
-                            const Hood& h, int ch, int lane) {
+// two groups: the fluid candidates (the fourth float of f1 from w1 where
+// it is given: lambda in B4, rho in B5; the velocity from vel in B5), then
+// the boundary candidates. staged_fluid() and staged_all() wait for them.
+template <class St>
+__device__ void stage_chunk(const Cells& C, const float* w1,
+                            const float* vel, St& S, const Hood& h, int ch,
+                            int lane) {
   __syncwarp();                  // every lane is done with the last chunk
   const int plane = C.n_cells * C.cap;
   const int nf = chunk_len(h.nf, ch, kStageFluid);
@@ -288,21 +311,11 @@ __device__ void stage_chunk(const Cells& C, const float* lam_t, Stage& S,
     copy_async(&p1.x, C.x + jj);
     copy_async(&p1.y, C.x + plane + jj);
     copy_async(&p1.z, C.x + 2 * plane + jj);
-    if (lam_t) copy_async(&p1.w, lam_t + jj);
+    if (w1) copy_async(&p1.w, w1 + jj);
+    stage_velocity(S, e, vel, jj, plane);
   }
   __pipeline_commit();
-  const int bplane = C.n_cells * C.capb;
-  const int nb = chunk_len(h.nb, ch, kStageBoundary);
-  for (int e = lane; e < nb; e += kWarp) {
-    const int g = ch * kStageBoundary + e;
-    const int o = hood_of(S.boff, g);
-    const int bb = S.nc[o] * C.capb + (g - S.boff[o]);
-    float4& pb = S.b[e];
-    copy_async(&pb.x, C.bx + bb);
-    copy_async(&pb.y, C.bx + bplane + bb);
-    copy_async(&pb.z, C.bx + 2 * bplane + bb);
-    copy_async(&pb.w, C.bpsi + bb);
-  }
+  stage_boundary(C, S, h, ch, lane);
   __pipeline_commit();
 }
 
@@ -390,32 +403,34 @@ __device__ __forceinline__ void for_passing(int n, const Lanes& L,
 
 // Walks this lane's share of its particle's staged neighbourhood (xi0 its
 // pre-projection position; nothing when `live` is false), chunk by chunk:
-// calls fluid(m_j, {x_j, y_j, z_j, lambda_j}) for every frozen fluid pair
-// and boundary({x_b, y_b, z_b, psi_b}) for every frozen boundary pair. A
+// calls fluid(c) for every staged fluid candidate c that is a frozen pair
+// and, in B3 and B4, boundary(S.b[c]) for every frozen boundary pair. A
 // chunk is staged in the first particle round, and again in later rounds
 // only when the neighbourhood takes more than one chunk.
-template <class Fluid, class Boundary>
+template <class St, class Fluid, class Boundary>
 __device__ __forceinline__ void walk_hood(const Cells& C, const PbfParams& P,
-                                          const float* lam_t, Stage& S,
-                                          const Hood& h, const Lanes& L,
-                                          int s0, bool live, const float* xi0,
-                                          int lane, Fluid&& fluid,
+                                          const float* w1, const float* vel,
+                                          St& S, const Hood& h,
+                                          const Lanes& L, int s0, bool live,
+                                          const float* xi0, int lane,
+                                          Fluid&& fluid,
                                           Boundary&& boundary) {
   for (int ch = 0; ch < h.chunks; ++ch) {
     const bool restage = h.chunks > 1 || s0 == 0;
     if (restage) {
-      stage_chunk(C, lam_t, S, h, ch, lane);
+      stage_chunk(C, w1, vel, S, h, ch, lane);
       staged_fluid();
     }
     const int nf = live ? chunk_len(h.nf, ch, kStageFluid) : 0;
     for_passing(
-        nf, L, [&](int c) { return fluid_pair(S.f0[c], xi0, P); },
-        [&](int c) { fluid(S.f0[c].w, S.f1[c]); });
+        nf, L, [&](int c) { return fluid_pair(S.f0[c], xi0, P); }, fluid);
     if (restage) staged_all();
-    const int nb = live ? chunk_len(h.nb, ch, kStageBoundary) : 0;
-    for_passing(
-        nb, L, [&](int c) { return boundary_pair(S.b[c], xi0, P); },
-        [&](int c) { boundary(S.b[c]); });
+    if constexpr (kHasBoundary<St>) {
+      const int nb = live ? chunk_len(h.nb, ch, kStageBoundary) : 0;
+      for_passing(
+          nb, L, [&](int c) { return boundary_pair(S.b[c], xi0, P); },
+          [&](int c) { boundary(S.b[c]); });
+    }
   }
 }
 
@@ -461,8 +476,8 @@ __global__ void __launch_bounds__(kWarp, kMinBlocks)
       gz += gc * dz;
     };
     walk_hood(
-        C, P, nullptr, S, h, L, s0, live, xi0, lane,
-        [&](float mj, const float4& pj) { add(mj, pj); },
+        C, P, nullptr, nullptr, S, h, L, s0, live, xi0, lane,
+        [&](int c) { add(S.f0[c].w, S.f1[c]); },
         [&](const float4& pb) { add(pb.w, pb); });
     rho = group_sum(rho, L.g);
     s2 = group_sum(s2, L.g);
@@ -523,8 +538,8 @@ __global__ void __launch_bounds__(kWarp, kMinBlocks)
       fz += coef * dz;
     };
     walk_hood(
-        C, P, lam_t, S, h, L, s0, live, xi0, lane,
-        [&](float mj, const float4& pj) { add(mj, li + pj.w, pj); },
+        C, P, lam_t, nullptr, S, h, L, s0, live, xi0, lane,
+        [&](int c) { add(S.f0[c].w, li + S.f1[c].w, S.f1[c]); },
         [&](const float4& pb) { add(pb.w, li, pb); });
     fx = group_sum(fx, L.g);
     fy = group_sum(fy, L.g);
@@ -546,37 +561,61 @@ __global__ void __launch_bounds__(kWarp, kMinBlocks)
 // B5
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWarp, kMinBlocks)
     pbf_xsph_kernel(Cells C, PbfParams P, const float* vt,
                     const float* dens_t, float* v_out) {
-  const int a = warp_cell(C);
+  __shared__ VelStage S;
+  const int a = blockIdx.x;
   if (a >= C.K) return;
+  const int lane = threadIdx.x;
   const int plane = C.n_cells * C.cap;
-  const int cell = C.active[a];
-  for (int s = threadIdx.x % kWarp; s < C.cap; s += kWarp) {
-    const int i = cell * C.cap + s;
-    const float mi = C.m[i];
-    float vi[3] = {vt[i], vt[plane + i], vt[2 * plane + i]};
-    if (mi > 0.0f) {
-      const float xi[3] = {C.x[i], C.x[plane + i], C.x[2 * plane + i]};
-      const float xi0[3] = {C.x0[i], C.x0[plane + i], C.x0[2 * plane + i]};
-      float dvx = 0.0f, dvy = 0.0f, dvz = 0.0f;
-      for_fluid_pairs(C, P, a, xi0, [&](int jj, float mj) {
-        const float rl = sqrtf(dist2_rn(xi[0] - C.x[jj],
-                                        xi[1] - C.x[plane + jj],
-                                        xi[2] - C.x[2 * plane + jj]));
-        const float coef = (mj / fmaxf(dens_t[jj], 1e-6f)) * w_r(rl, P);
-        dvx += coef * (vi[0] - vt[jj]);
-        dvy += coef * (vi[1] - vt[plane + jj]);
-        dvz += coef * (vi[2] - vt[2 * plane + jj]);
-      });
-      vi[0] = vi[0] + P.neg_visc * dvx;
-      vi[1] = vi[1] + P.neg_visc * dvy;
-      vi[2] = vi[2] + P.neg_visc * dvz;
+  const Hood h = open_hood(C, a, S, lane);
+  const int row = h.row, n = h.n;
+  for (int s = n + lane; s < C.cap; s += kWarp)        // empty slots
+    for (int c = 0; c < 3; ++c)
+      v_out[c * plane + row + s] = __ldg(vt + c * plane + row + s);
+  if (n == 0) return;
+  const Lanes L = lanes_for(n, lane);
+  for (int s0 = 0; s0 < n; s0 += L.per_round) {
+    const int s = s0 + L.grp, i = row + s;
+    const float mi = s < n ? __ldg(C.m + i) : 0.0f;
+    const bool live = mi > 0.0f;
+    float xi[3] = {0.0f, 0.0f, 0.0f}, xi0[3] = {0.0f, 0.0f, 0.0f};
+    float vi[3] = {0.0f, 0.0f, 0.0f};
+    if (s < n) {
+      for (int c = 0; c < 3; ++c) {
+        xi[c] = __ldg(C.x + c * plane + i);
+        xi0[c] = __ldg(C.x0 + c * plane + i);
+        vi[c] = __ldg(vt + c * plane + i);
+      }
     }
-    v_out[i] = vi[0];
-    v_out[plane + i] = vi[1];
-    v_out[2 * plane + i] = vi[2];
+    float dvx = 0.0f, dvy = 0.0f, dvz = 0.0f;   // this lane's share of dv
+    walk_hood(
+        C, P, dens_t, vt, S, h, L, s0, live, xi0, lane,
+        [&](int c) {
+          const float4 pj = S.f1[c];
+          const float4 vj = S.v[c];
+          const float rl = sqrtf(dist2_rn(xi[0] - pj.x, xi[1] - pj.y,
+                                          xi[2] - pj.z));
+          const float coef = (S.f0[c].w / fmaxf(pj.w, 1e-6f)) * w_r(rl, P);
+          dvx += coef * (vi[0] - vj.x);
+          dvy += coef * (vi[1] - vj.y);
+          dvz += coef * (vi[2] - vj.z);
+        },
+        [](const float4&) {});
+    dvx = group_sum(dvx, L.g);
+    dvy = group_sum(dvy, L.g);
+    dvz = group_sum(dvz, L.g);
+    if (L.sub == 0 && s < n) {
+      if (live) {
+        vi[0] = vi[0] + P.neg_visc * dvx;
+        vi[1] = vi[1] + P.neg_visc * dvy;
+        vi[2] = vi[2] + P.neg_visc * dvz;
+      }
+      v_out[i] = vi[0];
+      v_out[plane + i] = vi[1];
+      v_out[2 * plane + i] = vi[2];
+    }
   }
 }
 
@@ -610,16 +649,14 @@ bool make_cells(Cells* C, const void* x, const void* x0, const void* m,
   return true;
 }
 
-int blocks_for(int K) { return (K * kWarp + kThreads - 1) / kThreads; }
-
 }  // namespace
 
 extern "C" {
 
 int pbd_pbf_param_count() { return N_PARAMS; }
 
-// The candidates one warp of B3 and B4 stages at a time: out[0] fluid,
-// out[1] boundary.
+// The candidates one warp stages at a time: out[0] fluid (B3, B4, B5),
+// out[1] boundary (B3, B4).
 void pbd_pbf_stage_capacity(int* out) {
   out[0] = kStageFluid;
   out[1] = kStageBoundary;
@@ -628,7 +665,7 @@ void pbd_pbf_stage_capacity(int* out) {
 // Resources of kernel `which` (0 B3, 1 B4, 2 B5) as the runtime sees them:
 // out[0] registers a thread, out[1] static shared bytes a block, out[2]
 // local (spill) bytes a thread, out[3] resident blocks an SM at the
-// launch's block size. Returns a CUDA error code.
+// launch's block size (one warp). Returns a CUDA error code.
 int pbd_pbf_kernel_resources(int which, int* out) {
   const void* fn = which == 0   ? (const void*)pbf_density_lambda_kernel
                    : which == 1 ? (const void*)pbf_corrections_kernel
@@ -640,7 +677,7 @@ int pbd_pbf_kernel_resources(int which, int* out) {
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, fn, which == 2 ? kThreads : kWarp, 0);
+      &blocks, fn, kWarp, 0);
   if (err != cudaSuccess) return (int)err;
   out[0] = at.numRegs;
   out[1] = (int)at.sharedSizeBytes;
@@ -709,7 +746,7 @@ int pbd_pbf_xsph(const void* x, const void* x0, const void* m,
     return (int)cudaErrorInvalidValue;
   PbfParams P;
   std::memcpy(&P, params, sizeof(P));
-  pbf_xsph_kernel<<<blocks_for(K), kThreads, 0, (cudaStream_t)stream>>>(
+  pbf_xsph_kernel<<<K, kWarp, 0, (cudaStream_t)stream>>>(
       C, P, (const float*)vt, (const float*)dens_t, (float*)v_out);
   return (int)cudaGetLastError();
 }

@@ -13,20 +13,20 @@ Three kernels in ``csrc/pbf_cells.cu``, one warp per active cell:
   written as the new velocities of the active rows into a separate table.
 
 All three are bound by their fp32 operations on the H100 (the candidate
-pair tests and the kernel arithmetic of the pairs in range). B3 and B4
-copy each cell's 27-cell neighbourhood into the warp's shared memory with
+pair tests and the kernel arithmetic of the pairs in range). Each copies
+its cell's 27-cell neighbourhood into the warp's shared memory with
 ``cp.async`` (:func:`stage_capacity` fluid and boundary candidates at a
-time, in chunks past that), one warp and one cell a
-block, and share the 32 lanes among the cell's particles, a power-of-two
-group of lanes each: a lane tests its candidates into a bit mask, then
-walks the pairs that passed, and a shuffle tree adds the group's partial
-sums in a fixed order. B5 keeps one lane per slot walking the neighbour
-rows in global memory. Every pass recomputes the step's frozen pair set
-from the pre-projection table ``xt0`` with explicitly rounded
-operations, so its pairs equal the plain version's. Each wrapper checks
-device, dtype, shape and contiguity and raises on anything the kernel
-does not take; it counts its launches in ``<wrapper>.launches``. There
-is no fallback: :func:`pbf_step_cuda` takes CUDA tensors only.
+time, in chunks past that; B5 stages fluid candidates only, with their
+velocities), one warp and one cell a block, and shares the 32 lanes among
+the cell's particles, a power-of-two group of lanes each: a lane tests
+its candidates into a bit mask, then walks the pairs that passed, and a
+shuffle tree adds the group's partial sums in a fixed order. Every pass
+recomputes the step's frozen pair set from the pre-projection table
+``xt0`` with explicitly rounded operations, so its pairs equal the plain
+version's. Each wrapper checks device, dtype, shape and contiguity and
+raises on anything the kernel does not take; it counts its launches in
+``<wrapper>.launches``. There is no fallback: :func:`pbf_step_cuda`
+takes CUDA tensors only.
 :func:`kernel_resources` reports each kernel's registers, shared memory,
 spills and resident blocks an SM.
 
@@ -104,9 +104,10 @@ def _bind(lib):
 
 
 def stage_capacity() -> tuple:
-    """``(fluid, boundary)``: the candidates a warp of B3 and B4 stages in
-    shared memory at a time, as ``csrc/pbf_cells.cu`` defines them; a
-    longer neighbourhood is walked in chunks."""
+    """``(fluid, boundary)``: the candidates a warp stages in shared memory
+    at a time (fluid in B3, B4 and B5, boundary in B3 and B4), as
+    ``csrc/pbf_cells.cu`` defines them; a longer neighbourhood is walked
+    in chunks."""
     lib = _build.load("pbf_cells")
     _bind(lib)
     out = (ctypes.c_int * 2)()
@@ -117,8 +118,8 @@ def stage_capacity() -> tuple:
 def kernel_resources() -> dict:
     """Each kernel's resources as the CUDA runtime reports them on the
     current card: ``{name: {"registers", "shared_bytes", "local_bytes",
-    "blocks_per_sm"}}``, the last at each launch's block size (one warp
-    for B3 and B4, four for B5)."""
+    "blocks_per_sm"}}``, the last at the launches' block size of one
+    warp."""
     lib = _build.load("pbf_cells")
     _bind(lib)
     out = {}

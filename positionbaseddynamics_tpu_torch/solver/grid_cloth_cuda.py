@@ -34,8 +34,9 @@ from .grid_cloth import _DIST_FAMILIES, GridClothBatch, _helper_grid
 Tensor = torch.Tensor
 
 N_PARAMS = 40                   # floats in the kernel's Params struct
-# Iterations one launch holds: a 32×16 tile with its halo of 3·iterations
-# fills 188 KB of shared memory at 4. A substep with more iterations takes
+# Iterations one launch holds, one template instance of the kernel each: a
+# 32×16 tile with its halo of 3·iterations takes 116 KB of shared memory
+# and 115 registers a thread at 4. A substep with more iterations takes
 # several launches, which carry the positions and λ between them.
 FUSED_ITERATIONS = 4
 _BEND_ORDER = ("bh", "bv", "bd")
@@ -150,6 +151,8 @@ def _bind(lib):
     for name in ("pbd_cloth_param_count", "pbd_cloth_max_iterations"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
+    lib.pbd_cloth_kernel_resources.argtypes = [ctypes.c_int, vp]
+    lib.pbd_cloth_kernel_resources.restype = ctypes.c_int
     if (lib.pbd_cloth_param_count() != N_PARAMS
             or lib.pbd_cloth_max_iterations() != FUSED_ITERATIONS):
         raise RuntimeError("grid_cloth_step.cu and grid_cloth_cuda.py "
@@ -157,6 +160,33 @@ def _bind(lib):
                            "iterations per launch")
     fn._pbd_bound = True
     return fn
+
+
+def kernel_resources() -> dict:
+    """The kernel's resources as the CUDA runtime reports them on the
+    current card, for each iteration count one launch holds (one template
+    instance each): ``{iters: {"registers", "static_shared_bytes",
+    "dynamic_shared_bytes", "local_bytes", "blocks_per_sm",
+    "threads"}}``."""
+    lib = _build.load("grid_cloth_step")
+    _bind(lib)
+    return {iters: resources_of(lib, iters)
+            for iters in range(1, FUSED_ITERATIONS + 1)}
+
+
+RESOURCE_KEYS = ("registers", "static_shared_bytes", "dynamic_shared_bytes",
+                 "local_bytes", "blocks_per_sm", "threads")
+
+
+def resources_of(lib, iters: int) -> dict:
+    """:func:`kernel_resources` of one iteration count, from a library
+    built from ``csrc/grid_cloth_step.cu`` or from a variant of it."""
+    vals = (ctypes.c_int * len(RESOURCE_KEYS))()
+    err = lib.pbd_cloth_kernel_resources(iters, vals)
+    if err != 0:
+        raise RuntimeError("cloth kernel resources: "
+                           + lib.pbd_error_string(err).decode())
+    return dict(zip(RESOURCE_KEYS, vals))
 
 
 def _ptr(t: Optional[Tensor]):

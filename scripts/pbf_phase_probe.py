@@ -78,10 +78,10 @@ def instrument(src: str) -> str:
         "    if ((threadIdx.x & 31) == 0) atomicAdd(&g_probe[5], "
         "(unsigned long long)(clock64() - tw_));\n")
     # staging inside walk_hood
-    rep("    if (restage) {\n      stage_chunk(C, lam_t, S, h, ch, lane);\n"
+    rep("    if (restage) {\n      stage_chunk(C, w1, vel, S, h, ch, lane);\n"
         "      staged_fluid();\n    }\n",
         "    __syncwarp();\n    long long ts_ = clock64();\n"
-        "    if (restage) {\n      stage_chunk(C, lam_t, S, h, ch, lane);\n"
+        "    if (restage) {\n      stage_chunk(C, w1, vel, S, h, ch, lane);\n"
         "      staged_fluid();\n    }\n    __syncwarp();\n"
         "    if ((threadIdx.x & 31) == 0) atomicAdd(&g_probe[2], "
         "(unsigned long long)(clock64() - ts_));\n")

@@ -34,8 +34,14 @@ def cuda():
     return torch.device("cuda", torch.cuda.current_device())
 
 
+# one case for each iteration count a launch holds (one template instance
+# each), more than a launch holds (two launches a substep), and a grid
+# smaller than one tile
 @pytest.mark.parametrize("shape,iters", [((40, 37), 2), ((67, 53), 1),
-                                         ((40, 37), 6)])
+                                         ((40, 37), 6), ((40, 37), 1),
+                                         ((40, 37), 3), ((40, 37), 4),
+                                         ((40, 37), 5), ((5, 3), 1),
+                                         ((5, 3), 4)])
 def test_kernel_matches_plain_version_on_card(cuda, shape, iters):
     ts, tc = _build(*shape, device=cuda)
     g = tc.grid_cloths[0]
@@ -72,17 +78,18 @@ def test_step_fn_takes_the_kernel_on_card(cuda, iters, launches_per_substep):
     assert abs(out.time.item() - cpu.time.item()) <= 1e-7
 
 
-def test_batched_state_with_own_inverse_masses_on_card(cuda):
-    """A ``(B, N, 3)`` state whose rollouts pin different particles: the
-    kernel reads each rollout's own inverse-mass plane."""
+def _own_inverse_masses(cuda, n_roll):
+    """A ``(n_roll, N, 3)`` state of a 35x18 cloth whose last rollout pins
+    a top corner too; the kernel reads each rollout's own inverse-mass
+    plane. Three steps on the card against the plain route on the CPU."""
     import dataclasses
 
     ts, tc = _build(35, 18, device=cuda)
     p = ts.particles
-    inv_mass = torch.stack([p.inv_mass, p.inv_mass.clone()])
-    inv_mass[1, 35 * 17] = 0.0                 # pin a top corner in one
+    inv_mass = torch.stack([p.inv_mass] * n_roll).clone()
+    inv_mass[-1, 35 * 17] = 0.0                # pin a top corner in one
     batched = dataclasses.replace(ts, particles=dataclasses.replace(
-        p, **{f: torch.stack([getattr(p, f)] * 2)
+        p, **{f: torch.stack([getattr(p, f)] * n_roll)
               for f in ("x", "v", "old_x", "last_x", "x0")},
         inv_mass=inv_mass))
     fn = make_step_fn(tc, StepConfig(), device=cuda)
@@ -94,8 +101,17 @@ def test_batched_state_with_own_inverse_masses_on_card(cuda):
     dev = (out.particles.x.cpu() - cpu.particles.x).abs().max().item()
     assert dev <= 1e-5
     x0 = p.x[35 * 17]
-    assert torch.equal(out.particles.x[1, 35 * 17], x0)
-    assert not torch.equal(out.particles.x[0, 35 * 17], x0)
+    assert torch.equal(out.particles.x[-1, 35 * 17], x0)
+    for r in range(n_roll - 1):
+        assert not torch.equal(out.particles.x[r, 35 * 17], x0)
+
+
+def test_batched_state_with_own_inverse_masses_on_card(cuda):
+    _own_inverse_masses(cuda, 2)
+
+
+def test_four_rollouts_with_own_inverse_masses_on_card(cuda):
+    _own_inverse_masses(cuda, 4)
 
 
 def _bar(dims, device, stiffness=1e5):
@@ -184,10 +200,11 @@ def _fluid_dam(device, block=(12, 10, 8), hi=(1.4, 1.1, 0.5), cap=12,
 
 
 def _kernel_edges(scene, tables, stage=None):
-    """Which edges of B3 and B4's design the tables reach: cells of more
-    than 32 particles (several lane rounds), cells of one particle (32
-    lanes on it), such a cell whose neighbourhood holds no other fluid but
-    boundary candidates, and, given ``stage`` (the fluid and boundary
+    """Which edges of B3, B4 and B5's design the tables reach: cells of
+    more than 32 particles (several lane rounds), cells of one particle (32
+    lanes on it), such a cell whose neighbourhood holds no other fluid (B5
+    walks no pair for it) and one whose neighbourhood holds boundary
+    candidates besides, and, given ``stage`` (the fluid and boundary
     candidates a warp stages at once), a neighbourhood that holds more."""
     from chip_smoke import neighbourhood_counts
 
@@ -196,6 +213,7 @@ def _kernel_edges(scene, tables, stage=None):
                                            nbr_ok)
     out = {"over_32": bool((own > 32).any()),
            "single": bool((own == 1).any()),
+           "alone": bool(((own == 1) & (fluid == 1)).any()),
            "boundary_only": bool(((own == 1) & (fluid == 1)
                                   & (bnd > 0)).any())}
     if stage is not None:
@@ -219,7 +237,7 @@ PBF_CASES = {
     "lone_particles": (dict(_CAP40, extra=((1.0, 0.04, 0.2),
                                            (1.15, 0.3, 0.2),
                                            (0.7, 0.3, 0.2))),
-                       ("single", "boundary_only", "over_32")),
+                       ("single", "alone", "boundary_only", "over_32")),
 }
 
 
@@ -316,6 +334,13 @@ def test_pbf_kernels_match_plain_versions_on_card(cuda, name):
                           scene.viscosity, h, xt)
     assert (v_ref - vt).abs().max().item() > 1e-4
     assert (v_out - v_ref).abs().max().item() <= 1e-6
+    # B5 leaves the rows outside `active` as they were, and a second launch
+    # gives the same bits
+    v_s = torch.full_like(vt, float("nan"))
+    fcc.xsph_cuda(spec, x_out, xt, vt, mt, count, dens_t, active, nbr,
+                  nbr_ok, v_s, params)
+    assert torch.isnan(v_s[:, outside]).all()
+    assert torch.equal(v_s[:, act], v_out[:, act])
 
 
 def test_pbf_kernels_refuse_what_they_do_not_take(cuda):
