@@ -20,11 +20,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    kernel's launch count set to 0 just before it and read just after:
    the 320×320 bench cloth and the 80×36×36 bench bar, each built by
    ``SceneBuilder`` on the card, ``make_step_fn`` → 200 steps; then each
-   path's steps/s and the card's busy share;
+   path's steps/s and the card's busy share, and the bar's peak device
+   memory over its 200 steps;
 5. timings: each kernel per launch beside its plain version and its
-   bound (the cloth kernel's logged beside its first design's recorded
-   times, ``RECORDED_FIRST_DESIGN_CLOTH_MS``), and ``make_cloth_step`` at 1
-   and 4 rollouts in steps/s;
+   bound (the cloth and tet kernels' logged beside their first designs'
+   recorded times, ``RECORDED_FIRST_DESIGN_CLOTH_MS`` and
+   ``RECORDED_FIRST_DESIGN_TET_MS``), and ``make_cloth_step`` at 1 and 4
+   rollouts in steps/s;
 6. the fluid path, the 100k PBF breaking dam of ``bench.py --fluid``
    (80×50×25 particles in its boundary box), built by ``FluidScene.create``
    on the card: the three PBF kernels (density and λ, corrections, XSPH)
@@ -42,10 +44,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 
 The build log's ``-Xptxas -v`` lines are printed per ``__global__`` and
 template instance (registers, shared memory, spills), and for the cloth
-kernel (each iteration count a launch holds) and the PBF kernels the
-registers, shared memory and resident blocks an SM that the CUDA runtime
-reports (``grid_cloth_cuda.kernel_resources``,
-``cellgrid_cuda.kernel_resources``).
+kernel (each iteration count a launch holds), the tet kernel and the PBF
+kernels the registers, shared memory and resident blocks an SM that the
+CUDA runtime reports (``grid_cloth_cuda.kernel_resources``,
+``grid_tet_cuda.kernel_resources``, ``cellgrid_cuda.kernel_resources``).
 
 Every steps/s figure is the median of ``N_WINDOWS`` windows of at least
 ``WINDOW_S`` seconds on the host clock, printed with the lowest and the
@@ -92,11 +94,11 @@ FLOPS_PER_ITERATION = 3 * 24 + 3 * 50 + 8 * 3 * 2 + 6 + 20 * 7 + 6
 # (solve_tet): per tet and iteration, edge vectors 9, F 45, strain 39,
 # trace 2 + 1, stress input 12, stress 45, energy 17 + 4 + 1, gradients
 # 63, C 3, denominator 30, delta-lambda 11, corrections 28; per cell and
-# iteration the vertex pass adds each of its 24 sums once; per vertex and
+# iteration the gather adds each of its 24 sums once; per vertex and
 # iteration x + inv_cnt * dx, 6; per vertex and substep the integration 12
-# and the velocity update 6. Integrations that a cell pass repeats for
-# the corners it reads are not counted: they are not work the function
-# needs.
+# and the velocity update 6. The halo cells that a block solves again and
+# the halo vertices it integrates again are not counted: they are not
+# work the function needs.
 TET_FLOPS_PER_TET = 9 + 45 + 39 + 3 + 12 + 45 + 22 + 63 + 3 + 30 + 11 + 28
 TET_FLOPS_PER_CELL = 5 * TET_FLOPS_PER_TET + 24
 TET_FLOPS_PER_VERTEX = 6
@@ -127,6 +129,11 @@ RECORDED_FIRST_DESIGN_MS = {"pbf_density_lambda": 0.3036,
 # records them: chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W.
 # Logged only, as B1's recorded figures.
 RECORDED_FIRST_DESIGN_CLOTH_MS = {1: 0.02602, 4: 0.07495}
+# B2 per substep at the 80x36x36 bar, 1 iteration, in its first design (a
+# cell pass and a vertex pass an iteration through a (24, cells) scratch
+# buffer), as PERF.md records it: chip_smoke.py on an NVIDIA H100 80GB
+# HBM3 at 700.00 W. Logged only, as B2's recorded figure.
+RECORDED_FIRST_DESIGN_TET_MS = 0.017094
 
 # fp32 operations counted from csrc/pbf_cells.cu. Per candidate pair (an
 # occupied slot of a neighbour cell) the frozen test: the mass or psi
@@ -564,14 +571,17 @@ def run_tet_main_path(dev, x_plain10):
     assert dev10 <= CHECK_TOL, dev10
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     s = state
     for _ in range(STEPS_MAIN):
         s = fn(s)
     torch.cuda.synchronize()
     counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
     launches = counts["tet_substep"]
-    log(f"main path bar: launch counts {counts}")
+    log(f"main path bar: launch counts {counts}, peak device memory of the "
+        f"{STEPS_MAIN} steps {peak} B")
 
     x = s.particles.x
     assert torch.isfinite(x).all() and torch.isfinite(s.particles.v).all()
@@ -583,7 +593,7 @@ def run_tet_main_path(dev, x_plain10):
     for _ in range(STEPS_MAIN):
         t_expect = np.float32(t_expect + np.float32(cfg.dt))
     assert s.time.item() == float(t_expect), (s.time.item(), t_expect)
-    per_step = 2 * cfg.substeps * cfg.max_iterations
+    per_step = cfg.substeps * cfg.max_iterations      # one a substep's iteration
     assert launches == STEPS_MAIN * per_step, launches
     log(f"main path bar {STEPS_MAIN} steps: launches {launches}, "
         f"mean fall of the free vertices {fall!r}, time {s.time.item()!r}")
@@ -596,13 +606,16 @@ def run_tet_main_path(dev, x_plain10):
     rate = rate_windows(one_step, 1)
     assert torch.isfinite(st[0].particles.x).all()
     log(f"main path bar steps/s: {rate}")
-    busy, _ = profile_busy(fn, st[0], 200, "main path bar")
-    return launches, rate, busy, dev10
+    busy, busy_us = profile_busy(fn, st[0], 200, "main path bar")
+    return {"launches": launches, "steps_per_s": rate, "device_busy": busy,
+            "device_us_per_step": busy_us, "max_abs_err": dev10,
+            "peak_bytes": peak}
 
 
 def time_tet_kernel(dev, bar):
-    """Phase 5, tet: each kernel per launch and the substep (both), the
-    plain version per substep and the bound, at the main path's shape."""
+    """Phase 5, tet: the kernel per launch (one substep at one iteration),
+    the plain version per substep and the bound, at the main path's
+    shape."""
     from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
 
     state, cset = bar
@@ -616,15 +629,12 @@ def time_tet_kernel(dev, bar):
     def launch():
         buf[:] = gtc.tet_substep_cuda(buf[0], buf[1], w, ic, params, dims)
 
+    # events time the stream between launches, host overhead included;
+    # the profiler gives the kernel's own device time
     out = {"interval_ms": cuda_time_ms(launch, 500)}
-    for key, name in (("cell_ms", "tet_cell_kernel"),
-                      ("vertex_ms", "tet_vertex_kernel")):
-        out[key] = device_ms(launch, 200, name)
-    if out["cell_ms"] is None or out["vertex_ms"] is None:
-        out["ms"], out["ms_source"] = out["interval_ms"], "cuda events"
-    else:
-        out["ms"] = out["cell_ms"] + out["vertex_ms"]
-        out["ms_source"] = "profiler"
+    kms = device_ms(launch, 200, "tet_substep_kernel")
+    out["ms"] = out["interval_ms"] if kms is None else kms
+    out["ms_source"] = "cuda events" if kms is None else "profiler"
     xs = [p.x, p.v]
 
     def plain():
@@ -644,6 +654,9 @@ def time_tet_kernel(dev, bar):
     out["bound_bytes_ms"], out["bound_ops_ms"] = t_bytes, t_ops
     for k, v in out.items():
         log(f"timing tet {k}: {v!r}")
+    log(f"timing tet_substep: {out['ms']!r} ms a substep in this run; "
+        f"PERF.md records {RECORDED_FIRST_DESIGN_TET_MS} ms for its first "
+        "design (not measured in this run)")
     return out
 
 
@@ -1216,6 +1229,9 @@ def main() -> int:
     cloth_resources = gcc.kernel_resources()
     for iters, r in cloth_resources.items():
         log(f"  runtime cloth_substep_kernel<{iters}>: {r}")
+    from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
+    tet_resources = gtc.kernel_resources()
+    log(f"  runtime tet_substep_kernel: {tet_resources}")
     resources = fcc.kernel_resources()
     for kname, r in resources.items():
         log(f"  runtime {kname}: {r}")
@@ -1227,8 +1243,7 @@ def main() -> int:
     tet_err, bar_plain10, tet_record = check_tet_kernel_against_plain(dev,
                                                                       bar)
     launches, main_rate, busy = run_main_path(dev, x_plain10)
-    tet_launches, tet_rate, tet_busy, tet_main_dev = run_tet_main_path(
-        dev, bar_plain10)
+    tet_main = run_tet_main_path(dev, bar_plain10)
     t = time_cloth_kernel(dev)
     tt = time_tet_kernel(dev, bar)
     del bar
@@ -1265,7 +1280,7 @@ def main() -> int:
         "route": "cuda",
         "source": "positionbaseddynamics_tpu_torch/csrc/grid_tet_step.cu",
         "replaces": "positionbaseddynamics_tpu/solver/grid_tet_pallas.py:99",
-        "launches": tet_launches,
+        "launches": tet_main["launches"],
         "max_abs_err": tet_err,
         "ms": tt["ms"],
         "plain_ms": tt["plain_ms"],
@@ -1273,14 +1288,16 @@ def main() -> int:
         "bound_by": tt["bound_by"],
         "library_ms": None,
         "ms_source": tt["ms_source"],
-        "cell_ms": tt["cell_ms"],
-        "vertex_ms": tt["vertex_ms"],
         "interval_ms": tt["interval_ms"],
         "bound_bytes_ms": tt["bound_bytes_ms"],
         "bound_ops_ms": tt["bound_ops_ms"],
-        "main_path_max_abs_err": tet_main_dev,
-        "main_path_steps_per_s": tet_rate,
-        "main_path_device_busy": tet_busy,
+        "main_path_max_abs_err": tet_main["max_abs_err"],
+        "main_path_steps_per_s": tet_main["steps_per_s"],
+        "main_path_device_busy": tet_main["device_busy"],
+        "main_path_device_us_per_step": tet_main["device_us_per_step"],
+        "main_path_peak_bytes": tet_main["peak_bytes"],
+        "ptxas": ptxas.get("tet_substep_kernel"),
+        "runtime_resources": tet_resources,
         **tet_record,
     }]
     pbf = {"pbf_density_lambda": ("fluids/cellgrid_pallas.py:94", "rho"),

@@ -2,15 +2,17 @@
 the counterpart of ``positionbaseddynamics_tpu/solver/grid_tet_pallas.py``
 (``make_pallas_tet_step``).
 
-A substep of a regular W×H×D tet grid runs as two launches of
-``csrc/grid_tet_step.cu`` per Jacobi iteration: a cell pass (one thread per
-hex cell solves its 5 tets and writes its 8 per-corner correction sums to
-a scratch buffer) and a vertex pass (one thread per vertex gathers from
-the up to 8 cells that own it and applies its Jacobi weight). The first
-cell and vertex pass of a substep integrate the positions they read; the
-last vertex pass updates the velocity and applies the damping. The state
-travels as component planes ``(3, W·H·D)``: :func:`make_tet_step` converts
-``(x, v)`` to planes once per call and back once at the end.
+A substep of a regular W×H×D tet grid runs as one launch of
+``csrc/grid_tet_step.cu`` per Jacobi iteration. A block stages a box of
+vertices with a one-vertex halo in shared memory, solves the 5 tets of
+every hex cell that touches the box (warps of one cell parity), gathers
+the corrections corner by corner in the plain version's order and writes
+the box's new positions. The first launch of a substep integrates the
+positions it stages; the last updates the velocity and applies the
+damping. At more than one iteration λ travels between the launches in two
+``(5, cells)`` planes, read from one and written to the other. The state
+travels as component planes ``(3, W·H·D)``: :func:`make_tet_step`
+converts ``(x, v)`` to planes once per call and back once at the end.
 
 Beside the kernel sits its plain PyTorch version,
 :func:`tet_substep_reference`, composed of the ported integration
@@ -30,6 +32,7 @@ import torch
 from .. import _build
 from .._device import resolve_device
 from ..ops import integration
+from .grid_cloth_cuda import RESOURCE_KEYS
 from .grid_tet import GridTetBatch
 
 Tensor = torch.Tensor
@@ -98,38 +101,65 @@ def from_planes(p: Tensor) -> Tensor:
 
 
 def _bind(lib):
-    fns = (lib.pbd_tet_cells, lib.pbd_tet_vertices)
-    if getattr(fns[0], "_pbd_bound", False):
-        return fns
+    fn = lib.pbd_tet_substep
+    if getattr(fn, "_pbd_bound", False):
+        return fn
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    # x_in, v_in, x_cur, w, lam, scratch, params, W, H, D, iteration,
-    # use_lam, stream
-    fns[0].argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
-    # x_in, v_in, x_cur, w, inv_cnt, scratch, x_out, v_out, params,
+    # x_in, v_in, x_cur, w, inv_cnt, lam_in, lam_out, x_out, v_out, params,
     # W, H, D, stream
-    fns[1].argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
-    for fn in fns:
-        fn.restype = ci
+    fn.argtypes = [vp] * 10 + [ci, ci, ci, vp]
+    fn.restype = ci
     lib.pbd_tet_error_string.argtypes = [ci]
     lib.pbd_tet_error_string.restype = ctypes.c_char_p
     lib.pbd_tet_param_count.argtypes = []
     lib.pbd_tet_param_count.restype = ci
+    lib.pbd_tet_kernel_resources.argtypes = [vp]
+    lib.pbd_tet_kernel_resources.restype = ci
     if lib.pbd_tet_param_count() != N_PARAMS:
         raise RuntimeError("grid_tet_step.cu and grid_tet_cuda.py disagree "
                            "on the kernel's parameter layout")
-    fns[0]._pbd_bound = True
-    return fns
+    fn._pbd_bound = True
+    return fn
+
+
+def kernel_resources(lib=None) -> dict:
+    """The kernel's resources as the CUDA runtime reports them on the
+    current card: ``{"registers", "static_shared_bytes",
+    "dynamic_shared_bytes", "local_bytes", "blocks_per_sm", "threads"}``,
+    of the package's kernel or of ``lib``, a library built from a variant
+    of ``csrc/grid_tet_step.cu``."""
+    if lib is None:
+        lib = _build.load("grid_tet_step")
+    _bind(lib)
+    vals = (ctypes.c_int * len(RESOURCE_KEYS))()
+    err = lib.pbd_tet_kernel_resources(vals)
+    _check(lib, err, "tet kernel resources")
+    return dict(zip(RESOURCE_KEYS, vals))
 
 
 def _ptr(t: Optional[Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def lambda_plan(max_iterations: int):
+    """Which of two λ planes each launch of a substep reads and writes:
+    ``[(read, write)] * max_iterations``, None for no plane. The first
+    launch reads none (λ starts at 0), the last writes none, and each
+    launch reads the plane the one before it wrote and writes the other,
+    since a block re-solves halo cells whose λ another block reads."""
+    plan, last = [], None
+    for it in range(max_iterations):
+        write = None if it == max_iterations - 1 else it % 2
+        plan.append((last, write))
+        last = write
+    return plan
+
+
 def tet_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
                      params: np.ndarray, dims, max_iterations: int = 1):
-    """Run one substep through the kernel: a cell pass and a vertex pass
-    per iteration. ``xp``, ``vp``: ``(3, N)`` float32 planes on one CUDA
-    device, ``N = W·H·D`` for ``dims = (W, H, D)``; ``w``: inverse masses
+    """Run one substep through the kernel, one launch per iteration.
+    ``xp``, ``vp``: ``(3, N)`` float32 planes on one CUDA device,
+    ``N = W·H·D`` for ``dims = (W, H, D)``; ``w``: inverse masses
     ``(N,)``; ``ic``: per-vertex Jacobi weights ``(N,)``; ``params`` from
     :func:`kernel_params`. Returns new ``(xp, vp)`` buffers; the inputs
     are left as they were. Counts its launches in
@@ -155,29 +185,25 @@ def tet_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
     if max_iterations < 1:
         raise ValueError(f"max_iterations={max_iterations}: at least 1")
     lib = _build.load("grid_tet_step")
-    cells_fn, verts_fn = _bind(lib)
+    fn = _bind(lib)
     n_cells = (wd - 1) * (hd - 1) * (dd - 1)
-    use_lam = max_iterations > 1
+    plan = lambda_plan(max_iterations)
     x_cur = vo = None
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
-        scratch = xp.new_empty((24, n_cells))
-        lam = xp.new_empty((5, n_cells)) if use_lam else None
-        for it in range(max_iterations):
-            err = cells_fn(xp.data_ptr(), vp.data_ptr(), _ptr(x_cur),
-                           w.data_ptr(), _ptr(lam), scratch.data_ptr(),
-                           params.ctypes.data, wd, hd, dd, it, int(use_lam),
-                           stream)
-            _check(lib, err, "cell")
-            tet_substep_cuda.launches += 1
+        lam = [xp.new_empty((5, n_cells))
+               for _ in range(min(2, max_iterations - 1))]
+        for it, (read, write) in enumerate(plan):
             xo = torch.empty_like(xp)
             if it == max_iterations - 1:
                 vo = torch.empty_like(vp)
-            err = verts_fn(xp.data_ptr(), vp.data_ptr(), _ptr(x_cur),
-                           w.data_ptr(), ic.data_ptr(), scratch.data_ptr(),
-                           xo.data_ptr(), _ptr(vo), params.ctypes.data,
-                           wd, hd, dd, stream)
-            _check(lib, err, "vertex")
+            err = fn(xp.data_ptr(), vp.data_ptr(), _ptr(x_cur),
+                     w.data_ptr(), ic.data_ptr(),
+                     None if read is None else lam[read].data_ptr(),
+                     None if write is None else lam[write].data_ptr(),
+                     xo.data_ptr(), _ptr(vo), params.ctypes.data,
+                     wd, hd, dd, stream)
+            _check(lib, err, "tet kernel launch failed")
             tet_substep_cuda.launches += 1
             x_cur = xo
     return x_cur, vo
@@ -186,10 +212,9 @@ def tet_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
 tet_substep_cuda.launches = 0
 
 
-def _check(lib, err: int, which: str):
+def _check(lib, err: int, what: str):
     if err != 0:
-        raise RuntimeError(f"tet {which} kernel launch failed: "
-                           + lib.pbd_tet_error_string(err).decode())
+        raise RuntimeError(f"{what}: " + lib.pbd_tet_error_string(err).decode())
 
 
 def run_substeps(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
@@ -236,8 +261,8 @@ def make_tet_step(batch: GridTetBatch, inv_mass, *, dt: float, substeps: int,
     kernel cannot run (offset ≠ 0, ``inversion_handling``), as the TPU
     kernel does.
 
-    On ``device`` (None means CUDA) the step launches the kernel, two
-    launches per iteration of each substep; given CPU tensors it runs
+    On ``device`` (None means CUDA) the step launches the kernel, one
+    launch per iteration of each substep; given CPU tensors it runs
     :func:`tet_substep_reference`."""
     dev = resolve_device(device)
     dims = (batch.width, batch.height, batch.depth)

@@ -15,7 +15,7 @@ Two routes run the substeps, chosen once from the configuration:
   velocity update, when that grid covers every particle — either one grid
   cloth with uniform XPBD parameters (``grid_cloth_cuda.py``, one launch
   per substep) or one tet grid without ``inversion_handling``
-  (``grid_tet_cuda.py``, two launches per iteration of each substep);
+  (``grid_tet_cuda.py``, one launch per iteration of each substep);
 * ``"torch_stencil"``: the PyTorch stencil ops of ``grid_cloth.py`` and
   ``grid_tet.py``, on any device, for every other configuration — as the
   JAX package runs its XLA path.

@@ -128,11 +128,15 @@ def _bar(dims, device, stiffness=1e5):
 # The 5-iteration case runs 4 steps: at more than one iteration the
 # reference's own trajectory jumps by orders of magnitude at step 6 at
 # this size (tests/test_torch_tet_step.py), and two runs past that point
-# agree to no tolerance.
+# agree to no tolerance. The grids smaller than one of the kernel's vertex
+# boxes, 21x11x45 (a depth past the bar's 36) and 17x19x9 (sides that are
+# no multiple of a box side) reach the boxes' clipped edges.
 @pytest.mark.parametrize("dims,iters,damping,stiffness,steps", [
     ((13, 7, 5), 1, 0.0, 1e5, 10), ((13, 7, 5), 5, 0.01, 1e5, 4),
-    ((9, 4, 6), 2, 0.0, 1e5, 3), ((13, 7, 5), 1, 0.0, 0.0, 10)],
-    ids=["13x7x5", "13x7x5_it5_damped", "9x4x6_it2", "stiffness0"])
+    ((9, 4, 6), 2, 0.0, 1e5, 3), ((13, 7, 5), 1, 0.0, 0.0, 10),
+    ((21, 11, 45), 1, 0.0, 1e5, 10), ((17, 19, 9), 3, 0.01, 1e5, 4)],
+    ids=["13x7x5", "13x7x5_it5_damped", "9x4x6_it2", "stiffness0",
+         "21x11x45", "17x19x9_it3_damped"])
 def test_tet_kernel_matches_plain_version_on_card(cuda, dims, iters, damping,
                                                   stiffness, steps):
     ts, tc = _bar(dims, cuda, stiffness)
@@ -161,8 +165,9 @@ def test_tet_step_fn_takes_the_kernel_on_card(cuda, iters):
     assert fn.path == "cuda_kernel"
     before = gtc.tet_substep_cuda.launches
     out = fn(fn(ts))
+    # one launch per iteration of each substep, over two steps
     assert (gtc.tet_substep_cuda.launches - before
-            == 2 * cfg.substeps * 2 * iters)
+            == 2 * cfg.substeps * iters)
     ref = make_step_fn(tc.to("cpu"), cfg, device="cpu")
     cpu = ref(ref(ts.to("cpu")))
     for f in ("x", "v", "old_x", "last_x"):
@@ -170,6 +175,36 @@ def test_tet_step_fn_takes_the_kernel_on_card(cuda, iters):
         tol = 1e-5 if f != "v" else 2e-5 / 1e-3
         assert dev.abs().max().item() <= tol, f
     assert out.time.item() == cpu.time.item()
+
+
+@pytest.mark.parametrize("iters", [1, 3])
+def test_tet_kernel_leaves_its_inputs_on_card(cuda, iters):
+    """A substep writes fresh buffers, leaves its inputs as they were, and
+    refuses what it does not take without launching."""
+    ts, tc = _bar((17, 19, 9), cuda)
+    g, p = tc.grid_tets[0], ts.particles
+    dims = (g.width, g.height, g.depth)
+    params = gtc.kernel_params(g, h=1e-3)
+    w, ic = p.inv_mass.contiguous(), g.inv_cnt.reshape(-1).contiguous()
+    xp, vp = gtc.to_planes(p.x), gtc.to_planes(p.v)
+    x0, v0, w0, ic0 = xp.clone(), vp.clone(), w.clone(), ic.clone()
+    before = gtc.tet_substep_cuda.launches
+    xo, vo = gtc.tet_substep_cuda(xp, vp, w, ic, params, dims, iters)
+    torch.cuda.synchronize()
+    assert gtc.tet_substep_cuda.launches - before == iters
+    ptrs = {t.data_ptr() for t in (xp, vp, w, ic)}
+    assert xo.data_ptr() not in ptrs and vo.data_ptr() not in ptrs
+    for t, t0 in ((xp, x0), (vp, v0), (w, w0), (ic, ic0)):
+        assert torch.equal(t, t0)
+    assert not torch.equal(xo, xp) and not torch.equal(vo, vp)
+    xr, vr = gtc.tet_substep_reference(g, p.x, p.v, p.inv_mass, h=1e-3,
+                                       max_iterations=iters)
+    assert (gtc.from_planes(xo) - xr).abs().max().item() <= 1e-5
+    with pytest.raises(ValueError, match="inv_cnt"):
+        gtc.tet_substep_cuda(xp, vp, w, ic[:-1], params, dims, iters)
+    with pytest.raises(ValueError, match="x"):
+        gtc.tet_substep_cuda(xp, vp, w, ic, params, (17, 19, 8), iters)
+    assert gtc.tet_substep_cuda.launches - before == iters
 
 
 def _fluid_dam(device, block=(12, 10, 8), hi=(1.4, 1.1, 0.5), cap=12,

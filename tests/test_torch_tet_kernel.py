@@ -155,3 +155,17 @@ def test_planes_round_trip():
     assert p.shape == (3, 10) and p.is_contiguous()
     assert torch.equal(p[1], x[:, 1])
     assert torch.equal(gtc.from_planes(p), x)
+
+
+@pytest.mark.parametrize("iters", [1, 2, 3, 4, 5])
+def test_lambda_plan_reads_what_the_launch_before_wrote(iters):
+    """λ starts at 0 (the first launch reads no plane), the last launch
+    writes none, and no launch reads the plane it writes: a block solves
+    halo cells again whose λ another block may read."""
+    plan = gtc.lambda_plan(iters)
+    assert len(plan) == iters
+    assert plan[0][0] is None and plan[-1][1] is None
+    for (_, wrote), (read, write) in zip(plan, plan[1:]):
+        assert read == wrote is not None
+        assert read != write
+    assert {p for rw in plan for p in rw} <= {None, 0, 1}
