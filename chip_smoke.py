@@ -40,7 +40,25 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    version and its bound, logged beside the recorded times of their
    first design (``RECORDED_FIRST_DESIGN_MS``); the staging and lane use
    that the dam's tables give the three; and that a step never syncs the
-   host.
+   host;
+7. the planner (``mpc/``): one MPPI update with fed noise on a 64×64
+   cloth at K 64, h 5 through ``mpc.make_sequence_cost`` and
+   ``mpc.mppi_update`` on the kernel route (the cloth kernel at
+   ``n_batch = K``) against the same update on the stencil route on the
+   CPU, with the free corner's distance to the target added to the cost
+   (costs within 1e-5 relative, the nominal and positions within 1e-5,
+   the pinned rows bit for bit); then ``bench.py --mpc-big`` at full
+   width through ``bench_torch.MpcBig`` (320×320, K 256, h 10): 3 updates
+   after a warm-up with the launch counts set to 0 just before and read
+   just after (150 cloth launches), everything finite and the pinned rows
+   exact, the last update's 256 rollouts against the plain version on the
+   card within 1e-5 and rollouts 0 and 255 against themselves launched
+   alone, bit for bit; then updates/s, rollout-steps/s, the card's busy
+   share, the cloth kernel's time a launch at ``n_batch`` 256 beside its
+   bound, the copy kernels' share of the device time and the peak device
+   memory;
+   then ``bench_torch.py``'s ``--mpc``, ``--check`` and default modes in
+   this process, their JSON lines printed as they come.
 
 The build log's ``-Xptxas -v`` lines are printed per ``__global__`` and
 template instance (registers, shared memory, spills), and for the cloth
@@ -70,6 +88,10 @@ import time
 
 import numpy as np
 import torch
+
+import bench_torch
+from bench_torch import (PLAIN_CHUNK, bar_scene, cloth_scene, dam_scene,
+                         plain_steps)
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
@@ -115,7 +137,15 @@ FLUID_PASS_TOL = 1e-6
 FLUID_STEP_FROM = 8.0
 FLUID_RHO_RTOL = 1e-5           # one pass: max|d rho| / max rho
 FLUID_LAM_RTOL = 1e-4           # one pass: max|d lambda| / max|lambda|
-PLAIN_CHUNK = 2048              # active cells per piece of the plain passes
+# the planner: one fed-noise MPPI update (bench.py --mpc's scene at 64x64)
+# through the kernel route and through the stencil route on the CPU, then
+# bench.py --mpc-big at full width, 3 timed updates after one warm-up
+PLANNER_CHECK = (64, 64, 5)     # grid side, rollouts K, horizon
+PLANNER_RTOL = 1e-5             # costs, relative; the nominal and x absolute
+PLANNER_FREE_WEIGHT = 0.1       # the free corner's term in the route check
+MPC_BIG = (GRID, 256, 10)       # grid side, rollouts K, horizon
+MPC_BIG_UPDATES = 3
+MPC_BIG_PLAIN_CHUNK = 64        # rollouts per piece of the plain replay
 # B3-B5 per launch at the 100k dam in their first design (one warp per
 # active cell, one lane per slot, neighbour rows read from global memory),
 # as PERF.md records them: chip_smoke.py on an NVIDIA H100 80GB HBM3 at
@@ -207,18 +237,6 @@ def ptxas_report(logs):
     return out, lines
 
 
-def cloth_scene(width, height, device):
-    from positionbaseddynamics_tpu_torch.models import SceneBuilder
-
-    b = SceneBuilder()
-    tm = b.add_regular_triangle_model(width, height, scale=(2.0, 2.0))
-    b.set_mass(tm.offset, 0.0)
-    b.set_mass(tm.offset + width - 1, 0.0)
-    b.add_cloth_constraints(tm, method=4, distance_stiffness=1e5)
-    b.add_bending_constraints(tm, method=3, stiffness=0.05)
-    return b.build(device=device)
-
-
 def kernel_counters():
     from positionbaseddynamics_tpu_torch.fluids import cellgrid_cuda as fcc
     from positionbaseddynamics_tpu_torch.solver import grid_cloth_cuda as gcc
@@ -238,15 +256,6 @@ def reset_counts():
 
 def read_counts():
     return {k: w.launches for k, w in kernel_counters().items()}
-
-
-def plain_steps(gc, x, v, inv_mass, n_sub, h, **kw):
-    from positionbaseddynamics_tpu_torch.solver.grid_cloth_cuda import (
-        cloth_substep_reference)
-
-    for _ in range(n_sub):
-        x, v = cloth_substep_reference(gc, x, v, inv_mass, h=h, **kw)
-    return x, v
 
 
 def max_dev(a, b) -> float:
@@ -445,22 +454,6 @@ def device_ms(fn, n, kernel_name):
                                 getattr(ev, "cuda_time_total", 0.0))
             count += ev.count
     return total_us / count / 1e3 if count and total_us > 0 else None
-
-
-def bar_scene(dims, device, stiffness=1e5, scale=(4.0, 1.0, 1.0)):
-    """The bench bar (``bench.py::bench_bar``): a regular tet grid with its
-    i = 0 face pinned, XPBD FEM tets (method 3), Poisson ratio 0.3."""
-    from positionbaseddynamics_tpu_torch.models import SceneBuilder
-
-    w, h, d = dims
-    b = SceneBuilder()
-    tm = b.add_regular_tet_model(w, h, d, scale=scale)
-    for j in range(h):
-        for k in range(d):
-            b.set_mass(tm.offset + j * d + k, 0.0)
-    b.add_solid_constraints(tm, method=3, stiffness=stiffness,
-                            poisson_ratio=0.3)
-    return b.build(device=device)
 
 
 def tet_kernel_vs_plain(scene, steps, iters=1, damping=0.0, label=""):
@@ -726,27 +719,6 @@ def time_cloth_kernel(dev):
     for k, v in out.items():
         log(f"timing {k}: {v!r}")
     return out
-
-
-def dam_scene(dims, device, cap_per_cell=12, boundary=True):
-    """The bench dam (``bench.py::bench_fluid``): an nx×ny×nz block of
-    particles at spacing 2r in a box of boundary particles 4(nx+2) by
-    2(ny+2) by (nz+2) spacings, through ``FluidScene.create`` (None means
-    the CUDA card). Returns the scene and the block's positions."""
-    from positionbaseddynamics_tpu_torch.fluids import model as fm
-
-    radius = 0.025
-    diam = 2 * radius
-    nx, ny, nz = dims
-    fluid = fm.block_positions((diam, diam, diam), dims, diam)
-    lo = (0.0, 0.0, 0.0)
-    hi = ((nx + 2) * diam * 4.0, (ny + 2) * diam * 2.0, (nz + 2) * diam)
-    bnd = (fm.box_boundary(lo, hi, diam) if boundary
-           else np.zeros((0, 3), np.float32))
-    scene = fm.FluidScene.create(len(fluid), bnd, particle_radius=radius,
-                                 cap_per_cell=cap_per_cell,
-                                 domain=(lo, hi), device=device)
-    return scene, fluid
 
 
 def step_tables(scene, state):
@@ -1205,6 +1177,217 @@ def time_fluid_kernels(scene, state):
     return out
 
 
+def check_planner_routes(dev):
+    """Phase 7a: one MPPI update through ``mpc.make_sequence_cost`` and
+    ``mpc.mppi_update`` with the same fed noise, on ``bench.py --mpc``'s
+    cost plus the free corner's distance to the target each step (the
+    bench's cost reads only what the command sets, so alone it would not
+    see the kernel), through the kernel route
+    (the cloth kernel at ``n_batch = K``) and through the stencil route on
+    the CPU: costs within ``PLANNER_RTOL`` relative, the new nominal and
+    the rollouts' final positions within ``PLANNER_RTOL``, the pinned rows
+    bit for bit."""
+    from positionbaseddynamics_tpu_torch import mpc
+    from positionbaseddynamics_tpu_torch.solver import grid_cloth_cuda as gcc
+
+    n, k, hz = PLANNER_CHECK
+    cpu = torch.device("cpu")
+    sk, seq_k, mcfg = bench_torch.make_mpc(k, hz, dev, n=n,
+                                           free_weight=PLANNER_FREE_WEIGHT)
+    sp, seq_p, _ = bench_torch.make_mpc(k, hz, cpu, n=n,
+                                        free_weight=PLANNER_FREE_WEIGHT)
+    assert seq_k.path == "cuda_kernel" and seq_p.path == "torch_stencil", (
+        seq_k.path, seq_p.path)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    eps = mcfg.sigma * torch.randn((k, hz, 3), generator=gen, device=dev)
+    nominal = 0.3 * torch.randn((hz, 3), generator=gen, device=dev)
+    before = gcc.cloth_substep_cuda.launches
+    nk, ck = mpc.mppi_update(sk, nominal, seq_k, mcfg, eps=eps)
+    torch.cuda.synchronize()
+    launches = gcc.cloth_substep_cuda.launches - before
+    npl, cpl = mpc.mppi_update(sp, nominal.cpu(), seq_p, mcfg, eps=eps.cpu())
+    cost_rel = ((ck.cpu() - cpl).abs().max() / cpl.abs().max()).item()
+    nom_dev = max_dev(nk.cpu(), npl)
+    _, fk = seq_k(sk, nominal + eps)
+    _, fp = seq_p(sp, (nominal + eps).cpu())
+    xk, xp = fk.particles.x.cpu(), fp.particles.x
+    x_dev = max_dev(xk, xp)
+    pinned_exact = torch.equal(xk[:, 0], xp[:, 0])
+    out = {"grid": n, "rollouts": k, "horizon": hz, "launches": launches,
+           "cost_max_rel_err": cost_rel, "nominal_max_abs_err": nom_dev,
+           "x_max_abs_err": x_dev, "pinned_exact": pinned_exact,
+           "cost_min": cpl.min().item(), "cost_max": cpl.max().item()}
+    log(f"planner {n}x{n} K {k} h {hz}, kernel route vs stencil route on "
+        f"the CPU: {out}")
+    assert launches == hz * 2, launches           # 2 substeps a step
+    assert cost_rel <= PLANNER_RTOL, cost_rel
+    assert nom_dev <= PLANNER_RTOL, nom_dev
+    assert x_dev <= PLANNER_RTOL, x_dev
+    assert pinned_exact, "the pinned rows differ between the routes"
+    assert torch.isfinite(xk).all() and torch.isfinite(nk).all()
+    return out
+
+
+def run_mpc_big(dev):
+    """Phase 7b: ``bench.py --mpc-big`` at full width through
+    ``bench_torch.MpcBig``: one warm-up update, then ``MPC_BIG_UPDATES``
+    updates with every launch count set to 0 just before and read just
+    after (B1: updates × horizon × 5 substeps); every position, cost and
+    the nominal finite, the pinned rows exactly where the clipped commands
+    put them; the last update's K rollouts replayed through the plain
+    version on the card, ``MPC_BIG_PLAIN_CHUNK`` at a time (positions
+    within ``CHECK_TOL``, costs within ``PLANNER_RTOL`` relative), and
+    rollouts 0 and K - 1 launched alone at ``n_batch`` 1, bit for bit; then
+    updates/s, the card's busy share and B1's time a launch
+    under the profiler, the copy kernels' share of the device time, and
+    the peak device memory of the updates."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    width, k, hz = MPC_BIG
+    planner = bench_torch.MpcBig(width, k, hz, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    nominal = torch.zeros((hz, 3), dtype=torch.float32, device=dev)
+    nominal = planner.update(nominal, planner.draw(gen))[0]      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(MPC_BIG_UPDATES):
+        eps = planner.draw(gen)
+        u = planner.controls(nominal, eps)
+        nominal, cost, x = planner.update(nominal, eps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    pin = planner.x0[planner.pin].expand(k, 3).clone()
+    for t in range(hz):
+        pin += u[:, t] * planner.cfg.dt
+    out = {"launches": counts, "updates_s_unwindowed": MPC_BIG_UPDATES / wall,
+           "peak_bytes": peak,
+           "pinned_exact": torch.equal(x[:, planner.pin], pin),
+           "finite": bool(torch.isfinite(x).all()
+                          and torch.isfinite(cost).all()
+                          and torch.isfinite(nominal).all())}
+    log(f"mpc-big {width}x{width} K {k} h {hz}: {MPC_BIG_UPDATES} updates, "
+        f"launch counts {counts}, peak device memory {peak} B, pinned rows "
+        f"exact {out['pinned_exact']}, finite {out['finite']}")
+    want = MPC_BIG_UPDATES * hz * planner.cfg.substeps
+    assert counts["cloth_substep"] == want, (counts, want)
+    assert all(v == 0 for kk, v in counts.items() if kk != "cloth_substep")
+    assert out["finite"], "mpc-big produced non-finite values"
+    assert out["pinned_exact"], "mpc-big moved a pinned row"
+    out.update(check_mpc_big_rollouts(planner, u, x, cost))
+
+    st = [nominal]
+
+    def one_update():
+        st[0] = planner.update(st[0], planner.draw(gen))[0]
+
+    out["updates_per_s"] = rate_windows(one_update, 1)
+    out["aggregate_steps_per_s"] = {
+        key: val * k * hz for key, val in out["updates_per_s"].items()
+        if key in ("median", "min", "max")}
+    log(f"mpc-big updates/s {out['updates_per_s']}, rollout-steps/s "
+        f"{out['aggregate_steps_per_s']}")
+
+    n_prof = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            one_update()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [ev for ev in prof.key_averages()
+              if getattr(ev, "device_type", None) == DeviceType.CUDA]
+    busy_us = sum(ev.self_device_time_total for ev in device)
+    b1 = [ev for ev in device if "cloth_substep_kernel" in ev.key]
+    b1_us = sum(ev.self_device_time_total for ev in b1)
+    b1_count = sum(ev.count for ev in b1)
+    copy_us = sum(ev.self_device_time_total for ev in device
+                  if "copy" in ev.key.lower())
+    for ev in sorted(device, key=lambda ev: -ev.self_device_time_total)[:8]:
+        log(f"  mpc-big device time: {ev.key[:70]!r} "
+            f"{ev.self_device_time_total / n_prof!r} us/update x{ev.count}")
+    n_part = k * width * width
+    bytes_moved = 4 * (12 * n_part + 3 * width * width)
+    t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
+    t_ops = ((FLOPS_FIXED + FLOPS_PER_ITERATION) * n_part
+             / H100_FP32_FLOPS * 1e3)
+    out.update({
+        "device_busy": busy_us / 1e6 / wall,
+        "device_us_per_update": busy_us / n_prof,
+        "b1_ms": b1_us / b1_count / 1e3 if b1_count else None,
+        "b1_launches_profiled": b1_count,
+        "b1_share": b1_us / busy_us if busy_us else None,
+        "copy_share": copy_us / busy_us if busy_us else None,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    log(f"mpc-big under profiler: device busy {out['device_busy']!r} of wall "
+        f"time, {out['device_us_per_update']!r} us a update; B1 "
+        f"{out['b1_ms']!r} ms a launch at n_batch {k} beside its bound "
+        f"{out['bound_ms']!r} ms ({out['bound_by']}); B1 {out['b1_share']!r}"
+        f" and copy kernels {out['copy_share']!r} of the device time")
+    return out
+
+
+def check_mpc_big_rollouts(planner, u, x, cost):
+    """The rollouts of one ``MpcBig`` update (commands ``u``, final
+    positions ``x``, costs ``cost``) against the same rollouts through the
+    plain version, and rollouts 0 and K - 1 against themselves launched
+    alone at ``n_batch`` 1."""
+    cfg = planner.cfg
+
+    def plain(xc, vc):
+        return plain_steps(planner.grid, xc, vc, planner.inv_mass,
+                           cfg.substeps, cfg.dt / cfg.substeps,
+                           max_iterations=cfg.max_iterations,
+                           gravity=cfg.gravity, damping=cfg.damping)
+
+    x_dev, cost_dev = 0.0, 0.0
+    for lo in range(0, planner.k, MPC_BIG_PLAIN_CHUNK):
+        xp, cp = planner.rollouts(u[lo:lo + MPC_BIG_PLAIN_CHUNK], plain)
+        x_dev = max(x_dev, max_dev(x[lo:lo + MPC_BIG_PLAIN_CHUNK], xp))
+        cost_dev = max(cost_dev, max_dev(cost[lo:lo + MPC_BIG_PLAIN_CHUNK],
+                                         cp))
+        del xp, cp
+    cost_rel = cost_dev / cost.abs().max().item()
+    one = bench_torch.rollout_step_fn(planner.grid, planner.inv_mass, cfg,
+                                      planner.dev, 1)
+    alone_exact = {}
+    for z in (0, planner.k - 1):
+        xz, _ = planner.rollouts(u[z:z + 1], one)
+        alone_exact[z] = torch.equal(xz[0], x[z])
+    torch.cuda.synchronize()
+    out = {"plain_x_max_abs_err": x_dev, "plain_cost_max_rel_err": cost_rel,
+           "alone_bit_exact": alone_exact}
+    log(f"mpc-big last update's {planner.k} rollouts against the plain "
+        f"version: max|dx| {x_dev!r}, costs max rel {cost_rel!r}; launched "
+        f"alone, bit for bit: {alone_exact}")
+    assert x_dev <= CHECK_TOL, x_dev
+    assert cost_rel <= PLANNER_RTOL, cost_rel
+    assert all(alone_exact.values()), alone_exact
+    return out
+
+
+def run_bench_modes():
+    """Phase 7c: ``bench_torch.py``'s ``--mpc``, ``--check`` and default
+    modes in this process; each JSON line is printed as it comes."""
+
+    out = {}
+    for name, argv in (("mpc", ["--mpc"]), ("check", ["--check"]),
+                       ("default", [])):
+        code, records = bench_torch.run(argv)
+        for r in records:
+            print(json.dumps(r), flush=True)
+        assert code == 0 and records, (name, code)
+        assert all(math.isfinite(r["value"]) for r in records), records
+        out[name] = records
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -1250,6 +1433,10 @@ def main() -> int:
     fc = check_fluid_kernels_against_plain(dev)
     dam = run_fluid_main_path(dev)
     ft = time_fluid_kernels(dam["scene"], dam["state"])
+    del dam["scene"], dam["state"]
+    planner_check = check_planner_routes(dev)
+    mpc_big = run_mpc_big(dev)
+    bench_lines = run_bench_modes()
 
     kernels = [{
         "name": "cloth_substep",
@@ -1272,6 +1459,16 @@ def main() -> int:
         "main_path_device_busy": busy,
         "steps_per_s_b1": t["steps_per_s_b1"],
         "steps_per_s_b4": t["steps_per_s_b4"],
+        "planner_launches": mpc_big["launches"]["cloth_substep"],
+        "ms_b256": mpc_big["b1_ms"],
+        "bound_ms_b256": mpc_big["bound_ms"],
+        "planner_updates_per_s": mpc_big["updates_per_s"],
+        "planner_aggregate_steps_per_s": mpc_big["aggregate_steps_per_s"],
+        "planner_device_busy": mpc_big["device_busy"],
+        "planner_copy_share": mpc_big["copy_share"],
+        "planner_peak_bytes": mpc_big["peak_bytes"],
+        "planner_route_check": planner_check,
+        "bench_check": bench_lines["check"],
         "ptxas": {iters: ptxas.get(f"cloth_substep_kernel<{iters}>")
                   for iters in cloth_resources},
         "runtime_resources": cloth_resources,

@@ -7,7 +7,8 @@ the JAX function on the same inputs. This package imports ``torch`` and
 numpy only, never ``jax`` and never the JAX package.
 
 Ported so far (slice 1, the 320×320 XPBD cloth step; slice 2, the
-80×36×36 XPBD FEM-tet bar; slice 3, the 100k PBF breaking dam):
+80×36×36 XPBD FEM-tet bar; slice 3, the 100k PBF breaking dam; slice 5,
+the sampling planner):
 
 * ``ops/integration.py`` — semi-implicit Euler and velocity updates;
 * ``ops/mathutils.py``, ``ops/xpbd.py`` — the 3×3 helpers, the signed SVD
@@ -24,12 +25,16 @@ Ported so far (slice 1, the 320×320 XPBD cloth step; slice 2, the
 * ``fluids/`` — the SPH kernel, the hash neighbor search, the cell-dense
   PBF pipeline (``cellgrid.py``) with its density, correction and XSPH
   passes as hand-written CUDA kernels (``cellgrid_cuda.py`` +
-  ``csrc/pbf_cells.cu``), and ``FluidScene`` / ``make_fluid_step_fn``.
+  ``csrc/pbf_cells.cu``), JAX's occupancy classes (``classgrid.py``,
+  plain PyTorch), and ``FluidScene`` / ``make_fluid_step_fn``;
+* ``mpc/`` — control models, cost terms, MPPI, CEM and the
+  receding-horizon controller over K rollouts stepped as one batched
+  state, through the cloth kernel at ``n_batch = K`` on the card.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without CUDA they raise rather than run on the CPU.
 """
 
-from . import convert, fluids, models, ops, solver
+from . import convert, fluids, models, mpc, ops, solver
 
 __version__ = "0.1.0"

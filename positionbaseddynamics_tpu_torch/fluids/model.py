@@ -15,7 +15,8 @@ Two routes, as in JAX:
   their plain PyTorch versions. The JAX default runs the same math through
   the occupancy classes of ``classgrid.py``, which exist to shrink the
   TPU's dead pair lanes; the kernels walk each cell's real occupancy and
-  need no classes (``partition=True`` raises).
+  need no classes. ``_fluid_step_cells(partition=True)`` takes the class
+  route, in plain PyTorch on either device.
 * a scene without one steps through the sort-based hash candidates of
   ``neighborhood.py`` in plain PyTorch on either device.
 
@@ -37,6 +38,8 @@ from .._device import resolve_device
 from . import sph
 from .cellgrid import (CellGridSpec, build_fluid_tables, pbf_iterations,
                        scatter_planes, xsph_cell)
+from .classgrid import (partition_active, pbf_iterations_classes,
+                        xsph_classes)
 from .neighborhood import cell_overflow, neighbor_candidates
 
 Tensor = torch.Tensor
@@ -298,10 +301,12 @@ def _overflow(state: FluidState, step_count: Tensor) -> Tensor:
 
 
 def _cell_step(state: FluidState, scene: FluidScene, kernels: bool,
-               chunk=None) -> FluidState:
+               chunk=None, classes: bool = False) -> FluidState:
     """The cell-dense step with the passes run as the CUDA kernels
-    (``kernels``) or as their plain versions (``chunk`` active cells at a
-    time when given)."""
+    (``kernels``), as their plain versions (``chunk`` active cells at a
+    time when given), or through the occupancy classes of ``classgrid.py``
+    (``classes``), whose class overflow adds to the table build's as in
+    JAX (``model.py:336-341``)."""
     spec = scene.cellgrid
     a = _gravity(state, scene)
     h = cfl_dt(state.v, a, state.dt, scene)
@@ -315,7 +320,13 @@ def _cell_step(state: FluidState, scene: FluidScene, kernels: bool,
     nslots = spec.n_cells * spec.cap
     sl = slot.to(torch.int64)
     args = (spec, xt, mt, active, nbr, nbr_ok)
-    if kernels:
+    if classes:
+        narrow, full, bnd, over_c = partition_active(spec, mt)
+        overflow = overflow + over_c
+        xt_new, density, ctxs = pbf_iterations_classes(
+            spec, xt, mt, narrow, full, bnd, scene.iterations,
+            scene.density0, scene.support_radius)
+    elif kernels:
         from .cellgrid_cuda import pbf_step_cuda
 
         xt_new, density, _ = pbf_step_cuda(
@@ -328,7 +339,10 @@ def _cell_step(state: FluidState, scene: FluidScene, kernels: bool,
     v = (x_new - old_x) / h
 
     vt = scatter_planes(v, slot, kept, nslots, (spec.n_cells, spec.cap))
-    if kernels:
+    if classes:
+        vt = xsph_classes(spec, xt_new, vt, mt, ctxs, density,
+                          scene.viscosity, scene.support_radius)
+    elif kernels:
         _, _, vt = pbf_step_cuda(
             spec, xt_new, mt, active, nbr, nbr_ok, 0, scene.density0,
             scene.support_radius, vt=vt, viscosity=scene.viscosity,
@@ -349,14 +363,15 @@ def _fluid_step_cells(state: FluidState, scene: FluidScene,
     once, then the density iterations and XSPH over the active cells. On
     CUDA tensors the passes are the kernels of ``cellgrid_cuda.py``; on
     CPU tensors their plain versions (:func:`fluid_step_reference` runs
-    those on any device, in chunks). ``partition=True`` asks for JAX's
-    occupancy classes (``classgrid.py``), which are not ported yet."""
+    those on any device, in chunks). ``partition=True`` takes JAX's
+    occupancy classes (``classgrid.py``) in plain PyTorch on either device;
+    None or False keeps the route above on both (JAX's default takes the
+    classes when the cap exceeds 20, ``use_classes``)."""
+    if scene.cellgrid is None:
+        raise ValueError("the cell-dense step needs a scene with a cell "
+                         "grid (FluidScene.create(..., domain=...))")
     if partition:
-        raise NotImplementedError(
-            "the occupancy-partitioned route (fluids/classgrid.py: "
-            "partition_active, pbf_iterations_classes, xsph_classes) is "
-            "queued for a later slice of the port; the CUDA route walks "
-            "each cell's real occupancy and needs no classes")
+        return _cell_step(state, scene, kernels=False, classes=True)
     return _cell_step(state, scene, kernels=state.x.is_cuda)
 
 

@@ -4,15 +4,17 @@ cloth for other tile shapes, on the card.
 
 Run from the root of the repository on a machine with the card:
 
-    python3 scripts/cloth_tile_sweep.py [--source FILE]
+    python3 scripts/cloth_tile_sweep.py [--source FILE] [--rollouts N ...]
 
 Each variant is ``csrc/grid_cloth_step.cu`` (or FILE, another version of
 it with the same C interface) with its tile width ``TX`` and height ``TY``
 replaced, and, where the source has it, ``kExtraCells``, the cells a
 thread owns beyond the iterations, built into the package's build
 directory with the port's ``nvcc`` flags, and timed under
-``torch.profiler`` (200 launches after a warm-up) on the bench cloth's
-first substep at 1 iteration, 1 and 4 rollouts. Beside each time it
+``torch.profiler`` (200 launches after a warm-up; 20 above 4 rollouts)
+on the bench cloth's first substep at 1 iteration, at 1 and 4 rollouts
+or the counts ``--rollouts`` names (256 is ``bench.py --mpc-big``'s
+planner). Beside each time it
 prints the tile's halo factor (cells a block loads over cells it
 writes), the blocks of one rollout, the registers, shared memory,
 resident blocks an SM and threads a block at 1 iteration as the runtime
@@ -65,6 +67,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--source", type=Path, default=None,
                     help="the kernel source to vary (default: csrc's)")
+    ap.add_argument("--rollouts", type=int, nargs="+", default=[1, 4],
+                    help="rollout counts (n_batch) to time each tile at")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("cloth_tile_sweep: needs a CUDA card", file=sys.stderr)
@@ -88,7 +92,7 @@ def main() -> int:
     icb = gc.inv_cnt_bend.reshape(g, g).contiguous()
     planes = {nb: (gcc.to_planes(torch.stack([p.x] * nb), g, g),
                    gcc.to_planes(torch.stack([p.v] * nb), g, g))
-              for nb in (1, 4)}
+              for nb in sorted(set(args.rollouts) | {4})}
     # the package kernel's output at 4 rollouts, to hold each variant to
     ref = gcc.cloth_substep_cuda(*planes[4], w, icd, icb, params)[0]
     rows = []
@@ -112,7 +116,7 @@ def main() -> int:
             row["resources_it1"] = gcc.resources_of(lib, 1)
         except RuntimeError as e:
             row["resources_it1"] = str(e)
-        for nb in (1, 4):
+        for nb in args.rollouts:
             xp, vp = planes[nb]
             xo, vo = torch.empty_like(xp), torch.empty_like(vp)
 
@@ -126,7 +130,8 @@ def main() -> int:
                     raise RuntimeError(lib.pbd_error_string(e).decode())
 
             try:
-                ms = cs.device_ms(run, 200, "cloth_substep_kernel")
+                ms = cs.device_ms(run, 200 if nb <= 4 else 20,
+                                  "cloth_substep_kernel")
                 row[f"us_b{nb}"] = None if ms is None else ms * 1e3
                 if nb == 4:
                     torch.cuda.synchronize()

@@ -1,9 +1,9 @@
 """Reference-side facts of the fluid path, measured on the CPU with the JAX
 package (and the PyTorch port where named).
 
-    JAX_PLATFORMS=cpu python scripts/fluid_reference_probe.py
+    PYTHONPATH=. JAX_PLATFORMS=cpu python scripts/fluid_reference_probe.py
 
-Prints three things:
+Prints four things:
 
 1. how far JAX's own two cell routes (occupancy classes and unpartitioned)
    and the port's cell route drift apart in ``dt`` and positions over 10
@@ -13,7 +13,12 @@ Prints three things:
 3. the Pallas route's XSPH pair set (rebuilt from the post-projection
    tables, ``model.py:329-332``) against the step's pre-projection one,
    on the 8×8×6 dam 20 steps in: pairs that differ, and the velocity
-   difference XSPH makes of it.
+   difference XSPH makes of it;
+4. the 12×10×8 dam of ``test_classgrid_matches_cellgrid`` started
+   squeezed to 0.8 of its spacing (both occupancy classes in use): over
+   15 steps, max|Δx| between JAX's two cell routes, between the port's
+   two (``_fluid_step_cells(partition=True/False)``), and between each
+   port route and its JAX counterpart.
 """
 import jax
 
@@ -127,7 +132,53 @@ def pallas_xsph_pairs():
           f"XSPH velocities differ by {dv!r}")
 
 
+def _port_scene(js):
+    from positionbaseddynamics_tpu_torch import convert
+
+    g, b = js.cellgrid, js.cellgrid.boundary
+    return convert.fluid_scene_from_numpy(dict(
+        {k: np.asarray(getattr(js, k))
+         for k in ("mass", "boundary_x", "boundary_psi")},
+        **{k: getattr(js, k) for k in (
+            "density0", "support_radius", "viscosity", "iterations",
+            "cap_per_cell", "min_dt", "max_dt", "particle_radius", "gravity",
+            "hash_cap")}, cellgrid=dict(
+            origin=g.origin, dims=g.dims, cell=g.cell, cap=g.cap,
+            max_active=g.max_active, boundary=dict(
+                xt=[np.asarray(p) for p in b.xt], psit=np.asarray(b.psit),
+                capb=b.capb, near=np.asarray(b.near),
+                near_frac=b.near_frac))), device="cpu")
+
+
+def squeezed_routes():
+    from positionbaseddynamics_tpu_torch.fluids import model as tm
+
+    fluid = jm.block_positions((D, D, D), (12, 10, 8), D)
+    hi = (1.4, 1.1, 0.5)
+    js = jm.FluidScene.create(len(fluid), jm.box_boundary((0, 0, 0), hi, D),
+                              particle_radius=R, domain=((0, 0, 0), hi))
+    ts = _port_scene(js)
+    x0 = (D + 0.8 * (fluid - D)).astype(np.float32)
+    jf = {p: jax.jit(lambda s, p=p: jm._fluid_step_cells(s, js, partition=p))
+          for p in (True, False)}
+    j = {p: jm.FluidState.create(x0) for p in (True, False)}
+    t = {p: tm.FluidState.create(x0, device="cpu") for p in (True, False)}
+    for step in range(15):
+        for p in (True, False):
+            j[p] = jf[p](j[p])
+            t[p] = tm._fluid_step_cells(t[p], ts, partition=p)
+        jx = {p: np.asarray(j[p].x) for p in j}
+        tx = {p: t[p].x.numpy() for p in t}
+        print(f"4. squeezed 12x10x8 dam, step {step + 1}: JAX classes-cells "
+              f"{np.abs(jx[True] - jx[False]).max():.3e}, port classes-cells "
+              f"{np.abs(tx[True] - tx[False]).max():.3e}, classes port-JAX "
+              f"{np.abs(tx[True] - jx[True]).max():.3e}, cells port-JAX "
+              f"{np.abs(tx[False] - jx[False]).max():.3e}, dt "
+              f"{float(j[True].dt)!r}")
+
+
 if __name__ == "__main__":
     drift()
     ejection()
     pallas_xsph_pairs()
+    squeezed_routes()

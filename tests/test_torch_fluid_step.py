@@ -253,9 +253,12 @@ def test_partition_and_missing_card_raise():
     fluid, bnd, domain = _inputs("6x8x6")
     ts = tm.FluidScene.create(len(fluid), bnd, particle_radius=R,
                               domain=domain, device="cpu")
-    with pytest.raises(NotImplementedError, match="classgrid"):
-        tm._fluid_step_cells(tm.FluidState.create(fluid, device="cpu"), ts,
-                             partition=True)
+    hash_scene = tm.FluidScene.create(len(fluid), bnd, particle_radius=R,
+                                      device="cpu")
+    for partition in (None, True):
+        with pytest.raises(ValueError, match="cell grid"):
+            tm._fluid_step_cells(tm.FluidState.create(fluid, device="cpu"),
+                                 hash_scene, partition=partition)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tm.make_fluid_step_fn(ts)

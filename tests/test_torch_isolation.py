@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of
 ``positionbaseddynamics_tpu_torch`` loads neither ``jax`` nor the JAX
-package, and no source of the port (nor ``chip_smoke.py``) imports them."""
+package, and no source of the port (nor ``chip_smoke.py`` or
+``bench_torch.py``) imports them."""
 import ast
 import pkgutil
 import subprocess
@@ -29,7 +30,9 @@ def test_port_has_the_slice_modules():
                  "solver.grid_tet_cuda", "solver.step", "models.mesh",
                  "models.builders", "_build", "convert", "fluids.sph",
                  "fluids.neighborhood", "fluids.cellgrid",
-                 "fluids.cellgrid_cuda", "fluids.model"):
+                 "fluids.cellgrid_cuda", "fluids.model",
+                 "fluids.classgrid", "mpc.controls", "mpc.costs",
+                 "mpc.planners"):
         assert f"positionbaseddynamics_tpu_torch.{name}" in mods, name
 
 
@@ -57,7 +60,7 @@ def _imports(path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT_DIR.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_nothing_of_jax(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]

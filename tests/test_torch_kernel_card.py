@@ -114,6 +114,93 @@ def test_four_rollouts_with_own_inverse_masses_on_card(cuda):
     _own_inverse_masses(cuda, 4)
 
 
+def _64_rollouts(cuda):
+    ts, tc = _build(64, 64, device=cuda)
+    g, p = tc.grid_cloths[0], ts.particles
+    step = gcc.make_cloth_step(
+        g, p.inv_mass, g.inv_cnt_dist, g.inv_cnt_bend, dt=0.005, substeps=5,
+        n_batch=64, n_steps=10)
+    return g, p, step, torch.Generator(device=cuda).manual_seed(3)
+
+
+def test_kernel_at_64_rollouts_matches_plain_version_on_card(cuda):
+    """The planner's shape: 64 rollouts of a 64×64 cloth that differ as a
+    planner's do, by smooth motions (each its own seeded translation and
+    uniform velocity), 10 steps against the plain version; the two pinned
+    corners stay exactly where they were."""
+    g, p, step, gen = _64_rollouts(cuda)
+    shift = 0.05 * torch.randn((64, 1, 3), generator=gen, device=cuda)
+    x = (p.x + shift).contiguous()
+    v = (0.2 * torch.randn((64, 1, 3), generator=gen, device=cuda)
+         ).expand(64, *p.v.shape).contiguous()
+    before = gcc.cloth_substep_cuda.launches
+    xk, _ = step(x, v)
+    assert gcc.cloth_substep_cuda.launches - before == 50
+    xr, vr = x, v
+    for _ in range(50):
+        xr, vr = gcc.cloth_substep_reference(g, xr, vr, p.inv_mass, h=1e-3)
+    assert (xk - xr).abs().max().item() <= 1e-5
+    assert torch.isfinite(xk).all()
+    pinned = [0, 63]
+    assert torch.equal(xk[:, pinned], x[:, pinned])
+    assert (xk[0] - xk[1]).abs().max().item() > 1e-4
+
+
+def test_kernel_at_64_rollouts_equals_each_rollout_alone_on_card(cuda):
+    """Each of 64 rollouts, each from its own seeded 1 cm jitter of every
+    free particle and random velocities, comes out of the batched launch
+    bit for bit as out of a launch of its own over 10 steps: the batch
+    axis only selects the rollout's planes. (Against the plain version
+    this jitter is no bar: the stiff cloth amplifies the kernel's FMA
+    rounding to ~3e-5 over these 10 steps.)"""
+    g, p, step, gen = _64_rollouts(cuda)
+    free = (p.inv_mass > 0).to(torch.float32)[:, None]
+    x = p.x + 1e-2 * free * torch.randn((64,) + tuple(p.x.shape),
+                                        generator=gen, device=cuda)
+    v = 0.1 * free * torch.randn((64,) + tuple(p.v.shape), generator=gen,
+                                 device=cuda)
+    xk, vk = step(x, v)
+    one = gcc.make_cloth_step(
+        g, p.inv_mass, g.inv_cnt_dist, g.inv_cnt_bend, dt=0.005, substeps=5,
+        n_steps=10)
+    for r in range(64):
+        xs, vs = one(x[r], v[r])
+        assert torch.equal(xk[r], xs) and torch.equal(vk[r], vs), r
+    assert torch.equal(xk[:, [0, 63]], x[:, [0, 63]])
+
+
+def test_mppi_update_kernel_route_matches_stencil_route_on_card(cuda):
+    """One MPPI update with fed noise on ``bench.py --mpc``'s scene at
+    32×32, K 16, h 3, its cost plus the free corner's distance to the
+    target each step (``bench.py``'s cost reads only what the command sets,
+    never the kernel's output): the kernel route on the card against the
+    stencil route on the CPU, costs within 1e-5 relative, the nominal and
+    every rollout's final positions within 1e-5."""
+    import bench_torch
+    from positionbaseddynamics_tpu_torch import mpc
+
+    k, hz = 16, 3
+    sk, seq_k, mcfg = bench_torch.make_mpc(k, hz, cuda, free_weight=0.1)
+    sp, seq_p, _ = bench_torch.make_mpc(k, hz, torch.device("cpu"),
+                                        free_weight=0.1)
+    assert seq_k.path == "cuda_kernel" and seq_p.path == "torch_stencil"
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    eps = mcfg.sigma * torch.randn((k, hz, 3), generator=gen)
+    nominal = 0.3 * torch.randn((hz, 3), generator=gen)
+    before = gcc.cloth_substep_cuda.launches
+    nk, ck = mpc.mppi_update(sk, nominal.to(cuda), seq_k, mcfg,
+                             eps=eps.to(cuda))
+    assert gcc.cloth_substep_cuda.launches - before == hz * 2
+    npl, cpl = mpc.mppi_update(sp, nominal, seq_p, mcfg, eps=eps)
+    assert ((ck.cpu() - cpl).abs().max() / cpl.abs().max()).item() <= 1e-5
+    assert (nk.cpu() - npl).abs().max().item() <= 1e-5
+    _, fk = seq_k(sk, (nominal + eps).to(cuda))
+    _, fp = seq_p(sp, nominal + eps)
+    xk, xp = fk.particles.x.cpu(), fp.particles.x
+    assert xk.shape == (k, 32 * 32, 3)
+    assert (xk - xp).abs().max().item() <= 1e-5
+
+
 def _bar(dims, device, stiffness=1e5):
     b = SceneBuilder()
     tm = b.add_regular_tet_model(*dims, scale=(2.0, 0.5, 0.5))
