@@ -102,13 +102,14 @@ def _timed(dev, call, n):
 # ---------------------------------------------------------------------------
 
 
-def cloth_scene(width, height, device):
+def cloth_scene(width, height, device, structured=True):
     """The bench cloth (``bench.py:748-756``): a width×height grid of scale
     2×2, its two top corners pinned, XPBD distance 1e5 (method 4) and
-    isometric bending 0.05 (method 3)."""
+    isometric bending 0.05 (method 3). ``structured=False`` builds it
+    without the grid solver, as particle batches (JAX's r01 scene)."""
     from positionbaseddynamics_tpu_torch.models import SceneBuilder
 
-    b = SceneBuilder()
+    b = SceneBuilder(use_structured_grid=structured)
     tm = b.add_regular_triangle_model(width, height, scale=(2.0, 2.0))
     b.set_mass(tm.offset, 0.0)
     b.set_mass(tm.offset + width - 1, 0.0)
@@ -127,13 +128,15 @@ def plain_steps(gc, x, v, inv_mass, n_sub, h, **kw):
     return x, v
 
 
-def bar_scene(dims, device, stiffness=1e5, scale=(4.0, 1.0, 1.0)):
+def bar_scene(dims, device, stiffness=1e5, scale=(4.0, 1.0, 1.0),
+              structured=True):
     """The bench bar (``bench.py::bench_bar``): a regular tet grid with its
-    i = 0 face pinned, XPBD FEM tets (method 3), Poisson ratio 0.3."""
+    i = 0 face pinned, XPBD FEM tets (method 3), Poisson ratio 0.3.
+    ``structured=False`` builds it as the FEM-tet particle batch."""
     from positionbaseddynamics_tpu_torch.models import SceneBuilder
 
     w, h, d = dims
-    b = SceneBuilder()
+    b = SceneBuilder(use_structured_grid=structured)
     tm = b.add_regular_tet_model(w, h, d, scale=scale)
     for j in range(h):
         for k in range(d):

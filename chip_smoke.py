@@ -58,7 +58,18 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    bound, the copy kernels' share of the device time and the peak device
    memory;
    then ``bench_torch.py``'s ``--mpc``, ``--check`` and default modes in
-   this process, their JSON lines printed as they come.
+   this process, their JSON lines printed as they come;
+8. the unstructured route (slice 4) at full width, no kernel of the port
+   on it: U1, the bench cloth, and U2, the bench bar, each built by
+   ``SceneBuilder(use_structured_grid=False)`` as particle batches
+   (305,921 distance and 304,645 isometric-bending rows; 483,875 FEM
+   tets with the inversion select): the build's seconds, the route name,
+   10 steps against the kernel route of the structured scene (≤ 1e-4,
+   ``U_TOL``) and the spread of two unstructured runs, ``U_STEPS`` steps
+   with every launch count 0, finite positions and exact pins, one step
+   with no host sync, steps/s, busy share, peak device memory and the top
+   five device operations, printed as one ``{"unstructured": ...}`` line
+   before the ``kernels`` line.
 
 The build log's ``-Xptxas -v`` lines are printed per ``__global__`` and
 template instance (registers, shared memory, spills), and for the cloth
@@ -71,9 +82,10 @@ Every steps/s figure is the median of ``N_WINDOWS`` windows of at least
 ``WINDOW_S`` seconds on the host clock, printed with the lowest and the
 highest window.
 
-Prints one ``{"kernels": [...]}`` JSON line, the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``. Without a
-CUDA device it exits 1 and prints no result.
+Prints one ``{"unstructured": {...}}`` line (phase 8), one
+``{"kernels": [...]}`` JSON line, the card's name and power limit, and as
+the last line ``{"ok": true, "device": {...}}``. Without a CUDA device
+it exits 1 and prints no result.
 """
 from __future__ import annotations
 
@@ -102,6 +114,10 @@ CHECK_TOL = 1e-5                # bench.py --check bar, kernel vs plain
 BATCH_TOL = 1e-6                # a batch's rollout vs the single rollout
 WINDOW_S = 1.0                  # least length of one timed window
 N_WINDOWS = 5                   # timed windows per rate
+U_TOL = 1e-4                    # BASELINE.md end-to-end bar: unstructured
+U_CHECK_STEPS = 10              # route vs the kernel route of its scene
+U_STEPS = 50                    # phase 8's counted run, steps
+U_PROFILE_STEPS = 10            # phase 8's steps under the profiler
 
 # fp32 operations of one particle per substep, counted from
 # csrc/grid_cloth_step.cu: integrate 12; per iteration, per anchor, the 3
@@ -515,11 +531,13 @@ def check_tet_kernel_against_plain(dev, bar):
     return max(devs), x10, record
 
 
-def profile_busy(fn, state, n_prof, label, top=5):
+def profile_busy(fn, state, n_prof, label, top=5, top_out=None):
     """Steps ``n_prof`` times under ``torch.profiler``. Returns the card's
     busy share of the wall time and its busy microseconds per step, both
     from the device-side events alone (an aten op's row repeats the device
-    time of the kernels it launched), and logs the ``top`` kernels."""
+    time of the kernels it launched), and logs the ``top`` kernels (also
+    appended to ``top_out`` as ``{"op", "us_per_step", "count"}`` when a
+    list is given)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -537,6 +555,10 @@ def profile_busy(fn, state, n_prof, label, top=5):
     for ev in sorted(device, key=lambda ev: -ev.self_device_time_total)[:top]:
         log(f"  {label} device time: {ev.key[:60]!r} "
             f"{ev.self_device_time_total / n_prof!r} us/step x{ev.count}")
+        if top_out is not None:
+            top_out.append({"op": ev.key[:120],
+                            "us_per_step": ev.self_device_time_total / n_prof,
+                            "count": ev.count})
     busy = busy_us / 1e6 / wall
     log(f"{label} under profiler: {n_prof / wall!r} steps/s, device busy "
         f"{busy!r} of wall time, {busy_us / n_prof!r} us/step")
@@ -1388,6 +1410,119 @@ def run_bench_modes():
     return out
 
 
+def run_unstructured(dev):
+    """Phase 8: the unstructured route (slice 4) at full width. U1 is the
+    bench cloth and U2 the bench bar, each built by ``SceneBuilder(
+    use_structured_grid=False)`` on the card, so that their constraints
+    are particle batches: ``make_step_fn`` reports ``torch_unstructured``;
+    10 steps against the kernel route of the same structured scene (≤
+    ``U_TOL``), with the spread between two runs of the unstructured route
+    (atomics do not fix the order of a sum); ``U_STEPS`` steps with every
+    kernel's launch count set to 0 just before and read just after (all
+    0), finite positions and exact pins; one step under CUDA's sync debug
+    mode; steps/s, the card's busy share, peak device memory and the five
+    device operations that take the most time. Returns the record of
+    ``{"unstructured": ...}``."""
+    from positionbaseddynamics_tpu_torch.solver import StepConfig, make_step_fn
+
+    cfg = StepConfig()
+    scenes = {
+        "U1": ("the bench cloth without the stencil path, "
+               f"{GRID}x{GRID}", lambda s: cloth_scene(GRID, GRID, dev,
+                                                       structured=s)),
+        "U2": (f"the bench bar through the FEM-tet batch, {BAR}",
+               lambda s: bar_scene(BAR, dev, structured=s)),
+    }
+    out = {}
+    for name, (what, build) in scenes.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, cset = build(False)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        rows = {n: b.n_rows for n, b in cset.particle_batches()}
+        fn = make_step_fn(cset, cfg)
+        n = state.particles.n
+        log(f"phase 8 {name} ({what}): {n} particles, batches {rows}, "
+            f"built in {build_s!r} s, route {fn.path}")
+        assert fn.path == "torch_unstructured", fn.path
+        assert not cset.grid_cloths and not cset.grid_tets
+
+        ks, kc = build(True)
+        kfn = make_step_fn(kc, cfg)
+        assert kfn.path == "cuda_kernel", kfn.path
+        runs = []
+        for f, s in ((fn, state), (fn, state), (kfn, ks)):
+            for _ in range(U_CHECK_STEPS):
+                s = f(s)
+            runs.append(s.particles.x)
+        err = max_dev(runs[0], runs[2])
+        spread = max_dev(runs[0], runs[1])
+        del ks, kc, kfn, runs
+        log(f"phase 8 {name}: {U_CHECK_STEPS} steps against the kernel "
+            f"route: max|dx| = {err!r} (bar {U_TOL}); two unstructured "
+            f"runs differ by {spread!r}")
+        assert err <= U_TOL, (name, err)
+
+        x0 = state.particles.x.clone()
+        pinned = state.particles.inv_mass == 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        s = state
+        t0 = time.perf_counter()
+        for _ in range(U_STEPS):
+            s = fn(s)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"phase 8 {name}: {U_STEPS} steps in {run_s!r} s, launch "
+            f"counts {counts}, peak device memory {peak} B")
+        assert all(v == 0 for v in counts.values()), counts
+        x = s.particles.x
+        assert torch.isfinite(x).all() and torch.isfinite(s.particles.v).all()
+        assert torch.equal(x[pinned], x0[pinned]), "pinned rows moved"
+        fall = (x0[~pinned, 1].mean() - x[~pinned, 1].mean()).item()
+        assert fall > 0.0, f"{name}: free particles rose {fall}"
+
+        sync_error = None
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            s = fn(s)
+        except RuntimeError as e:
+            sync_error = str(e)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        log(f"phase 8 {name} step under sync debug mode 'error': "
+            f"{'no host sync' if sync_error is None else sync_error}")
+        assert sync_error is None, sync_error
+
+        st = [s]
+
+        def one_step():
+            st[0] = fn(st[0])
+
+        rate = rate_windows(one_step, 1)
+        log(f"phase 8 {name} steps/s: {rate}")
+        top = []
+        busy, busy_us = profile_busy(fn, st[0], U_PROFILE_STEPS,
+                                     f"phase 8 {name}", top_out=top)
+        assert torch.isfinite(st[0].particles.x).all()
+        out[name] = {"scene": what, "particles": n, "rows": rows,
+                     "build_s": build_s, "route": fn.path,
+                     "max_abs_err_vs_kernel_route": err,
+                     "unstructured_spread": spread, "steps": U_STEPS,
+                     "launches": counts, "steps_per_s": rate,
+                     "device_busy": busy, "device_us_per_step": busy_us,
+                     "peak_bytes": peak, "top_ops": top,
+                     "mean_fall": fall}
+        del state, cset, fn, s, st
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -1437,6 +1572,7 @@ def main() -> int:
     planner_check = check_planner_routes(dev)
     mpc_big = run_mpc_big(dev)
     bench_lines = run_bench_modes()
+    unstructured = run_unstructured(dev)
 
     kernels = [{
         "name": "cloth_substep",
@@ -1539,6 +1675,7 @@ def main() -> int:
             "runtime_resources": resources[kname],
         })
     assert dam["sync_error"] is None, dam["sync_error"]
+    print(json.dumps({"unstructured": unstructured}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

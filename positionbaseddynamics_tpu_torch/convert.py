@@ -1,9 +1,9 @@
 """Carry a scene of the JAX package across to the port.
 
-The JAX package's ``SimState``, ``GridClothBatch`` and ``GridTetBatch``
-leaves, taken out as numpy arrays (``np.asarray`` of each leaf) together
-with the batches' static fields, become the port's ``(SimState,
-ConstraintSet)``; a JAX ``FluidScene`` (with its ``CellGridSpec`` and
+The JAX package's ``SimState``, ``GridClothBatch``, ``GridTetBatch`` and
+particle-batch leaves (``DistanceBatch`` … ``ShapeMatchingBatch``), taken
+out as numpy arrays (``np.asarray`` of each leaf) together with the
+batches' static fields, become the port's ``(SimState, ConstraintSet)``; a JAX ``FluidScene`` (with its ``CellGridSpec`` and
 ``BoundaryTables``) and ``FluidState`` become the port's. Both packages
 then compute the same trajectory from the same scene. This module reads
 numpy only; it never imports the JAX package.
@@ -18,7 +18,8 @@ import torch
 from ._device import resolve_device
 from .fluids.cellgrid import CellGridSpec, boundary_tables
 from .fluids.model import FluidScene, FluidState
-from .solver.constraints import ConstraintSet
+from .solver import constraints
+from .solver.constraints import PARTICLE_BATCH_ORDER, ConstraintSet
 from .solver.grid_cloth import GridClothBatch
 from .solver.grid_tet import GridTetBatch
 from .solver.state import ParticleState, SimState
@@ -36,7 +37,8 @@ def scene_from_numpy(state_arrays: Mapping[str, np.ndarray],
                      grid_cloth_arrays: Sequence[Mapping],
                      meta: Sequence[Mapping], device=None, *,
                      grid_tet_arrays: Sequence[Mapping] = (),
-                     grid_tet_meta: Sequence[Mapping] = ()
+                     grid_tet_meta: Sequence[Mapping] = (),
+                     particle_batches: Mapping[str, Tuple] = None
                      ) -> Tuple[SimState, ConstraintSet]:
     """``state_arrays``: the particle leaves ``x, v, old_x, last_x, x0,
     inv_mass`` and ``time`` (``overflow`` optional). ``grid_cloth_arrays``:
@@ -46,8 +48,15 @@ def scene_from_numpy(state_arrays: Mapping[str, np.ndarray],
     xpbd_bending, has_distance, has_bending``. ``grid_tet_arrays``: per
     tet grid, ``inv_rest_odd, inv_rest_even, rest_vol_odd, rest_vol_even,
     youngs, poisson, inv_cnt``; ``grid_tet_meta``: per tet grid, ``width,
-    height, depth, offset, inversion_handling``. Every array is copied to
-    ``device`` (None means CUDA) as float32."""
+    height, depth, offset, inversion_handling``. ``particle_batches``:
+    the JAX set's ``particle_batches()`` as a mapping name → ``(class
+    name, arrays, statics)``, the class one of ``solver/constraints.py``'s
+    particle batches, ``arrays`` its tensor fields and ``statics`` its
+    static fields (``num_colors``, ``xpbd``, the strain flags); a name is
+    a field of the set (``"distance"``, …) or ``"extra{i}"``. Every array
+    is copied to ``device`` (None means CUDA), the index tables as int64,
+    the colours as int32, the rest as float32; the Jacobi counts are
+    computed again from the indices."""
     dev = resolve_device(device)
     if len(grid_cloth_arrays) != len(meta):
         raise ValueError(f"{len(grid_cloth_arrays)} grid cloths but "
@@ -84,10 +93,39 @@ def scene_from_numpy(state_arrays: Mapping[str, np.ndarray],
     gts = [GridTetBatch(**{k: f32(arrays[k]) for k in _TET_FIELDS},
                         **{k: m[k] for k in _TET_META_FIELDS})
            for arrays, m in zip(grid_tet_arrays, grid_tet_meta)]
-    cset = ConstraintSet(grid_cloths=tuple(gcs),
-                         n_particles=particles.x.shape[-2],
-                         grid_tets=tuple(gts))
-    return state, cset
+    n = particles.x.shape[-2]
+    cset = ConstraintSet(grid_cloths=tuple(gcs), n_particles=n,
+                         grid_tets=tuple(gts),
+                         **_particle_batches(particle_batches or {}, dev))
+    return state, cset.with_jacobi_counts(n)
+
+
+def _particle_batches(batches: Mapping[str, Tuple], dev) -> dict:
+    """``ConstraintSet`` fields of the particle batches given as name →
+    ``(class name, arrays, statics)``."""
+    def tensor(field, a):
+        dtype = {"idx": torch.int64, "color": torch.int32}.get(
+            field, torch.float32)
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    kw, extras = {}, {}
+    for name, (cls_name, arrays, statics) in batches.items():
+        cls = getattr(constraints, cls_name, None)
+        if cls is None or not issubclass(cls, constraints._ParticleBatch):
+            raise ValueError(f"{name}: {cls_name} is not a particle batch "
+                             "of the port")
+        batch = cls(**{f: tensor(f, a) for f, a in arrays.items()},
+                    **dict(statics))
+        if name.startswith("extra"):
+            extras[int(name[len("extra"):])] = batch
+        elif name in PARTICLE_BATCH_ORDER:
+            kw[name] = batch
+        else:
+            raise ValueError(f"unknown particle batch name {name!r}")
+    if sorted(extras) != list(range(len(extras))):
+        raise ValueError(f"extra batches {sorted(extras)} are not 0..n-1")
+    kw["extra_batches"] = tuple(extras[i] for i in range(len(extras)))
+    return kw
 
 
 _FLUID_ARRAYS = ("mass", "boundary_x", "boundary_psi")

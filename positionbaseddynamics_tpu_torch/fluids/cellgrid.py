@@ -37,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from . import sph
 
 Tensor = torch.Tensor
@@ -107,13 +108,16 @@ class CellGridSpec:
 
     @staticmethod
     def create(lo, hi, support, cap=12, boundary_x=None, boundary_psi=None,
-               max_active=None, n_fluid_hint=None, device="cpu"):
+               max_active=None, n_fluid_hint=None, device=None):
         """As the JAX ``CellGridSpec.create``, in numpy; the boundary
-        tables are then copied to ``device``. ``max_active`` defaults to
+        tables are then copied to ``device`` (None means CUDA; without
+        CUDA the call raises unless ``device="cpu"``). ``max_active``
+        defaults to
         ``n_fluid/6`` (at least 512): valid for settled or pouring
         liquids. Occupied cells beyond it lose their interactions for the
         step and are counted in ``FluidState.overflow``, which every drive
         must check is 0."""
+        device = resolve_device(device)
         lo = np.asarray(lo, np.float64) - support
         hi = np.asarray(hi, np.float64) + support
         dims = tuple(int(v) for v in

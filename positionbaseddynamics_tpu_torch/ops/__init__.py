@@ -1,3 +1,3 @@
 """Stateless kernels on tensors (port of ``positionbaseddynamics_tpu.ops``)."""
 
-from . import integration
+from . import integration, mathutils, pbd, xpbd

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..ops.mathutils import sqrt_rn as _sqrt
 from .constraints import _init_isometric_bending_s_np
 
 Tensor = torch.Tensor
@@ -107,15 +108,6 @@ def _sum3(a):
     JAX package's ``jnp.sum`` adds it (``torch.sum`` pairs the terms in
     another order, which moves the result by an ulp)."""
     return (a[..., 0:1] + a[..., 1:2]) + a[..., 2:3]
-
-
-def _sqrt(a):
-    """Correctly rounded float32 square root. PyTorch's vectorised CPU
-    ``sqrt`` can miss by an ulp; float64 holds enough bits that rounding
-    its root to float32 gives the correctly rounded float32 root."""
-    if a.device.type == "cpu":
-        return torch.sqrt(a.double()).float()
-    return torch.sqrt(a)
 
 
 _ALL = slice(None)

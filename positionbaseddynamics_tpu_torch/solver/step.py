@@ -1,45 +1,53 @@
 """The time stepper — port of ``positionbaseddynamics_tpu/solver/step.py``,
-particle path with structured grid cloths and tet grids.
+particle path.
 
 Per sim step: ``substeps`` × {integrate → position-constraint projection →
 velocity update → damping} (``TimeStepController.cpp:93-173``), then the
 time advances by ``dt``. The velocity-level projection of the JAX stepper
-does nothing without rigid bodies (``step.py:480-481``), so these slices
-have none; orientations, rigid bodies, joints, contacts and the
-unstructured batches come with later slices of the port.
+does nothing without rigid bodies (``step.py:480-481``), so the particle
+path has none; orientations, rigid bodies, joints and contacts come with
+later slices of the port.
 
-Two routes run the substeps, chosen once from the configuration:
+Three routes run the substeps, chosen once from the scene and the
+configuration:
 
 * ``"cuda_kernel"``: the fused kernel of the scene's one grid, on a CUDA
   device, in Jacobi mode with ``jacobi_omega = 1`` and the first-order
-  velocity update, when that grid covers every particle — either one grid
-  cloth with uniform XPBD parameters (``grid_cloth_cuda.py``, one launch
-  per substep) or one tet grid without ``inversion_handling``
-  (``grid_tet_cuda.py``, one launch per iteration of each substep);
+  velocity update, when that grid covers every particle and the scene has
+  no particle batch — either one grid cloth with uniform XPBD parameters
+  (``grid_cloth_cuda.py``, one launch per substep) or one tet grid
+  without ``inversion_handling`` (``grid_tet_cuda.py``, one launch per
+  iteration of each substep);
+* ``"torch_unstructured"``: a scene with any particle batch
+  (``solver/constraints.py``): per family a gather, the batched op of
+  ``ops/`` and an ``index_add_`` scatter, after the grid families, as the
+  JAX package computes it in XLA (``step.py:153-176``);
 * ``"torch_stencil"``: the PyTorch stencil ops of ``grid_cloth.py`` and
-  ``grid_tet.py``, on any device, for every other configuration — as the
-  JAX package runs its XLA path.
+  ``grid_tet.py`` for every other configuration.
+
+The last two run on any device.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
-import numpy as np
 import torch
 
 from .._device import resolve_device
 from ..ops import integration
 from . import grid_cloth_cuda as gcc
 from . import grid_tet_cuda as gtc
-from .constraints import ConstraintSet
+from .constraints import ConstraintSet, _index_add
 from .state import SimState
 
 Tensor = torch.Tensor
 
 PATH_KERNEL = "cuda_kernel"
 PATH_STENCIL = "torch_stencil"
+PATH_UNSTRUCTURED = "torch_unstructured"
 
 
 @dataclass(frozen=True)
@@ -65,12 +73,89 @@ class StepConfig:
     contact_solver_mode: str = "jacobi"
 
 
+@dataclass(frozen=True)
+class BatchPass:
+    """One particle family's projection, prepared once by
+    :func:`batch_passes`: its ``name`` (the λ key), the ``batch``, the
+    Jacobi ``scale`` (``jacobi_omega`` times the family's 1/count column,
+    or ``jacobi_omega`` alone for a self-averaged family) and, for
+    ``gauss_seidel``, the colour ``subsets`` as ``[(rows, sub-batch)]``."""
+
+    name: str
+    batch: object
+    scale: object
+    subsets: Optional[list]
+
+
+def _inv_counts(cset: ConstraintSet, key: str, n: int, idx: Tensor
+                ) -> Tensor:
+    """The build-time 1/count column when the set has one for ``n``
+    particles, else computed here (``step.py:76-82``)."""
+    pre = cset.jacobi_inv_counts.get(key)
+    if pre is not None and pre.shape[0] == n:
+        return pre
+    ones = torch.ones((idx.numel(), 1), dtype=torch.float32,
+                      device=idx.device)
+    counts = _index_add(n, idx.reshape(-1), ones)
+    return 1.0 / torch.clamp_min(counts, 1.0)
+
+
+def batch_passes(cset: ConstraintSet, cfg: StepConfig, n: int):
+    """The particle families' passes in solve order, on the set's device
+    (``step.py:153-176``); the Jacobi scales and the colour subsets are
+    computed here, once per step function, not in a step."""
+    gs = cfg.solver_mode == "gauss_seidel"
+    out = []
+    for name, b in cset.particle_batches():
+        scale = (cfg.jacobi_omega if b.self_averaged else
+                 cfg.jacobi_omega * _inv_counts(cset, name, n, b.idx))
+        out.append(BatchPass(name, b, scale,
+                             b.color_subsets() if gs else None))
+    return tuple(out)
+
+
+def _set_rows(lam: Tensor, rows: Tensor, new: Tensor) -> Tensor:
+    """``lam`` with the rows ``rows`` of its last axis replaced by
+    ``new``, broadcast over ``new``'s rollout axes."""
+    out = lam.expand(*new.shape[:-1], lam.shape[-1]).clone()
+    out[..., rows] = new
+    return out
+
+
+def _project_particle_batch(x: Tensor, inv_mass: Tensor, bp: BatchPass,
+                            lam: Tensor, dt) -> Tuple[Tensor, Tensor]:
+    """One projection pass of one particle family (``step.py:153-176``):
+    Jacobi adds the scaled sum of the corrections; Gauss-Seidel solves
+    the colours one after another and adds each colour's corrections as
+    they are (no two of its rows share a particle)."""
+    n = x.shape[-2]
+    if bp.subsets is not None:
+        for rows, sub in bp.subsets:
+            sub_lam = lam[..., rows] if lam.shape[-1] else lam
+            corr, new_lam = sub.solve(x, inv_mass, sub_lam, dt)
+            if lam.shape[-1] and new_lam.shape[-1] == sub_lam.shape[-1]:
+                lam = _set_rows(lam, rows, new_lam)
+            x = x + _index_add(n, sub.idx.reshape(-1), _rows(corr))
+        return x, lam
+    corr, lam = bp.batch.solve(x, inv_mass, lam, dt)
+    dx = _index_add(n, bp.batch.idx.reshape(-1), _rows(corr))
+    return x + bp.scale * dx, lam
+
+
+def _rows(corr: Tensor) -> Tensor:
+    """``(..., C, k, 3)`` corrections as ``(..., C·k, 3)`` rows."""
+    return corr.reshape(*corr.shape[:-3], -1, corr.shape[-1])
+
+
 def project_positions(x: Tensor, inv_mass: Tensor, cset: ConstraintSet, dt,
-                      cfg: StepConfig) -> Tensor:
-    """Position-constraint projection, grid-cloth and grid-tet branches
-    (``step.py:283-322``): λ starts at zero and accumulates across the
-    ``max_iterations`` passes; ``gauss_seidel`` runs the lattice-coloured
-    sweeps of ``project_gs``."""
+                      cfg: StepConfig, passes=None) -> Tensor:
+    """Position-constraint projection (``step.py:283-322``): λ starts at
+    zero and accumulates across the ``max_iterations`` passes; each pass
+    runs the grid families (``gauss_seidel``: the lattice-coloured sweeps
+    of ``project_gs``), then the particle families. ``passes`` are
+    :func:`batch_passes`' (computed here when None)."""
+    if passes is None:
+        passes = batch_passes(cset, cfg, x.shape[-2])
     lams = cset.init_lambdas()
     gs = cfg.solver_mode == "gauss_seidel"
     grids = ([(f"grid_cloth{i}", b) for i, b in enumerate(cset.grid_cloths)]
@@ -82,19 +167,28 @@ def project_positions(x: Tensor, inv_mass: Tensor, cset: ConstraintSet, dt,
             else:
                 x, lams[key] = b.project(x, inv_mass, lams[key], dt,
                                          cfg.jacobi_omega)
+        for bp in passes:
+            x, lams[bp.name] = _project_particle_batch(
+                x, inv_mass, bp, lams[bp.name], dt)
     return x
 
 
-def _substep(state: SimState, cset: ConstraintSet, h, cfg: StepConfig
-             ) -> SimState:
+@functools.lru_cache(maxsize=None)
+def _gravity(g: tuple, device: torch.device) -> Tensor:
+    """The gravity vector on ``device``, made once: a tensor copied from
+    the host in every substep would make the host wait for the card."""
+    return torch.tensor(g, dtype=torch.float32, device=device)
+
+
+def _substep(state: SimState, cset: ConstraintSet, h, cfg: StepConfig,
+             passes=None) -> SimState:
     """One substep, particle path (``step.py:366-418``)."""
     p = state.particles
-    gravity = torch.as_tensor(cfg.gravity, dtype=torch.float32,
-                              device=p.x.device)
+    gravity = _gravity(tuple(cfg.gravity), p.x.device)
     last_x, old_x = p.old_x, p.x
     x, v = integration.semi_implicit_euler(
         h, p.inv_mass, p.x, p.v, gravity.expand_as(p.x))
-    x = project_positions(x, p.inv_mass, cset, h, cfg)
+    x = project_positions(x, p.inv_mass, cset, h, cfg, passes)
     if cfg.velocity_update_method == 1:
         v = integration.velocity_update_second_order(
             h, p.inv_mass, x, old_x, last_x, v)
@@ -160,9 +254,10 @@ def _tet_plan(gt, cfg: StepConfig) -> KernelPlan:
 def kernel_plan(cset: ConstraintSet, cfg: StepConfig
                 ) -> Optional[KernelPlan]:
     """The kernel route's plan when the scene and the configuration allow
-    that route, else None (see the module docstring)."""
+    that route, else None (see the module docstring). A scene with any
+    particle batch never takes it: the kernels solve their grid only."""
     dev = cset.device
-    if dev is None or dev.type != "cuda":
+    if dev is None or dev.type != "cuda" or cset.particle_batches():
         return None
     if not (cfg.solver_mode == "jacobi" and cfg.jacobi_omega == 1.0
             and cfg.velocity_update_method == 0):
@@ -197,11 +292,12 @@ def _kernel_substeps(state: SimState, plan: KernelPlan, cfg: StepConfig
 
 
 def step(state: SimState, cset: ConstraintSet, cfg: StepConfig,
-         plan: Optional[KernelPlan] = None) -> SimState:
+         plan: Optional[KernelPlan] = None, passes=None) -> SimState:
     """One full sim step: ``substeps`` substeps, then ``time += dt``
     (``step.py:538-571``). With a ``plan`` from :func:`kernel_plan` the
-    substeps run through its kernel, else through the stencil ops;
-    ``make_step_fn`` and ``rollout`` compute the plan once."""
+    substeps run through its kernel, else through the PyTorch ops, with
+    the particle families' ``passes`` from :func:`batch_passes` (computed
+    here when None); ``make_step_fn`` and ``rollout`` compute both once."""
     if state.orientations is not None or state.rigid is not None:
         raise NotImplementedError(
             "orientations and rigid bodies come with the rod (slice 7) and "
@@ -209,28 +305,45 @@ def step(state: SimState, cset: ConstraintSet, cfg: StepConfig,
     if plan is not None:
         state = _kernel_substeps(state, plan, cfg)
     else:
+        if passes is None:
+            passes = batch_passes(cset, cfg, state.particles.n)
         h = cfg.dt / cfg.substeps
         for _ in range(cfg.substeps):
-            state = _substep(state, cset, h, cfg)
+            state = _substep(state, cset, h, cfg, passes)
     return dataclasses.replace(state, time=state.time + cfg.dt)
+
+
+def _route(cset: ConstraintSet, cfg: StepConfig, n: int):
+    """``(plan, passes, path)`` of a scene: the kernel plan, or the
+    particle passes and the PyTorch route's name."""
+    plan = kernel_plan(cset, cfg)
+    if plan is not None:
+        return plan, (), PATH_KERNEL
+    passes = batch_passes(cset, cfg, n)
+    return None, passes, PATH_UNSTRUCTURED if passes else PATH_STENCIL
 
 
 def make_step_fn(cset: ConstraintSet, cfg: StepConfig, device=None):
     """``state → state`` closure over a fixed scene on ``device`` (None
     means CUDA). ``fn.path`` names the route its steps take,
-    ``"cuda_kernel"`` or ``"torch_stencil"``."""
+    ``"cuda_kernel"``, ``"torch_unstructured"`` or ``"torch_stencil"``."""
     dev = resolve_device(device)
     if cset.device is not None and cset.device != dev:
         cset = cset.to(dev)
-    plan = kernel_plan(cset, cfg)
+    n = cset.n_particles
+    if n is None and cset.particle_batches():
+        raise ValueError("a constraint set with particle batches needs its "
+                         "n_particles; build it with SceneBuilder or "
+                         "convert.scene_from_numpy")
+    plan, passes, path = _route(cset, cfg, n)
 
     def fn(state: SimState) -> SimState:
         if state.particles.x.device != dev:
             raise ValueError(f"step function built for {dev}; the state "
                              f"is on {state.particles.x.device}")
-        return step(state, cset, cfg, plan)
+        return step(state, cset, cfg, plan, passes)
 
-    fn.path = PATH_KERNEL if plan is not None else PATH_STENCIL
+    fn.path = path
     return fn
 
 
@@ -239,11 +352,13 @@ def rollout(state: SimState, cset: ConstraintSet, cfg: StepConfig,
     """Run ``n_steps`` sim steps. Returns ``(final state, trajectory)``:
     the stacked positions ``(n_steps, ..., N, 3)`` when ``collect``, else
     None — the shape of the JAX ``rollout``'s scan result."""
-    plan = (kernel_plan(cset, cfg)
-            if state.particles.x.device.type == "cuda" else None)
+    if state.particles.x.device.type == "cuda":
+        plan, passes, _ = _route(cset, cfg, state.particles.n)
+    else:
+        plan, passes = None, batch_passes(cset, cfg, state.particles.n)
     xs = []
     for _ in range(n_steps):
-        state = step(state, cset, cfg, plan)
+        state = step(state, cset, cfg, plan, passes)
         if collect:
             xs.append(state.particles.x)
     return state, (torch.stack(xs) if collect else None)

@@ -1,7 +1,8 @@
 """The port's scene builder against the JAX package's: a 33×29 cloth
 built by both gives equal arrays (atol 1e-7: both compute the build in
-float64 numpy and round once to float32), and the branches this slice of
-the port does not cover raise NotImplementedError."""
+float64 numpy and round once to float32), the cloth branches that take
+the particle batches build the same batches, and an unknown method
+raises NotImplementedError."""
 import numpy as np
 import pytest
 
@@ -89,11 +90,8 @@ def test_mesh_and_stencil_tables_match_jax():
 
 
 @pytest.mark.parametrize("call", [
-    lambda b, tm: b.add_cloth_constraints(tm, method=2),
-    lambda b, tm: b.add_cloth_constraints(tm, method=3),
     lambda b, tm: b.add_cloth_constraints(tm, method=7),
-    lambda b, tm: b.add_bending_constraints(tm, method=1),
-], ids=["fem_triangle", "strain_triangle", "unknown_method", "dihedral"])
+], ids=["unknown_method"])
 def test_unported_branches_raise(call):
     b = TBuilder()
     tm = b.add_regular_triangle_model(5, 4)
@@ -101,15 +99,79 @@ def test_unported_branches_raise(call):
         call(b, tm)
 
 
+def assert_builds_equal(t_built, j_built):
+    """The two packages' ``(state, set)`` of one scene: equal particle
+    fields, the same particle batches in the same order with equal fields
+    (exactly: both compute them in numpy and round once to float32), and
+    equal Jacobi counts."""
+    import dataclasses
+
+    (ts, tc), (js, jc) = t_built, j_built
+    for f in ("x", "v", "old_x", "last_x", "x0", "inv_mass"):
+        np.testing.assert_array_equal(_np(getattr(ts.particles, f)),
+                                      _np(getattr(js.particles, f)))
+    assert tc.n_particles == js.particles.x.shape[0]
+    names = [n for n, _ in jc.particle_batches()]
+    assert [n for n, _ in tc.particle_batches()] == names
+    for (name, tb), (_, jb) in zip(tc.particle_batches(),
+                                   jc.particle_batches()):
+        assert type(tb).__name__ == type(jb).__name__, name
+        for f in dataclasses.fields(jb):
+            jv, tv = getattr(jb, f.name), getattr(tb, f.name)
+            if f.metadata.get("static"):
+                assert tv == jv, (name, f.name)
+            else:
+                np.testing.assert_array_equal(_np(tv), _np(jv),
+                                              err_msg=f"{name}.{f.name}")
+    assert sorted(tc.jacobi_inv_counts) == sorted(jc.jacobi_inv_counts)
+    for key, v in jc.jacobi_inv_counts.items():
+        np.testing.assert_array_equal(_np(tc.jacobi_inv_counts[key]),
+                                      _np(v), err_msg=key)
+    return names
+
+
+def _cloth_branch(builder, call, structured=True, **build_kw):
+    b = builder(use_structured_grid=structured)
+    tm = b.add_regular_triangle_model(5, 4, scale=(1.0, 0.8))
+    b.set_mass(tm.offset, 0.0)
+    call(b, tm)
+    return b.build(**build_kw)
+
+
+@pytest.mark.parametrize("call,family", [
+    (lambda b, tm: b.add_cloth_constraints(tm, method=2, xx_stiffness=0.9,
+                                           xy_poisson=0.2), "fem_triangle"),
+    (lambda b, tm: b.add_cloth_constraints(tm, method=3,
+                                           normalize_shear=True),
+     "strain_triangle"),
+    (lambda b, tm: b.add_bending_constraints(tm, method=1, stiffness=0.3),
+     "dihedral"),
+], ids=["fem_triangle", "strain_triangle", "dihedral"])
+def test_cloth_branches_build_batches_as_jax(call, family):
+    """The cloth branches that only the batches serve (cloth methods 2
+    and 3, dihedral bending) build the same batch as JAX's builder, also
+    on a structured builder's regular grid."""
+    names = assert_builds_equal(_cloth_branch(TBuilder, call, device="cpu"),
+                                _cloth_branch(JBuilder, call))
+    assert names == [family]
+
+
 @pytest.mark.parametrize("method", ["cloth", "bending"])
-def test_unstructured_grid_raises(method):
-    b = TBuilder(use_structured_grid=False)
-    tm = b.add_regular_triangle_model(5, 4)
-    with pytest.raises(NotImplementedError):
+def test_unstructured_grid_builds_batches_as_jax(method):
+    """``use_structured_grid=False`` puts a regular grid's distance and
+    isometric bending in the batches, as JAX's builder does."""
+    def call(b, tm):
         if method == "cloth":
-            b.add_cloth_constraints(tm, method=4)
+            b.add_cloth_constraints(tm, method=4, distance_stiffness=1e5)
         else:
-            b.add_bending_constraints(tm, method=3)
+            b.add_bending_constraints(tm, method=3, stiffness=0.05)
+
+    t = _cloth_branch(TBuilder, call, structured=False, device="cpu")
+    names = assert_builds_equal(t, _cloth_branch(JBuilder, call,
+                                                 structured=False))
+    assert not t[1].grid_cloths
+    assert names == ["distance" if method == "cloth"
+                     else "isometric_bending"]
 
 
 def test_build_without_cuda_and_device_raises(monkeypatch):
@@ -120,3 +182,23 @@ def test_build_without_cuda_and_device_raises(monkeypatch):
     b.add_regular_triangle_model(4, 4)
     with pytest.raises(RuntimeError):
         b.build()
+
+
+def test_every_jax_builder_method_exists_and_the_unported_raise():
+    """The port's builder has each public method of JAX's; those of later
+    slices raise NotImplementedError naming their slice (6a, 6b or 7)."""
+    import inspect
+
+    from positionbaseddynamics_tpu_torch.models.builders import _UNPORTED
+
+    jnames = {n for n, v in vars(JBuilder).items()
+              if not n.startswith("_") and callable(v)}
+    missing = [n for n in sorted(jnames) if not hasattr(TBuilder, n)]
+    assert not missing, missing
+    unported = [n for names in _UNPORTED.values() for n in names]
+    assert set(unported) <= jnames
+    b = TBuilder()
+    for name in unported:
+        with pytest.raises(NotImplementedError, match=r"slice (6a|6b|7)"):
+            getattr(b, name)(*[0] * len(inspect.signature(
+                getattr(JBuilder, name)).parameters))

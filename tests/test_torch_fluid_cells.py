@@ -117,7 +117,8 @@ def test_cellgrid_spec_matches_jax(name):
                                 n_fluid_hint=int(np.prod(block)))
     t = tcg.CellGridSpec.create((0, 0, 0), hi, 4 * R, cap=max(cap, 28),
                                 boundary_x=bnd, boundary_psi=psi,
-                                n_fluid_hint=int(np.prod(block)))
+                                n_fluid_hint=int(np.prod(block)),
+                                device="cpu")
     for f in ("origin", "dims", "cell", "cap", "max_active"):
         assert getattr(t, f) == getattr(j, f), f
     jb, tb = j.boundary, t.boundary
@@ -131,6 +132,18 @@ def test_cellgrid_spec_matches_jax(name):
     for c in range(psit.shape[0]):
         assert (psit[c, :count[c]] > 0).all()
         assert (psit[c, count[c]:] == 0).all()
+
+
+def test_cellgrid_spec_without_cuda_and_device_raises(monkeypatch):
+    """``CellGridSpec.create`` is an entry point: without a ``device`` it
+    means CUDA, and without CUDA it raises instead of running on the
+    CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        tcg.CellGridSpec.create((0, 0, 0), (1, 1, 1), 4 * R)
+    spec = tcg.CellGridSpec.create((0, 0, 0), (1, 1, 1), 4 * R,
+                                   device="cpu")
+    assert spec.boundary is None
 
 
 @pytest.mark.parametrize("name,shrink", [

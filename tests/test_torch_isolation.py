@@ -24,8 +24,9 @@ def _port_modules():
 
 def test_port_has_the_slice_modules():
     mods = set(_port_modules())
-    for name in ("ops.integration", "ops.mathutils", "ops.xpbd",
-                 "solver.state", "solver.constraints", "solver.grid_cloth",
+    for name in ("ops.integration", "ops.mathutils", "ops.pbd", "ops.xpbd",
+                 "solver.state", "solver.coloring", "solver.constraints",
+                 "solver.grid_cloth",
                  "solver.grid_cloth_cuda", "solver.grid_tet",
                  "solver.grid_tet_cuda", "solver.step", "models.mesh",
                  "models.builders", "_build", "convert", "fluids.sph",

@@ -78,6 +78,92 @@ def test_step_fn_takes_the_kernel_on_card(cuda, iters, launches_per_substep):
     assert abs(out.time.item() - cpu.time.item()) <= 1e-7
 
 
+def _unstructured(kind, device):
+    """The unstructured route's scenes: a 24×24 cloth (XPBD distance and
+    isometric bending batches) or a 6×4×4 tet bar (the FEM-tet batch with
+    its inversion select, whose SVD takes the Jacobi form on the card),
+    its last six particles pulled 0.3 down out of the rest shape, so that
+    the first steps have large corrections and tets start inverted."""
+    import dataclasses
+
+    b = SceneBuilder(use_structured_grid=False)
+    if kind == "cloth":
+        tm = b.add_regular_triangle_model(24, 24, scale=(2.0, 2.0))
+        b.set_mass(tm.offset, 0.0)
+        b.set_mass(tm.offset + 23, 0.0)
+        b.add_cloth_constraints(tm, method=4, distance_stiffness=1e5)
+        b.add_bending_constraints(tm, method=3, stiffness=0.05)
+    else:
+        tm = b.add_regular_tet_model(6, 4, 4, scale=(1.0, 0.5, 0.5))
+        for k in range(16):
+            b.set_mass(tm.offset + k, 0.0)
+        b.add_solid_constraints(tm, method=3, stiffness=1e4,
+                                poisson_ratio=0.3)
+    state, cset = b.build(device=device)
+    p = state.particles
+    x = p.x.clone()
+    x[-6:, 1] -= 0.3
+    return dataclasses.replace(state, particles=dataclasses.replace(
+        p, x=x, old_x=x.clone(), last_x=x.clone())), cset
+
+
+@pytest.mark.parametrize("kind,mode", [("cloth", "jacobi"),
+                                       ("cloth", "gauss_seidel"),
+                                       ("tet", "jacobi")])
+def test_unstructured_route_on_card_matches_cpu(cuda, kind, mode):
+    """The particle batches on the card (``index_add_`` by atomics, the
+    Jacobi SVD) against the same route on the CPU over 10 steps, within
+    the 1e-5 bar; no kernel launches; pinned rows exact."""
+    cfg = StepConfig(solver_mode=mode)
+    ts, tc = _unstructured(kind, cuda)
+    fn = make_step_fn(tc, cfg, device=cuda)
+    assert fn.path == "torch_unstructured"
+    before = (gcc.cloth_substep_cuda.launches, gtc.tet_substep_cuda.launches)
+    ref = make_step_fn(tc.to("cpu"), cfg, device="cpu")
+    out, cpu = ts, ts.to("cpu")
+    for _ in range(10):
+        out, cpu = fn(out), ref(cpu)
+    assert (gcc.cloth_substep_cuda.launches,
+            gtc.tet_substep_cuda.launches) == before
+    for f in ("x", "old_x", "last_x"):
+        dev = getattr(out.particles, f).cpu() - getattr(cpu.particles, f)
+        assert dev.abs().max().item() <= 1e-5, f
+    pinned = ts.particles.inv_mass == 0
+    assert torch.equal(out.particles.x[pinned], ts.particles.x[pinned])
+    assert torch.isfinite(out.particles.x).all()
+
+
+def test_kernel_plan_refuses_a_grid_cloth_with_an_extra_batch(cuda):
+    """A structured cloth that B1 would take, plus one distance constraint
+    on its own particles: the step takes the PyTorch route, which solves
+    both, and matches the CPU."""
+    from positionbaseddynamics_tpu_torch.solver.step import kernel_plan
+
+    def build(device):
+        b = SceneBuilder()
+        tm = b.add_regular_triangle_model(33, 33, scale=(2.0, 2.0))
+        b.set_mass(tm.offset, 0.0)
+        b.set_mass(tm.offset + 32, 0.0)
+        b.add_cloth_constraints(tm, method=4, distance_stiffness=1e5)
+        b.add_bending_constraints(tm, method=3, stiffness=0.05)
+        b.add_distance_constraint(33 * 32, 33 * 33 - 1, stiffness=1e3,
+                                  xpbd=True)
+        return b.build(device=device)
+
+    ts, tc = build(cuda)
+    assert len(tc.grid_cloths) == 1 and tc.distance is not None
+    assert kernel_plan(tc, StepConfig()) is None
+    fn = make_step_fn(tc, StepConfig(), device=cuda)
+    assert fn.path == "torch_unstructured"
+    before = gcc.cloth_substep_cuda.launches
+    out = fn(fn(ts))
+    assert gcc.cloth_substep_cuda.launches == before
+    ref = make_step_fn(tc.to("cpu"), StepConfig(), device="cpu")
+    cpu = ref(ref(ts.to("cpu")))
+    dev = (out.particles.x.cpu() - cpu.particles.x).abs().max().item()
+    assert dev <= 1e-5
+
+
 def _own_inverse_masses(cuda, n_roll):
     """A ``(n_roll, N, 3)`` state of a 35x18 cloth whose last rollout pins
     a top corner too; the kernel reads each rollout's own inverse-mass

@@ -361,6 +361,76 @@ def test_mppi_steers_a_structured_cloth_with_a_generator():
     assert err_ctrl < 0.6 * err_base, (err_ctrl, err_base)
 
 
+def test_mppi_update_on_the_unstructured_pin_steering_cloth_matches_jax():
+    """The counterpart of JAX's ``test_mppi_cloth_pin_steering``: its 6×6
+    cloth built with ``use_structured_grid=False`` (XPBD distance
+    batches), settled 150 steps, then one controller step of its MPPI
+    (horizon 30, 48 samples, σ 2, two updates) fed JAX's key splits.
+
+    The 48 sampled sequences' costs, the planned cost and the stepped
+    state agree within 1e-5 (the planner's bar, relative for costs). The
+    controls are held to 1e-3: MPPI weighs a sample by ``exp(−c/T)`` at
+    temperature T = 0.05, so a cost difference δ moves its weight by δ/T,
+    20δ here; costs of ~9 within the 1e-5 relative bar may differ by 9e-5
+    and move a weight by up to 2e-3 relative (ROADMAP §C)."""
+    n = 6
+
+    def scene(builder, **kw):
+        b = builder(use_structured_grid=False)
+        tm = b.add_regular_triangle_model(n, n, scale=(1.0, 1.0))
+        b.set_mass(tm.offset, 0.0)
+        b.add_cloth_constraints(tm, method=4, distance_stiffness=1e5)
+        return b.build(**kw)
+
+    js, jc = scene(JBuilder)
+    ts, tc = scene(TBuilder, device="cpu")
+    assert tc.distance is not None and not tc.grid_cloths
+    kw = dict(substeps=2, damping=0.05)
+    jcfg, tcfg = JConfig(**kw), TConfig(**kw)
+    from positionbaseddynamics_tpu.solver import rollout as jrollout
+    from positionbaseddynamics_tpu_torch.solver import rollout as trollout
+    js, _ = jax.jit(lambda s: jrollout(s, jc, jcfg, 150))(js)
+    ts, _ = trollout(ts, tc, tcfg, 150)
+    assert np.abs(ts.particles.x.numpy()
+                  - np.asarray(js.particles.x)).max() <= 1e-5
+    free = n * n - 1
+    target = np.asarray(js.particles.x[free]) + np.float32([0.4, 0.3, 0.0])
+    pc = dict(horizon=30, num_samples=48, sigma=2.0, temperature=0.05,
+              plan_iters=2)
+    jp, tp = jmpc.MPPIConfig(**pc), tmpc.MPPIConfig(**pc)
+    runs, seqs = {}, {}
+    for name, m, c, cfg, p, extra in (("j", jmpc, jc, jcfg, jp, {}),
+                                      ("t", tmpc, tc, tcfg, tp,
+                                       dict(device="cpu"))):
+        terms = dict(
+            running_cost=m.combine(
+                m.as_running(m.particle_target([free], target)),
+                m.control_effort(1e-4)),
+            terminal_cost=m.particle_target([free], target, weight=5.0))
+        control = m.PinVelocityControl(indices=(0,), max_speed=4.0)
+        runs[name] = m.make_mpc_controller(c, cfg, control, planner="mppi",
+                                           planner_cfg=p, **terms, **extra)
+        seqs[name] = m.make_sequence_cost(c, cfg, control, **terms, **extra)
+    key = jax.random.PRNGKey(3)
+    noise = _controller_noise(key, 1, jp, jp.sigma)
+    # the first update's samples: the zero nominal plus the fed noise
+    u = noise[0, 0]
+    cj = jax.jit(jax.vmap(lambda uu: seqs["j"](js, uu)[0]))(jnp.asarray(u))
+    ct = seqs["t"](ts, torch.from_numpy(u))
+    ct = ct[0] if isinstance(ct, tuple) else ct
+    cost_rel = _rel(ct.numpy(), cj)
+    fj, ij = runs["j"](key, js, 1)
+    ft, it = runs["t"](ts, 1, noise=torch.from_numpy(noise))
+    du = np.abs(it["controls"].numpy() - np.asarray(ij["controls"])).max()
+    print(f"sampled costs {cost_rel!r} relative, controls {du!r}")
+    assert ct.shape == (48,) and cost_rel <= 1e-5
+    assert du <= 1e-3
+    assert _rel(it["cost"].numpy(), ij["cost"]) <= 1e-5
+    assert np.abs(ft.particles.x.numpy()
+                  - np.asarray(fj.particles.x)).max() <= 1e-5
+    assert np.abs(np.asarray(ij["controls"])).max() > 1e-2
+
+
 @pytest.mark.parametrize("make", [
     lambda: tmpc.RigidWrenchControl(body_indices=(0,)),
     lambda: tmpc.rigid_target(0, np.zeros(3)),

@@ -206,29 +206,57 @@ def _tets_of(builder_cls, **kw):
     return b, b.add_regular_tet_model(4, 3, 3)
 
 
-@pytest.mark.parametrize("method", [1, 2, 4, 5, 6, 7])
+@pytest.mark.parametrize("method", [7])
 def test_unported_solid_methods_raise(method):
     b, tm = _tets_of(TBuilder)
     with pytest.raises(NotImplementedError):
         b.add_solid_constraints(tm, method=method)
 
 
-@pytest.mark.parametrize("case", ["irregular_mesh", "unstructured",
-                                  "array_stiffness", "noncongruent"])
-def test_unported_tet_scenes_raise(case):
+def _solid_scene(builder, method=3, case="grid", **build_kw):
+    """A 4×3×3 tet grid (or one tet of an irregular mesh) under a solid
+    method, one corner pinned."""
     if case == "irregular_mesh":
-        b = TBuilder()
+        b = builder()
         tm = b.add_tet_model(np.float32([[0, 0, 0], [1, 0, 0], [0, 1, 0],
                                          [0, 0, 1]]), [[0, 1, 2, 3]])
         assert tm.grid is None and len(tm.mesh.edges) == 6
     else:
-        b, tm = _tets_of(TBuilder,
-                         use_structured_grid=case != "unstructured")
-    with pytest.raises(NotImplementedError):
-        stiff = np.full(20, 1e5) if case == "array_stiffness" else 1e5
-        b.add_solid_constraints(tm, method=3, stiffness=stiff)
-        if case == "noncongruent":
-            # a grid whose cells differ: the JAX package falls back to the
-            # unstructured FEM-tet batch, which comes with slice 4
-            b._x[0][::3] += 0.05
-            b.build(device="cpu")
+        b, tm = _tets_of(builder, use_structured_grid=case != "unstructured")
+    b.set_mass(0, 0.0)
+    stiff = 1e5
+    if case == "array_stiffness":
+        stiff = np.linspace(1e4, 1e5, len(tm.mesh.tets))
+    b.add_solid_constraints(tm, method=method, stiffness=stiff,
+                            volume_stiffness=0.7, poisson_ratio=0.25)
+    if case == "noncongruent":
+        # a grid whose cells differ: the FEM-tet batch, as JAX's fallback
+        b._x[0][::3] += 0.05
+    return b.build(**build_kw)
+
+
+@pytest.mark.parametrize("method", [1, 2, 4, 5, 6])
+def test_solid_methods_build_batches_as_jax(method):
+    """Solid methods 1, 2, 4, 5 and 6 on a regular grid build JAX's
+    batches (``tests/test_torch_unstructured_step.py`` steps them)."""
+    from test_torch_builders import assert_builds_equal
+
+    names = assert_builds_equal(_solid_scene(TBuilder, method, device="cpu"),
+                                _solid_scene(JBuilder, method))
+    assert names == {1: ["distance", "volume"], 2: ["fem_tetra"],
+                     4: ["strain_tetra"], 5: ["shape_matching"],
+                     6: ["distance", "volume"]}[method]
+
+
+@pytest.mark.parametrize("case", ["irregular_mesh", "unstructured",
+                                  "array_stiffness", "noncongruent"])
+def test_unstructured_tet_scenes_build_batches_as_jax(case):
+    """XPBD FEM tets that the structured solver does not take (an
+    irregular mesh, ``use_structured_grid=False``, per-tet stiffness, a
+    grid of cells that are not congruent) build JAX's FEM-tet batch."""
+    from test_torch_builders import assert_builds_equal
+
+    t = _solid_scene(TBuilder, case=case, device="cpu")
+    names = assert_builds_equal(t, _solid_scene(JBuilder, case=case))
+    assert names == ["fem_tetra"] and not t[1].grid_tets
+    assert t[1].fem_tetra.xpbd
