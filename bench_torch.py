@@ -44,16 +44,14 @@ import numpy as np
 import torch
 
 UNPORTED = {
-    "pile": "rigid bodies and collision (slices 6a, 6b) and scene I/O "
-            "(slice 8)",
-    "pile_big": "rigid bodies and collision (slices 6a, 6b)",
-    "scene": "scene I/O (slice 8), rigid bodies and collision (slices 6a, "
-             "6b)",
+    "pile": "collision (slice 6b) and scene I/O (slice 8)",
+    "pile_big": "collision (slice 6b)",
+    "scene": "scene I/O (slice 8) and collision (slice 6b)",
     "rods": "rods (slice 7)",
     "tree": "rods (slice 7)",
     "armadillo_batch": "the unstructured solver (slice 4), collision "
                        "(slice 6b) and scene I/O (slice 8)",
-    "mpc_contact": "rigid bodies and collision (slices 6a, 6b)",
+    "mpc_contact": "collision (slice 6b)",
 }
 CHECK_TOL = {"cloth": 1e-5, "tet": 1e-5, "fluid": 1e-4}
 PLAIN_CHUNK = 2048      # active cells per piece of the plain fluid passes

@@ -69,7 +69,20 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    with every launch count 0, finite positions and exact pins, one step
    with no host sync, steps/s, busy share, peak device memory and the top
    five device operations, printed as one ``{"unstructured": ...}`` line
-   before the ``kernels`` line.
+   before the ``kernels`` line;
+9. rigid bodies and joints (slice 6a), no kernel of the port on their
+   path: R1, MPPI over K 256 rollouts of ``examples/chain_demo.py``'s 8-link
+   chain at horizon 10 (``RigidWrenchControl`` on the tip, σ 20, λ 0.05):
+   the build's seconds and the route (``torch_rigid``), one rollout on the
+   card against the port on the CPU (≤ 1e-4), 4 of an update's 256
+   rollouts against the same controls alone (≤ 1e-6), 2 updates with
+   every launch count 0, finite, the anchor exact, one step of the 256
+   rollouts with no host sync, updates/s and rollout-steps/s, busy share,
+   peak device memory and the top five device operations; then
+   ``joint_demo.py``, ``sbt_demo.py`` and ``coupling_demo.py`` built on the
+   card, 20 steps against the CPU (≤ 1e-4) and 200 steps with every launch
+   count 0, each joint's residual at the end; printed as one
+   ``{"rigid": ...}`` line before the ``kernels`` line.
 
 The build log's ``-Xptxas -v`` lines are printed per ``__global__`` and
 template instance (registers, shared memory, spills), and for the cloth
@@ -82,8 +95,8 @@ Every steps/s figure is the median of ``N_WINDOWS`` windows of at least
 ``WINDOW_S`` seconds on the host clock, printed with the lowest and the
 highest window.
 
-Prints one ``{"unstructured": {...}}`` line (phase 8), one
-``{"kernels": [...]}`` JSON line, the card's name and power limit, and as
+Prints one ``{"unstructured": {...}}`` line (phase 8), one ``{"rigid":
+{...}}`` line (phase 9), one ``{"kernels": [...]}`` JSON line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits 1 and prints no result.
 """
@@ -118,6 +131,20 @@ U_TOL = 1e-4                    # BASELINE.md end-to-end bar: unstructured
 U_CHECK_STEPS = 10              # route vs the kernel route of its scene
 U_STEPS = 50                    # phase 8's counted run, steps
 U_PROFILE_STEPS = 10            # phase 8's steps under the profiler
+# phase 9, R1: MPPI over the chain demo (bench.py --mpc-samples/--mpc-horizon
+# defaults), and the rigid demos
+R1_LINKS = 8                    # examples/chain_demo.py --links default
+R1_ITERATIONS = 5               # the rigid examples' StepConfig
+R1_K = 256
+R1_HORIZON = 10
+R1_TARGET = (4.0, -4.0, 2.0)
+R1_UPDATES = 2                  # counted updates after one warm-up
+R1_CPU_TOL = 1e-4               # one rollout, card vs the port on the CPU
+R1_SINGLES = 4                  # rollouts replayed alone
+R1_SINGLE_TOL = 1e-6            # a rollout of K vs the same one alone
+RIGID_DEMO_STEPS = 200
+RIGID_DEMO_CHECK = 20           # card vs CPU steps of each demo
+RIGID_DEMO_TOL = 1e-4
 
 # fp32 operations of one particle per substep, counted from
 # csrc/grid_cloth_step.cu: integrate 12; per iteration, per anchor, the 3
@@ -1523,6 +1550,331 @@ def run_unstructured(dev):
     return out
 
 
+def chain_scene(builder, dev, links=R1_LINKS):
+    """``examples/chain_demo.py`` at its default: a static anchor and
+    ``links`` bodies of mass 1, inertia (0.1, 0.2, 0.3), ball joints at the
+    midpoints."""
+    b = builder()
+    prev = b.add_rigid_body((0.0, 0.0, 0.0), mass=0.0)
+    for i in range(links):
+        body = b.add_rigid_body((1.0 + i, 0.0, 0.0), mass=1.0,
+                                inertia=(0.1, 0.2, 0.3))
+        b.add_ball_joint(prev, body, (0.5 + i, 0.0, 0.0))
+        prev = body
+    return b.build(device=dev)
+
+
+def joint_demo_scene(builder, dev):
+    """``examples/joint_demo.py``: nine static-base/dynamic-body pairs, one
+    joint kind each, the four motors with their target sequences."""
+    b = builder()
+
+    def pair(y):
+        return (b.add_rigid_body((0.0, y, 0.0), mass=0.0),
+                b.add_rigid_body((1.0, y, 0.0), mass=1.0,
+                                 inertia=(0.1, 0.15, 0.2)))
+
+    b.add_ball_joint(*pair(0.0), (0.5, 0.0, 0.0))
+    b.add_ball_on_line_joint(*pair(2.0), (0.5, 2.0, 0.0), (1.0, 0.0, 0.0))
+    b.add_hinge_joint(*pair(4.0), (0.5, 4.0, 0.0), (0.0, 0.0, 1.0))
+    b.add_universal_joint(*pair(6.0), (0.5, 6.0, 0.0), (0.0, 0.0, 1.0),
+                          (0.0, 1.0, 0.0))
+    b.add_slider_joint(*pair(8.0), (1.0, 0.0, 0.0))
+    b.add_target_angle_motor_hinge_joint(
+        *pair(10.0), (0.5, 10.0, 0.0), (0.0, 0.0, 1.0),
+        sequence=[0.0, 0.0, 1.0, 0.8, 2.0, 0.0], repeat=True)
+    b.add_target_velocity_motor_hinge_joint(
+        *pair(12.0), (0.5, 12.0, 0.0), (0.0, 0.0, 1.0), target=1.5)
+    b.add_target_position_motor_slider_joint(
+        *pair(14.0), (1.0, 0.0, 0.0), sequence=[0.0, 0.0, 1.0, 0.5, 2.0, 0.0],
+        repeat=True)
+    b.add_target_velocity_motor_slider_joint(*pair(16.0), (1.0, 0.0, 0.0),
+                                             target=0.4)
+    return b.build(device=dev)
+
+
+def sbt_scene(builder, dev, segments=10, youngs=1e6):
+    """``examples/sbt_demo.py``: a rod of 10 rigid segments (the first
+    static) joined by stretch-bending-twisting constraints."""
+    radius, seg_len = 0.1, 0.5
+    mass = 1000.0 * np.pi * radius**2 * seg_len
+    ix = 0.5 * mass * radius**2
+    iyz = mass * (3 * radius**2 + seg_len**2) / 12.0
+    b = builder()
+    for i in range(segments):
+        b.add_rigid_body(x=((i + 0.5) * seg_len, 0.0, 0.0),
+                         mass=(0.0 if i == 0 else mass),
+                         inertia=(ix, iyz, iyz))
+    for i in range(segments - 1):
+        b.add_stretch_bending_twisting_constraint(
+            i, i + 1, pos=((i + 1) * seg_len, 0.0, 0.0),
+            average_radius=radius, average_segment_length=seg_len,
+            youngs_modulus=youngs, torsion_modulus=youngs)
+    return b.build(device=dev)
+
+
+def coupling_scene(builder, dev, n=12):
+    """``examples/coupling_demo.py`` at ``n`` 12: a link ball-jointed to a
+    static anchor and a grid cloth whose first-row corners hang from it by
+    ``rb_particle_ball`` joints."""
+    b = builder()
+    anchor = b.add_rigid_body((0.0, 2.0, 0.0), mass=0.0)
+    link = b.add_rigid_body((0.8, 2.0, 0.0), mass=1.0,
+                            inertia=(0.1, 0.15, 0.2))
+    b.add_ball_joint(anchor, link, (0.4, 2.0, 0.0))
+    tm = b.add_regular_triangle_model(n, n, translation=(1.2, 2.0, -0.5),
+                                      scale=(1.0, 1.0))
+    b.add_cloth_constraints(tm, method=4, distance_stiffness=1e5)
+    b.add_bending_constraints(tm, method=3, stiffness=0.05)
+    b.add_rigid_body_particle_ball_joint(link, tm.offset)
+    b.add_rigid_body_particle_ball_joint(link, tm.offset + n - 1)
+    return b.build(device=dev)
+
+
+def rigid_planner(dev):
+    """R1: MPPI over ``R1_K`` rollouts of the chain at horizon
+    ``R1_HORIZON`` (``bench.py --mpc-samples/--mpc-horizon`` defaults),
+    ``RigidWrenchControl`` on the tip, the tip's distance to ``R1_TARGET``
+    each step and 10× at the end plus a 1e-6 control effort, σ 20, λ 0.05
+    (JAX's ``tests/test_mpc.py:32-42``). Returns ``(state, seq_cost,
+    MPPIConfig, build seconds)``."""
+    from positionbaseddynamics_tpu_torch import mpc
+    from positionbaseddynamics_tpu_torch.models import SceneBuilder
+    from positionbaseddynamics_tpu_torch.solver import StepConfig
+
+    t0 = time.perf_counter()
+    state, cset = chain_scene(SceneBuilder, dev)
+    tip = R1_LINKS
+    seq = mpc.make_sequence_cost(
+        cset, StepConfig(max_iterations=R1_ITERATIONS),
+        mpc.RigidWrenchControl(body_indices=(tip,), max_force=120.0),
+        running_cost=mpc.combine(
+            mpc.as_running(mpc.rigid_target(tip, R1_TARGET, weight=1.0)),
+            mpc.control_effort(1e-6)),
+        terminal_cost=mpc.rigid_target(tip, R1_TARGET, weight=10.0),
+        device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mcfg = mpc.MPPIConfig(horizon=R1_HORIZON, num_samples=R1_K, sigma=20.0,
+                          temperature=0.05, plan_iters=1)
+    return state, seq, mcfg, build_s
+
+
+def joint_residuals(state, cset, dt):
+    """Each joint batch's largest positional and angular residual on
+    ``state`` (``JointBatch.residual``), by kind."""
+    out = {}
+    r = state.rigid
+    for jb in cset.joints:
+        lin, ang = jb.residual(r.x, r.q, state.time, dt,
+                               px=state.particles.x)
+        out[jb.kind] = {"gap": lin.max().item(), "angular": ang.max().item()}
+    return out
+
+
+def run_rigid_demos(dev):
+    """Phase 9b: ``joint_demo.py``, ``sbt_demo.py`` and ``coupling_demo.py``
+    built on the card, ``RIGID_DEMO_CHECK`` steps against the port on the
+    CPU (≤ ``RIGID_DEMO_TOL``), then ``RIGID_DEMO_STEPS`` steps with every
+    launch count 0: each joint's residual at the end, the anchors exact,
+    everything finite."""
+    from positionbaseddynamics_tpu_torch.models import SceneBuilder
+    from positionbaseddynamics_tpu_torch.solver import StepConfig, make_step_fn
+
+    cfg = StepConfig(max_iterations=R1_ITERATIONS)
+    h = cfg.dt / cfg.substeps
+    cpu = torch.device("cpu")
+    out = {}
+    for name, build in (("joint_demo", joint_demo_scene),
+                        ("sbt_demo", sbt_scene),
+                        ("coupling_demo", coupling_scene)):
+        state, cset = build(SceneBuilder, dev)
+        fn = make_step_fn(cset, cfg)
+        assert fn.path == "torch_rigid", fn.path
+        cs, cc = build(SceneBuilder, cpu)
+        cfn = make_step_fn(cc, cfg, device=cpu)
+        a, b = state, cs
+        for _ in range(RIGID_DEMO_CHECK):
+            a, b = fn(a), cfn(b)
+        dx = max(max_dev(a.rigid.x.cpu(), b.rigid.x),
+                 max_dev(a.particles.x.cpu(), b.particles.x)
+                 if b.particles.n else 0.0)
+        dq = max_dev(a.rigid.q.cpu(), b.rigid.q)
+        del cs, cc, cfn, a, b
+        x0 = state.rigid.x.clone()
+        static = state.rigid.inv_mass == 0
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        s = state
+        for _ in range(RIGID_DEMO_STEPS):
+            s = fn(s)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        res = joint_residuals(s, cset, h)
+        finite = bool(torch.isfinite(s.rigid.x).all()
+                      and torch.isfinite(s.rigid.q).all()
+                      and torch.isfinite(s.particles.x).all())
+        anchors = torch.equal(s.rigid.x[static], x0[static])
+        out[name] = {"bodies": state.rigid.n, "particles": state.particles.n,
+                     "joints": {jb.kind: jb.n for jb in cset.joints},
+                     "route": fn.path,
+                     "check_steps": RIGID_DEMO_CHECK,
+                     "card_vs_cpu_max_abs_dx": dx,
+                     "card_vs_cpu_max_abs_dq": dq, "steps": RIGID_DEMO_STEPS,
+                     "steps_s": run_s, "launches": counts,
+                     "residuals": res, "finite": finite,
+                     "anchors_exact": anchors}
+        log(f"phase 9 {name}: {out[name]}")
+        assert dx <= RIGID_DEMO_TOL and dq <= RIGID_DEMO_TOL, (name, dx, dq)
+        assert all(v == 0 for v in counts.values()), counts
+        assert finite and anchors, name
+        del state, cset, fn, s
+    return out
+
+
+def run_rigid(dev):
+    """Phase 9: slice 6a on the card, no kernel of the port on its path.
+    R1 (:func:`rigid_planner`): the build's seconds and the route; one
+    rollout of ``R1_HORIZON`` steps on the card against the port on the CPU
+    (≤ ``R1_CPU_TOL``); an update's ``R1_K`` rollouts, ``R1_SINGLES`` of
+    them against the same controls stepped alone (≤ ``R1_SINGLE_TOL``);
+    ``R1_UPDATES`` updates with every launch count 0, finite, the anchor
+    exact; one step of the K rollouts under CUDA's sync debug mode;
+    updates/s and rollout-steps/s (median of windows), the busy share,
+    peak device memory and the top five device operations of one update
+    under the profiler. Then the demos (:func:`run_rigid_demos`). Returns
+    the record of ``{"rigid": ...}``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from positionbaseddynamics_tpu_torch import mpc
+    from positionbaseddynamics_tpu_torch.mpc.planners import _expand_state
+
+    cpu = torch.device("cpu")
+    state, seq, mcfg, build_s = rigid_planner(dev)
+    cstate, cseq, _, _ = rigid_planner(cpu)
+    log(f"phase 9 R1: chain of {R1_LINKS} links, K {R1_K}, h {R1_HORIZON}, "
+        f"built in {build_s!r} s, route {seq.path}")
+    assert seq.path == "torch_rigid", seq.path
+    gen = torch.Generator(device=dev).manual_seed(9)
+    u1 = mcfg.sigma * torch.randn((R1_HORIZON, 6), generator=gen,
+                                  device=dev)
+    c1, f1 = seq(state, u1)
+    cc1, cf1 = cseq(cstate, u1.cpu())
+    cpu_dx = max_dev(f1.rigid.x.cpu(), cf1.rigid.x)
+    cpu_dq = max_dev(f1.rigid.q.cpu(), cf1.rigid.q)
+    log(f"phase 9 R1 one rollout, card vs CPU: max|dx| {cpu_dx!r}, max|dq| "
+        f"{cpu_dq!r}, cost {c1.item()!r} vs {cc1.item()!r}")
+    assert cpu_dx <= R1_CPU_TOL and cpu_dq <= R1_CPU_TOL, (cpu_dx, cpu_dq)
+
+    nominal = torch.zeros((R1_HORIZON, 6), dtype=torch.float32, device=dev)
+    eps = mcfg.sigma * torch.randn((R1_K, R1_HORIZON, 6), generator=gen,
+                                   device=dev)
+    costs, fk = seq(state, nominal + eps)
+    single_dev = 0.0
+    for k in np.linspace(0, R1_K - 1, R1_SINGLES).astype(int).tolist():
+        ck, fs = seq(state, nominal + eps[k])
+        single_dev = max(single_dev, max_dev(fk.rigid.x[k], fs.rigid.x),
+                         max_dev(fk.rigid.q[k], fs.rigid.q),
+                         abs(costs[k].item() - ck.item())
+                         / max(abs(ck.item()), 1e-30))
+    log(f"phase 9 R1 {R1_SINGLES} of {R1_K} rollouts against the same "
+        f"controls alone: max dev {single_dev!r}")
+    assert single_dev <= R1_SINGLE_TOL, single_dev
+
+    nominal = mpc.mppi_update(state, nominal, seq, mcfg, gen)[0]  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(R1_UPDATES):
+        eps = mcfg.sigma * torch.randn((R1_K, R1_HORIZON, 6), generator=gen,
+                                       device=dev)
+        last = nominal
+        nominal, costs = mpc.mppi_update(state, nominal, seq, mcfg, eps=eps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _, fin = seq(state, last + eps)          # the last update's rollouts
+    finite = bool(torch.isfinite(costs).all() and torch.isfinite(nominal).all()
+                  and torch.isfinite(fin.rigid.x).all()
+                  and torch.isfinite(fin.rigid.q).all())
+    anchor = torch.equal(fin.rigid.x[:, 0],
+                         state.rigid.x[0].expand(R1_K, 3))
+    log(f"phase 9 R1 {R1_UPDATES} updates in {wall!r} s, launch counts "
+        f"{counts}, finite {finite}, "
+        f"anchor exact {anchor}, peak device memory {peak} B, cost "
+        f"{costs.min().item()!r}..{costs.max().item()!r}")
+    assert all(v == 0 for v in counts.values()), counts
+    assert finite, "R1 produced non-finite values"
+    assert anchor, "R1 moved the static anchor"
+
+    batched = seq.step(_expand_state(state, R1_K))
+    sync_error = None
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batched = seq.step(batched)
+    except RuntimeError as e:
+        sync_error = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"phase 9 R1 step of {R1_K} rollouts under sync debug mode 'error': "
+        f"{'no host sync' if sync_error is None else sync_error}")
+    assert sync_error is None, sync_error
+
+    st = [nominal]
+
+    def one_update():
+        st[0] = mpc.mppi_update(state, st[0], seq, mcfg, gen)[0]
+
+    rate = rate_windows(one_update, 1)
+    rollout_steps = {key: val * R1_K * R1_HORIZON for key, val in
+                     rate.items() if key in ("median", "min", "max")}
+    log(f"phase 9 R1 updates/s {rate}, rollout-steps/s {rollout_steps}")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_update()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    device = [ev for ev in prof.key_averages()
+              if getattr(ev, "device_type", None) == DeviceType.CUDA]
+    busy_us = sum(ev.self_device_time_total for ev in device)
+    launches = sum(ev.count for ev in device)
+    top = [{"op": ev.key[:120], "us_per_update": ev.self_device_time_total,
+            "count": ev.count}
+           for ev in sorted(device,
+                            key=lambda ev: -ev.self_device_time_total)[:5]]
+    for t in top:
+        log(f"  phase 9 R1 device time: {t}")
+    busy = busy_us / 1e6 / pwall
+    log(f"phase 9 R1 under profiler: device busy {busy!r} of wall time, "
+        f"{busy_us!r} us and {launches} device launches an update")
+    out = {"R1": {
+        "scene": f"examples/chain_demo.py, {R1_LINKS} links, max_iterations "
+                 f"{R1_ITERATIONS}, Gauss-Seidel joints",
+        "rollouts": R1_K, "horizon": R1_HORIZON, "build_s": build_s,
+        "route": seq.path, "card_vs_cpu_max_abs_dx": cpu_dx,
+        "card_vs_cpu_max_abs_dq": cpu_dq,
+        "singles_max_dev": single_dev, "launches": counts,
+        "updates_s_unwindowed": R1_UPDATES / wall,
+        "updates_per_s": rate, "rollout_steps_per_s": rollout_steps,
+        "device_busy": busy, "device_us_per_update": busy_us,
+        "device_launches_per_update": launches, "peak_bytes": peak,
+        "top_ops": top, "finite": finite, "anchor_exact": anchor,
+        "sync_free_step": sync_error is None}}
+    del state, seq, batched, fin, fk
+    torch.cuda.empty_cache()
+    out.update(run_rigid_demos(dev))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -1573,6 +1925,7 @@ def main() -> int:
     mpc_big = run_mpc_big(dev)
     bench_lines = run_bench_modes()
     unstructured = run_unstructured(dev)
+    rigid = run_rigid(dev)
 
     kernels = [{
         "name": "cloth_substep",
@@ -1676,6 +2029,7 @@ def main() -> int:
         })
     assert dam["sync_error"] is None, dam["sync_error"]
     print(json.dumps({"unstructured": unstructured}))
+    print(json.dumps({"rigid": rigid}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

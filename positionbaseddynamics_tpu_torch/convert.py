@@ -1,15 +1,18 @@
 """Carry a scene of the JAX package across to the port.
 
-The JAX package's ``SimState``, ``GridClothBatch``, ``GridTetBatch`` and
-particle-batch leaves (``DistanceBatch`` … ``ShapeMatchingBatch``), taken
+The JAX package's ``SimState`` (its particles and ``RigidState``),
+``GridClothBatch``, ``GridTetBatch``, particle-batch leaves
+(``DistanceBatch`` … ``ShapeMatchingBatch``) and ``JointBatch``-es, taken
 out as numpy arrays (``np.asarray`` of each leaf) together with the
-batches' static fields, become the port's ``(SimState, ConstraintSet)``; a JAX ``FluidScene`` (with its ``CellGridSpec`` and
+batches' static fields, become the port's ``(SimState, ConstraintSet)``;
+a JAX ``FluidScene`` (with its ``CellGridSpec`` and
 ``BoundaryTables``) and ``FluidState`` become the port's. Both packages
 then compute the same trajectory from the same scene. This module reads
 numpy only; it never imports the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -22,7 +25,8 @@ from .solver import constraints
 from .solver.constraints import PARTICLE_BATCH_ORDER, ConstraintSet
 from .solver.grid_cloth import GridClothBatch
 from .solver.grid_tet import GridTetBatch
-from .solver.state import ParticleState, SimState
+from .solver.joints import JointBatch
+from .solver.state import ParticleState, RigidState, SimState
 
 _PARTICLE_FIELDS = ("x", "v", "old_x", "last_x", "x0", "inv_mass")
 _META_FIELDS = ("height", "width", "offset", "xpbd_distance", "xpbd_bending",
@@ -38,7 +42,9 @@ def scene_from_numpy(state_arrays: Mapping[str, np.ndarray],
                      meta: Sequence[Mapping], device=None, *,
                      grid_tet_arrays: Sequence[Mapping] = (),
                      grid_tet_meta: Sequence[Mapping] = (),
-                     particle_batches: Mapping[str, Tuple] = None
+                     particle_batches: Mapping[str, Tuple] = None,
+                     rigid: Optional[Mapping[str, np.ndarray]] = None,
+                     joints: Sequence[Tuple[Mapping, Mapping]] = ()
                      ) -> Tuple[SimState, ConstraintSet]:
     """``state_arrays``: the particle leaves ``x, v, old_x, last_x, x0,
     inv_mass`` and ``time`` (``overflow`` optional). ``grid_cloth_arrays``:
@@ -53,10 +59,16 @@ def scene_from_numpy(state_arrays: Mapping[str, np.ndarray],
     name, arrays, statics)``, the class one of ``solver/constraints.py``'s
     particle batches, ``arrays`` its tensor fields and ``statics`` its
     static fields (``num_colors``, ``xpbd``, the strain flags); a name is
-    a field of the set (``"distance"``, …) or ``"extra{i}"``. Every array
-    is copied to ``device`` (None means CUDA), the index tables as int64,
-    the colours as int32, the rest as float32; the Jacobi counts are
-    computed again from the indices."""
+    a field of the set (``"distance"``, …) or ``"extra{i}"``. ``rigid``:
+    the JAX ``RigidState``'s fields by name (``x, v, q, omega, old_x,
+    last_x, old_q, last_q, x0, q0, inv_mass, inertia0, ext_force,
+    ext_torque``). ``joints``: per ``JointBatch`` of the JAX set, in its
+    order, ``(arrays, statics)``: its array fields that are not None
+    (``bodies``, ``color``, ``local0``, …, ``seq_repeat``) and its static
+    fields ``kind`` and ``num_colors``. Every array is copied to
+    ``device`` (None means CUDA), the index tables as int64, the colours as
+    int32, ``seq_repeat`` as bool, the rest as float32; the Jacobi counts
+    are computed again from the indices."""
     dev = resolve_device(device)
     if len(grid_cloth_arrays) != len(meta):
         raise ValueError(f"{len(grid_cloth_arrays)} grid cloths but "
@@ -75,8 +87,15 @@ def scene_from_numpy(state_arrays: Mapping[str, np.ndarray],
     particles = ParticleState(
         **{k: f32(state_arrays[k]) for k in _PARTICLE_FIELDS})
     overflow = state_arrays.get("overflow")
-    state = SimState(particles=particles, orientations=None, rigid=None,
-                     time=f32(state_arrays["time"]),
+    rigid_state = None
+    if rigid is not None:
+        names = [f.name for f in dataclasses.fields(RigidState)]
+        missing = [k for k in names if k not in rigid]
+        if missing:
+            raise ValueError(f"rigid lacks {missing}")
+        rigid_state = RigidState(**{k: f32(rigid[k]) for k in names})
+    state = SimState(particles=particles, orientations=None,
+                     rigid=rigid_state, time=f32(state_arrays["time"]),
                      overflow=None if overflow is None else f32(overflow))
 
     gcs = []
@@ -96,8 +115,24 @@ def scene_from_numpy(state_arrays: Mapping[str, np.ndarray],
     n = particles.x.shape[-2]
     cset = ConstraintSet(grid_cloths=tuple(gcs), n_particles=n,
                          grid_tets=tuple(gts),
+                         n_rigid=None if rigid_state is None
+                         else rigid_state.n,
+                         joints=tuple(_joint_batch(a, st, dev)
+                                      for a, st in joints),
                          **_particle_batches(particle_batches or {}, dev))
     return state, cset.with_jacobi_counts(n)
+
+
+def _joint_batch(arrays: Mapping, statics: Mapping, dev) -> JointBatch:
+    """A JAX ``JointBatch``'s arrays and statics as the port's."""
+    def tensor(name, a):
+        dtype = {"bodies": torch.int64, "color": torch.int32,
+                 "seq_repeat": torch.bool}.get(name, torch.float32)
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    return JointBatch(**{k: tensor(k, a) for k, a in arrays.items()},
+                      kind=str(statics["kind"]),
+                      num_colors=int(statics["num_colors"]))
 
 
 def _particle_batches(batches: Mapping[str, Tuple], dev) -> dict:

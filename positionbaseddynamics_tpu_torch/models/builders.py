@@ -1,23 +1,25 @@
-"""Scene building — port of the particle parts of
-``positionbaseddynamics_tpu/models/builders.py`` (``SimulationModel``'s
-``add*`` surface, ``Simulation/SimulationModel.h:186-249``): triangle and
-tet models, the per-constraint adders, and cloth, bending and solid
-constraints on the structured grid solvers or on the unstructured
-particle batches.
+"""Scene building — port of ``positionbaseddynamics_tpu/models/
+builders.py`` (``SimulationModel``'s ``add*`` surface,
+``Simulation/SimulationModel.h:186-249``): triangle and tet models, the
+per-constraint adders, cloth, bending and solid constraints on the
+structured grid solvers or on the unstructured particle batches, and rigid
+bodies with the 14 joint adders.
 
-A :class:`SceneBuilder` accumulates particles and constraint specs on the
-host in numpy, then ``build(device=)`` freezes them into a
-``(SimState, ConstraintSet)`` pair of tensors. Masses of 0 pin particles.
-Branches that later slices port (rods, ghost-point rods, generic and
-rigid-body constraints) raise ``NotImplementedError`` naming the slice,
-rather than dropping their input.
+A :class:`SceneBuilder` accumulates particles, bodies and constraint specs
+on the host in numpy, then ``build(device=)`` freezes them into a
+``(SimState, ConstraintSet)`` pair of tensors. Masses of 0 pin particles
+and make bodies static. Branches that later slices port (collision, rods,
+ghost-point rods, generic constraints) raise ``NotImplementedError``
+naming the slice, rather than dropping their input.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .._device import resolve_device
 from ..solver.constraints import (ConstraintSet, DihedralBatch,
@@ -27,24 +29,15 @@ from ..solver.constraints import (ConstraintSet, DihedralBatch,
                                   StrainTriangleBatch, VolumeBatch)
 from ..solver.grid_cloth import GridClothBatch
 from ..solver.grid_tet import GridTetBatch
-from ..solver.state import ParticleState, SimState
+from ..solver.joints import make_joint_batch
+from ..solver.state import ParticleState, RigidState, SimState
+from ..utils import npquat
+from ..utils.massprops import mass_properties, principal_frame
 from .mesh import TetMesh, TriangleMesh
 
 #: The JAX builder's methods that later slices port, by slice: each
 #: raises NotImplementedError naming its slice rather than drop its input.
 _UNPORTED = {
-    "6a (rigid bodies and joints)": (
-        "add_rigid_body", "add_rigid_body_from_mesh",
-        "add_ball_joint", "add_ball_on_line_joint", "add_hinge_joint",
-        "add_universal_joint", "add_slider_joint",
-        "add_target_position_motor_slider_joint",
-        "add_target_velocity_motor_slider_joint",
-        "add_target_angle_motor_hinge_joint",
-        "add_target_velocity_motor_hinge_joint", "add_damper_joint",
-        "add_rigid_distance_joint", "add_rigid_body_spring",
-        "add_rigid_body_particle_ball_joint",
-        "add_stretch_bending_twisting_constraint",
-        "add_generic_rigid_constraints"),
     "6b (collision)": (
         "add_collision_object", "add_collision_sphere", "add_collision_box",
         "add_collision_cylinder", "add_collision_torus", "add_collision_sdf",
@@ -55,7 +48,8 @@ _UNPORTED = {
         "add_ghost_rod_constraints", "add_line_model", "add_rod_constraints",
         "add_stretch_shear_constraint", "add_bend_twist_constraint",
         "add_direct_rod_chain", "add_direct_rod_tree",
-        "add_generic_constraints", "add_perpendicular_bisector_constraint",
+        "add_generic_constraints", "add_generic_rigid_constraints",
+        "add_perpendicular_bisector_constraint",
         "add_ghost_point_edge_distance_constraint",
         "add_darboux_vector_constraint"),
 }
@@ -204,6 +198,17 @@ class SceneBuilder:
     # structured tet grid specs: (whd, offset, stiffness, poisson, tets,
     # inversion_handling)
     _grid_tet_specs: list = field(default_factory=list)
+    # rigid bodies (float64 rows) and joint specs (builders.py:185-200)
+    _rb_x: list = field(default_factory=list)
+    _rb_q: list = field(default_factory=list)
+    _rb_v: list = field(default_factory=list)
+    _rb_omega: list = field(default_factory=list)
+    _rb_mass: list = field(default_factory=list)
+    _rb_inertia: list = field(default_factory=list)
+    _joints: list = field(default_factory=list)
+    # body -> its mesh frame (add_rigid_body_from_mesh), for the collision
+    # shapes of slice 6b
+    _rb_mesh_frames: dict = field(default_factory=dict)
 
     # ---- particles -------------------------------------------------------
 
@@ -259,6 +264,163 @@ class SceneBuilder:
 
     # ---- per-constraint adders (SimulationModel.h:186-249) ---------------
     # Scalar and bulk (array) forms share the same chunk accumulators.
+
+    # ---- rigid bodies & joints (SimulationModel.h:186-249) ---------------
+
+    @property
+    def n_rigid_bodies(self) -> int:
+        return len(self._rb_x)
+
+    def add_rigid_body(self, x, q=(1.0, 0.0, 0.0, 0.0), mass=1.0,
+                       inertia=(1.0, 1.0, 1.0), velocity=(0.0, 0.0, 0.0),
+                       omega=(0.0, 0.0, 0.0)) -> int:
+        """One rigid body with explicit mass and body-frame diagonal
+        inertia (``RigidBody::initBody``, ``Simulation/RigidBody.h:87-151``);
+        ``mass == 0`` makes it static. Returns the body index."""
+        self._rb_x.append(np.asarray(x, np.float64))
+        qn = np.asarray(q, np.float64)
+        self._rb_q.append(qn / max(np.linalg.norm(qn), 1e-300))
+        self._rb_v.append(np.asarray(velocity, np.float64))
+        self._rb_omega.append(np.asarray(omega, np.float64))
+        self._rb_mass.append(float(mass))
+        self._rb_inertia.append(np.asarray(inertia, np.float64))
+        return len(self._rb_x) - 1
+
+    def add_rigid_body_from_mesh(self, vertices, faces, density=1.0,
+                                 translation=(0.0, 0.0, 0.0),
+                                 q=(1.0, 0.0, 0.0, 0.0),
+                                 scale=(1.0, 1.0, 1.0),
+                                 is_dynamic=True,
+                                 velocity=(0.0, 0.0, 0.0),
+                                 omega=(0.0, 0.0, 0.0)) -> int:
+        """A rigid body whose mass, centre of mass and inertia come from its
+        closed triangle mesh at ``density`` (``RigidBody::initBody(density,
+        …)`` + ``determineMassProperties``, ``Simulation/RigidBody.h:122-151,
+        211-260``), its state re-expressed in the principal frame about the
+        centre of mass as the reference does. The scaled mesh frame is kept
+        in ``_rb_mesh_frames`` for the collision shapes of slice 6b."""
+        verts = np.asarray(vertices, np.float64) * np.asarray(scale,
+                                                              np.float64)
+        mass, com, inertia = mass_properties(verts, faces, density)
+        eigs, rd = principal_frame(inertia)
+        qn = np.asarray(q, np.float64)
+        qn = qn / max(np.linalg.norm(qn), 1e-300)
+        r0 = npquat.to_matrix(qn)
+        world_com = r0 @ com + np.asarray(translation, np.float64)
+        body = self.add_rigid_body(
+            world_com, q=npquat.from_matrix(r0 @ rd),
+            mass=(float(mass) if is_dynamic else 0.0),
+            inertia=eigs, velocity=velocity, omega=omega)
+        self._rb_mesh_frames[body] = dict(
+            # body (principal, centre-of-mass) frame -> scaled mesh frame:
+            # p_mesh = rd @ p_body + com
+            frame_rot=rd.astype(np.float32), frame_t=com.astype(np.float32),
+            verts=((verts - com) @ rd).astype(np.float32),
+            faces=np.asarray(faces, np.int32))
+        return body
+
+    def _add_joint(self, kind, rb0, rb1, **params):
+        self._joints.append(dict(kind=kind, bodies=(int(rb0), int(rb1)),
+                                 **params))
+
+    def add_ball_joint(self, rb0, rb1, pos):
+        self._add_joint("ball", rb0, rb1,
+                        positions=np.asarray(pos, np.float64))
+
+    def add_ball_on_line_joint(self, rb0, rb1, pos, direction):
+        self._add_joint("ball_on_line", rb0, rb1,
+                        positions=np.asarray(pos, np.float64),
+                        directions=np.asarray(direction, np.float64))
+
+    def add_hinge_joint(self, rb0, rb1, pos, axis):
+        self._add_joint("hinge", rb0, rb1,
+                        positions=np.asarray(pos, np.float64),
+                        directions=np.asarray(axis, np.float64))
+
+    def add_universal_joint(self, rb0, rb1, pos, axis0, axis1):
+        self._add_joint("universal", rb0, rb1,
+                        positions=np.asarray(pos, np.float64),
+                        directions=np.asarray(axis0, np.float64),
+                        directions1=np.asarray(axis1, np.float64))
+
+    def add_slider_joint(self, rb0, rb1, axis):
+        self._add_joint("slider", rb0, rb1,
+                        directions=np.asarray(axis, np.float64))
+
+    def _add_motor(self, kind, rb0, rb1, axis, target, sequence, repeat,
+                   pos=None):
+        """A motor joint; ``sequence`` is the reference's flat [t0, v0, t1,
+        v1, …] target sequence (``MotorJoint::setTargetSequence``)."""
+        params = dict(directions=np.asarray(axis, np.float64),
+                      target=float(target), sequence=sequence,
+                      repeat=bool(repeat))
+        if pos is not None:
+            params["positions"] = np.asarray(pos, np.float64)
+        self._add_joint(kind, rb0, rb1, **params)
+
+    def add_target_position_motor_slider_joint(self, rb0, rb1, axis,
+                                               target=0.0, sequence=None,
+                                               repeat=False):
+        self._add_motor("target_position_motor_slider", rb0, rb1, axis,
+                        target, sequence, repeat)
+
+    def add_target_velocity_motor_slider_joint(self, rb0, rb1, axis,
+                                               target=0.0, sequence=None,
+                                               repeat=False):
+        self._add_motor("target_velocity_motor_slider", rb0, rb1, axis,
+                        target, sequence, repeat)
+
+    def add_target_angle_motor_hinge_joint(self, rb0, rb1, pos, axis,
+                                           target=0.0, sequence=None,
+                                           repeat=False):
+        self._add_motor("target_angle_motor_hinge", rb0, rb1, axis, target,
+                        sequence, repeat, pos=pos)
+
+    def add_target_velocity_motor_hinge_joint(self, rb0, rb1, pos, axis,
+                                              target=0.0, sequence=None,
+                                              repeat=False):
+        self._add_motor("target_velocity_motor_hinge", rb0, rb1, axis,
+                        target, sequence, repeat, pos=pos)
+
+    def add_damper_joint(self, rb0, rb1, axis, stiffness):
+        self._add_joint("damper", rb0, rb1,
+                        directions=np.asarray(axis, np.float64),
+                        stiffness=float(stiffness))
+
+    def add_rigid_distance_joint(self, rb0, rb1, pos0, pos1):
+        self._add_joint("distance", rb0, rb1,
+                        positions=np.asarray(pos0, np.float64),
+                        positions1=np.asarray(pos1, np.float64),
+                        stiffness=0.0)
+
+    def add_rigid_body_spring(self, rb0, rb1, pos0, pos1, stiffness):
+        """XPBD spring between two anchors (``RigidBodySpring``: the
+        distance joint's solve with compliance)."""
+        self._add_joint("distance", rb0, rb1,
+                        positions=np.asarray(pos0, np.float64),
+                        positions1=np.asarray(pos1, np.float64),
+                        stiffness=float(stiffness))
+
+    def add_rigid_body_particle_ball_joint(self, rb, particle):
+        self._add_joint("rb_particle_ball", rb, particle)
+
+    def add_stretch_bending_twisting_constraint(self, rb0, rb1, pos,
+                                                average_radius,
+                                                average_segment_length,
+                                                youngs_modulus,
+                                                torsion_modulus):
+        """Iterative 6D-XPBD zero-stretch and bend/twist joint between two
+        rod-segment bodies (``addStretchBendingTwistingConstraint``;
+        ``PositionBasedElasticRods.cpp:1136-1363``)."""
+        self._add_joint(
+            "stretch_bending_twisting", rb0, rb1,
+            positions=np.asarray(pos, np.float64),
+            rest=float(average_segment_length),
+            directions=np.asarray(
+                [average_radius, youngs_modulus, torsion_modulus],
+                np.float64))
+
+    # ---- per-constraint adders -------------------------------------------
 
     def add_distance_constraint(self, i, j, stiffness=1.0, xpbd=False):
         idx = _chunk2(i, j)
@@ -528,6 +690,68 @@ class SceneBuilder:
         return batch.finalize(np.where(m > 0.0, 1.0 / np.maximum(m, 1e-30),
                                        0.0))
 
+    def _build_rigid(self, dev) -> Optional[RigidState]:
+        """The rigid bodies' state (``builders.py:1095-1112``)."""
+        if not self._rb_x:
+            return None
+        state = RigidState.create(np.stack(self._rb_x), np.stack(self._rb_q),
+                                  np.asarray(self._rb_mass),
+                                  np.stack(self._rb_inertia), device=dev)
+        v, om = np.stack(self._rb_v), np.stack(self._rb_omega)
+        if np.any(v) or np.any(om):
+            state = dataclasses.replace(
+                state, v=torch.tensor(v, dtype=torch.float32, device=dev),
+                omega=torch.tensor(om, dtype=torch.float32, device=dev))
+        return state
+
+    def _build_joints(self, x, dev) -> Tuple:
+        """The joints grouped by kind into ``JointBatch``-es, in first-use
+        order (``builders.py:1114-1183``). The colouring's conflict ids give
+        each static body's use an id of its own (a static body is never
+        written, so two joints on it do not conflict) and shift particle
+        ids past the bodies'."""
+        if not self._joints:
+            return ()
+        rx, rq = np.stack(self._rb_x), np.stack(self._rb_q)
+        masses = np.asarray(self._rb_mass)
+        n_rb = len(masses)
+        uid = n_rb + max(self._n, 1)
+        kinds: List[str] = []
+        for j in self._joints:
+            if j["kind"] not in kinds:
+                kinds.append(j["kind"])
+        batches = []
+        for kind in kinds:
+            js = [j for j in self._joints if j["kind"] == kind]
+            bodies = np.array([j["bodies"] for j in js], np.int32)
+            conflict = bodies.astype(np.int64).copy()
+            for r in range(len(js)):
+                if kind == "rb_particle_ball":
+                    conflict[r, 1] += n_rb
+                    cols = (0,)
+                else:
+                    cols = (0, 1)
+                for col in cols:
+                    if masses[bodies[r, col]] == 0.0:
+                        conflict[r, col] = uid
+                        uid += 1
+            kwargs = {}
+            for name in ("positions", "positions1", "directions",
+                         "directions1"):
+                if name in js[0]:
+                    kwargs[name] = np.stack([j[name] for j in js])
+            for name in ("stiffness", "rest", "target"):
+                if name in js[0]:
+                    kwargs[name] = np.array([j[name] for j in js],
+                                            np.float64)
+            if "target" in js[0]:
+                kwargs.update(_sequences(js))
+            if kind == "rb_particle_ball":
+                kwargs["particle_x"] = x
+            batches.append(make_joint_batch(kind, bodies, conflict, rx, rq,
+                                            device=dev, **kwargs))
+        return tuple(batches)
+
     def build(self, device=None) -> Tuple[SimState, ConstraintSet]:
         dev = resolve_device(device)
         x = (np.concatenate(self._x, axis=0)
@@ -564,10 +788,40 @@ class SceneBuilder:
                 xpbd_distance=dist is not None and dist[0] == 4,
                 xpbd_bending=bend is not None and bend[0] == 3,
                 device=dev))
+        rigid = self._build_rigid(dev)
         cset = ConstraintSet(grid_cloths=tuple(gcs), n_particles=len(x),
-                             grid_tets=tuple(gts), **kw)
-        return (SimState.create(particles),
+                             grid_tets=tuple(gts),
+                             n_rigid=None if rigid is None else rigid.n,
+                             joints=self._build_joints(x, dev), **kw)
+        return (SimState.create(particles, rigid=rigid),
                 cset.with_jacobi_counts(len(x)))
+
+
+def _sequences(js) -> dict:
+    """The motor joints' target sequences as ``seq_times``,
+    ``seq_values`` ``(C, S)`` and ``seq_repeat``, each padded to the
+    longest with its last knot repeated; a joint without a sequence holds
+    its static target (``builders.py:1151-1177``). Empty when no joint has
+    a sequence."""
+    seqs = [j.get("sequence") for j in js]
+    if all(s is None for s in seqs):
+        return {}
+    ts, vs = [], []
+    for s, j in zip(seqs, js):
+        if s is None:
+            ts.append(np.zeros((1,)))
+            vs.append(np.full((1,), j["target"]))
+        else:
+            arr = np.asarray(s, np.float64).reshape(-1, 2)
+            ts.append(arr[:, 0])
+            vs.append(arr[:, 1])
+    smax = max(len(t) for t in ts)
+    return dict(
+        seq_times=np.stack([np.pad(t, (0, smax - len(t)), mode="edge")
+                            for t in ts]),
+        seq_values=np.stack([np.pad(v, (0, smax - len(v)), mode="edge")
+                             for v in vs]),
+        seq_repeat=np.array([bool(j.get("repeat", False)) for j in js]))
 
 
 def _unported(name: str, where: str):

@@ -9,16 +9,18 @@ A control model is a small frozen object with ``u_dim`` and
   (``inv_mass == 0`` items are skipped by the integrator,
   ``ops/integration.py``, so their positions advance only here). This is
   the "drag the cloth corner" actuator.
-* :class:`RigidWrenchControl` — force and torque on rigid bodies, which
-  come with the rigid-body slice (6a) of the port.
+* :class:`RigidWrenchControl` — external force and torque on rigid
+  bodies, read by the substep integration through
+  ``RigidState.ext_force`` / ``ext_torque`` (``solver/step.py``).
 
 JAX vmaps a control model over the K sampled sequences; here ``u`` may
 carry the leading rollout axis itself, ``(K, u_dim)``, against a state of
-``(K, N, 3)`` positions.
+``(K, N, 3)`` positions and ``(K, R, 3)`` bodies.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 
@@ -27,6 +29,12 @@ import torch
 from ..solver.grid_cloth import _sqrt
 
 Tensor = torch.Tensor
+
+
+@functools.lru_cache(maxsize=None)
+def _indices(indices: tuple, device: torch.device) -> Tensor:
+    """``indices`` as a long tensor on ``device``, made once."""
+    return torch.as_tensor(indices, dtype=torch.int64, device=device)
 
 
 @dataclass(frozen=True)
@@ -53,8 +61,7 @@ class PinVelocityControl:
                           + vel[..., 2:3] * vel[..., 2:3])
             vel = vel * torch.clamp_max(
                 self.max_speed / torch.clamp_min(speed, 1e-9), 1.0)
-        idx = torch.as_tensor(self.indices, dtype=torch.int64,
-                              device=p.x.device)
+        idx = _indices(tuple(self.indices), p.x.device)
         delta = (vel * dt).expand(*p.x.shape[:-2], len(self.indices), 3)
         x = p.x.index_add(p.x.dim() - 2, idx, delta)
         return dataclasses.replace(
@@ -63,13 +70,30 @@ class PinVelocityControl:
 
 @dataclass(frozen=True)
 class RigidWrenchControl:
-    """u = stacked (6,) [force, torque] per controlled rigid body. Rigid
-    bodies come with slice 6a of the port; building one raises."""
+    """u = stacked (6,) [force, torque] per controlled rigid body, each
+    component clipped to ``±max_force`` when finite (``controls.py:49-69``);
+    every other body's external force and torque are zero."""
 
     body_indices: tuple
     max_force: float = math.inf
 
-    def __post_init__(self):
-        raise NotImplementedError(
-            "RigidWrenchControl drives rigid bodies, which come with the "
-            "rigid-body slice (6a) of the port")
+    @property
+    def u_dim(self) -> int:
+        return 6 * len(self.body_indices)
+
+    def apply(self, state, u: Tensor, dt):
+        """``u``: ``(u_dim,)``, or ``(K, u_dim)`` for a state of K
+        rollouts."""
+        r = state.rigid
+        nb = len(self.body_indices)
+        w = u.reshape(*u.shape[:-1], nb, 6)
+        if math.isfinite(self.max_force):
+            w = torch.clamp(w, -self.max_force, self.max_force)
+        idx = _indices(tuple(self.body_indices), r.x.device)
+        lead = torch.broadcast_shapes(r.x.shape[:-2], w.shape[:-2])
+        zeros = torch.zeros(lead + r.x.shape[-2:], dtype=r.x.dtype,
+                            device=r.x.device)
+        f = zeros.index_copy(-2, idx, w[..., :3].expand(lead + (nb, 3)))
+        t = zeros.index_copy(-2, idx, w[..., 3:].expand(lead + (nb, 3)))
+        return dataclasses.replace(
+            state, rigid=dataclasses.replace(r, ext_force=f, ext_torque=t))

@@ -12,9 +12,8 @@ any leading rollout axis: it returns a 0-d tensor for one state and a
 ``u`` of shape ``(K, u_dim)``). JAX gets the same by vmapping the scalar
 terms over K.
 
-The rigid-body target waits for the rigid-body slice (6a), and the SDF
-obstacle penalties for the collision slice (6b), which brings
-``collision/sdf.py``'s ``SDFShape``; building one of them raises.
+The SDF obstacle penalties wait for the collision slice (6b), which
+brings ``collision/sdf.py``'s ``SDFShape``; building one of them raises.
 """
 from __future__ import annotations
 
@@ -65,11 +64,19 @@ def particle_target(indices, target, weight: float = 1.0) -> Callable:
 
 
 def rigid_target(body_index: int, target, weight: float = 1.0) -> Callable:
-    """Squared distance of one rigid body's COM to ``target`` — needs the
-    rigid-body slice (6a)."""
-    raise NotImplementedError(
-        "rigid_target reads rigid bodies, which come with the rigid-body "
-        "slice (6a) of the port")
+    """Squared distance of one rigid body's centre of mass to ``target``
+    ``(3,)`` (``costs.py:56-64``). Terminal signature ``state -> cost``."""
+    tgt = torch.as_tensor(target, dtype=torch.float32)
+    on_device = {}
+
+    def cost(state):
+        x = state.rigid.x
+        if x.device not in on_device:
+            on_device[x.device] = tgt.to(x.device)
+        d = x[..., body_index, :] - on_device[x.device]
+        return weight * _sum3(d * d)
+
+    return cost
 
 
 def velocity_penalty(weight: float = 1.0) -> Callable:

@@ -14,7 +14,9 @@ the counterpart of ``positionbaseddynamics_tpu/mpc/planners.py``.
 JAX vmaps the sequence cost over the K samples; a kernel launch cannot be
 vmapped, so here the K rollouts are a leading axis of the state: ``x``,
 ``v``, ``old_x`` and ``last_x`` are ``(K, N, 3)``, ``inv_mass`` stays
-``(N,)`` and is shared. On the card a grid-cloth scene then steps through
+``(N,)`` and is shared; rigid bodies likewise carry ``(K, R, ...)`` fields
+with ``inv_mass`` and ``inertia0`` shared, and step through the
+``torch_rigid`` route. On the card a grid-cloth scene steps through
 ``make_step_fn``'s kernel route, one launch of the fused cloth substep
 (``csrc/grid_cloth_step.cu``) per substep for all K rollouts; on the CPU
 through the stencil route. JAX's ``lax.scan`` loops are Python loops.
@@ -38,7 +40,7 @@ import torch
 from .._device import resolve_device
 from ..solver.constraints import ConstraintSet
 from ..solver.state import ParticleState, SimState
-from ..solver.step import StepConfig, make_step_fn
+from ..solver.step import StepConfig, _no_pipeline, make_step_fn
 
 Tensor = torch.Tensor
 
@@ -62,11 +64,18 @@ class CEMConfig:
     plan_iters: int = 3
 
 
+#: The rigid-body fields that differ between rollouts; ``inv_mass``,
+#: ``inertia0``, ``x0`` and ``q0`` stay shared.
+_RIGID_ROLLOUT_FIELDS = ("x", "v", "q", "omega", "old_x", "last_x", "old_q",
+                         "last_q", "ext_force", "ext_torque")
+
+
 def _expand_state(state: SimState, k: int) -> SimState:
-    """``state`` of one scene as K identical rollouts: ``x``, ``v``,
-    ``old_x`` and ``last_x`` become real ``(K, N, 3)`` storage, written
-    once here, since the kernel route reads contiguous planes; ``x0`` and
-    ``inv_mass`` stay shared."""
+    """``state`` of one scene as K identical rollouts: the particles' ``x``,
+    ``v``, ``old_x`` and ``last_x`` and the rigid bodies' per-rollout
+    fields become real ``(K, ...)`` storage, written once here, since the
+    kernel route reads contiguous planes; ``x0``, ``inv_mass`` and the
+    bodies' ``inertia0`` and ``q0`` stay shared."""
     p = state.particles
 
     def lead(a):
@@ -75,14 +84,11 @@ def _expand_state(state: SimState, k: int) -> SimState:
     particles = ParticleState(x=lead(p.x), v=lead(p.v), old_x=lead(p.old_x),
                               last_x=lead(p.last_x), x0=p.x0,
                               inv_mass=p.inv_mass)
-    return dataclasses.replace(state, particles=particles)
-
-
-def _no_pipeline(pipeline):
-    if pipeline is not None:
-        raise NotImplementedError(
-            "a collision pipeline steps rigid bodies and contacts, which "
-            "come with the rigid-body slice (6a) of the port")
+    rigid = state.rigid
+    if rigid is not None:
+        rigid = dataclasses.replace(rigid, **{
+            f: lead(getattr(rigid, f)) for f in _RIGID_ROLLOUT_FIELDS})
+    return dataclasses.replace(state, particles=particles, rigid=rigid)
 
 
 def make_sequence_cost(cset: ConstraintSet, cfg: StepConfig, control_model,

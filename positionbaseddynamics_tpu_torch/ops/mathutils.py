@@ -1,12 +1,12 @@
 """Small dense-math helpers shared by the constraint solvers.
 
-Port of ``positionbaseddynamics_tpu/ops/mathutils.py`` except
-``extract_rotation``, which needs the quaternion ops of the rigid-body
-slice (6a): the degeneracy threshold, the guarded reciprocal, the
+Port of ``positionbaseddynamics_tpu/ops/mathutils.py``: the degeneracy
+threshold, the guarded reciprocal, the
 cotangent, the unrolled 3×3 products, determinant and inverse, the
 signed SVD with inversion handling in both of its forms (LAPACK on the
 CPU, the scalar Jacobi eigendecomposition on CUDA, chosen by the tensor's
-device as JAX chooses by its backend), and the polar decompositions.
+device as JAX chooses by its backend), the polar decompositions, and the
+quaternion rotation extraction.
 
 Vectors are ``(..., 3)`` and matrices ``(..., 3, 3)`` tensors; every
 function broadcasts over the leading axes where the JAX function is
@@ -50,6 +50,16 @@ def cross3(a: Tensor, b: Tensor) -> Tensor:
     b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
     return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
                         a0 * b1 - a1 * b0], dim=-1)
+
+
+def cross(a: Tensor, b: Tensor) -> Tensor:
+    """``a × b`` over the trailing axis of 3 in one launch, the operands
+    broadcast first (some PyTorch releases' ``linalg.cross`` wants equal
+    shapes)."""
+    if a.shape != b.shape:
+        shape = torch.broadcast_shapes(a.shape, b.shape)
+        a, b = a.expand(shape), b.expand(shape)
+    return torch.linalg.cross(a, b)
 
 
 def norm3(a: Tensor) -> Tensor:
@@ -306,3 +316,25 @@ def polar_decomposition(a: Tensor):
     (``mathutils.py:293-302``). Returns ``(R, S)``."""
     u, s, vt = svd_inversion_handling(a)
     return mm3(u, vt), mm3_tn(vt, s[..., :, None] * vt)
+
+
+def extract_rotation(a: Tensor, q0: Tensor, iterations: int = 10) -> Tensor:
+    """Rotation of ``a (..., 3, 3)`` by Müller et al.'s iteration (2016),
+    warm-started from the quaternion ``q0 (..., 4)``
+    (``MathFunctions::extractRotation``, ``mathutils.py:304-331``): each of
+    the ``iterations`` passes turns ``q`` by ``ω = Σ rᵢ × aᵢ / (|Σ rᵢ·aᵢ| +
+    1e-9)`` over the columns. Returns the unit quaternion."""
+    from . import quaternion as quat
+
+    q = q0
+    for _ in range(iterations):
+        r = quat.to_matrix(q)
+        cols = [(r[..., :, i], a[..., :, i]) for i in range(3)]
+        num = _sum3([cross3(ri, ai) for ri, ai in cols])
+        den = torch.abs(_sum3([dot3(ri, ai) for ri, ai in cols])) + 1e-9
+        omega = num / den[..., None]
+        angle = norm3(omega)
+        axis = omega * safe_inv(torch.clamp_min(angle, 1e-12))[..., None]
+        q = quat.normalize(quat.multiply(quat.from_axis_angle(axis, angle),
+                                         q))
+    return q

@@ -1,9 +1,7 @@
 """Classic PBD constraint kernels (stiffness ∈ [0, 1], no Lagrange
 multiplier).
 
-Port of ``positionbaseddynamics_tpu/ops/pbd.py`` except
-``solve_shape_matching``, which extracts its rotation through quaternions
-and comes with the rigid-body slice (6a). The JAX functions solve one
+Port of ``positionbaseddynamics_tpu/ops/pbd.py``. The JAX functions solve one
 constraint and are ``vmap``-ed; these take any leading batch shape
 instead: points ``(..., 3)``, weights and parameters ``(...)``, matrices
 ``(..., n, n)``. The reference's early-outs are ``torch.where`` masks that
@@ -14,8 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from .mathutils import (EPS, cross3, dot3, norm3, polar_decomposition_stable,
-                        safe_inv, sqrt_rn)
+from .mathutils import (EPS, cross3, dot3, extract_rotation, norm3,
+                        polar_decomposition_stable, safe_inv, sqrt_rn)
 
 Tensor = torch.Tensor
 
@@ -312,6 +310,31 @@ def solve_shape_matching_cluster(x, x0, w, rest_cm, stiffness, mask):
     r = polar_decomposition_stable(a_pq)
     goal = cm[..., None, :] + torch.matmul(q0c, r.transpose(-1, -2))
     return mask[..., None] * stiffness[..., None, None] * (goal - x)
+
+
+def solve_shape_matching(x, x0, w, rest_cm, inv_rest_mat_unused, stiffness,
+                         q_prev):
+    """Cluster shape matching through the quaternion rotation extraction
+    (``solve_ShapeMatchingConstraint``, ``PositionBasedDynamics.cpp:501+``;
+    ``pbd.py:297-326``): masses ``1/w`` of the dynamic members, goal ``g =
+    cm + R(x0 − cm0)`` with ``R`` from :func:`extract_rotation` warm-started
+    at ``q_prev``, correction ``k(g − x)`` on dynamic members. ``x, x0 (...,
+    K, 3)``, ``w (..., K)``, ``rest_cm (..., 3)``, ``stiffness (...)``,
+    ``q_prev (..., 4)``. Returns ``(corr (..., K, 3), q_new (..., 4))``."""
+    from . import quaternion as quat
+
+    mass = torch.where(w > 0.0, 1.0 / torch.clamp_min(w, 1e-12),
+                       _zero(w))
+    cm = (mass[..., None] * x).sum(dim=-2) * _v(safe_inv(mass.sum(dim=-1)))
+    p = x - cm[..., None, :]
+    q0c = x0 - rest_cm[..., None, :]
+    a_pq = torch.einsum("...k,...ki,...kj->...ij", mass, p, q0c)
+    q_new = extract_rotation(a_pq, q_prev, iterations=10)
+    r = quat.to_matrix(q_new)
+    goal = cm[..., None, :] + torch.matmul(q0c, r.transpose(-1, -2))
+    corr = torch.where((w > 0.0)[..., None],
+                       _v(_v(stiffness)) * (goal - x), _zero(x))
+    return corr, q_new
 
 
 def _stiffness_for(c, compression_stiffness, stretch_stiffness):

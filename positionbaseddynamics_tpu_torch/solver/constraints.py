@@ -14,8 +14,10 @@ solved one after another, each colour free of shared particles.
 Ported: the nine particle batches (``:280-816``), ``scatter_add``,
 ``PARTICLE_BATCH_ORDER`` and ``ConstraintSet`` with the structured grid
 cloths and tet grids. JAX's build-time scatter plan (``make_scatter_plan``)
-was a workaround for the TPU's scatter and has no counterpart. The rod,
-ghost-rod, generic and rigid batches come with slices 6a and 7.
+was a workaround for the TPU's scatter and has no counterpart. The rigid
+joints are ``solver/joints.py``'s ``JointBatch`` (slice 6a), held in
+``ConstraintSet.joints``; the rod, ghost-rod and generic batches, the
+stiff rods and ``GenericRigidBatch`` come with slice 7.
 
 XPBD multipliers λ live in a per-batch tensor created at the start of
 every projection, the reference's reset at iteration 0
@@ -685,7 +687,13 @@ class ConstraintSet:
     (``solver/grid_cloth.py``, ``solver/grid_tet.py``), then the particle
     families in :data:`PARTICLE_BATCH_ORDER`, then ``extra_batches`` (the
     second batch of a family whose constraints mix XPBD and classic, or
-    strain flags, named ``extra{i}``). ``n_particles`` is the scene's
+    strain flags, named ``extra{i}``), then the rigid-body ``joints``
+    (``solver/joints.py``, one ``JointBatch`` a kind; ``constraints.py:
+    1174``). ``direct_rods`` and ``rigid_generics`` (the stiff rods and the
+    user-defined rigid constraints) come with slice 7: a set that holds
+    either raises. ``n_rigid`` is the scene's rigid-body count (set by the
+    builder; a scene with rigid bodies takes the ``torch_rigid`` route
+    even without joints). ``n_particles`` is the scene's
     particle count (set by the builder); ``jacobi_inv_counts`` holds the
     build-time 1/#constraints column of each family
     (:meth:`with_jacobi_counts`)."""
@@ -693,6 +701,7 @@ class ConstraintSet:
     grid_cloths: Tuple = ()
     n_particles: Optional[int] = None
     grid_tets: Tuple = ()
+    n_rigid: Optional[int] = None
     distance: Optional[DistanceBatch] = None
     fem_triangle: Optional[FEMTriangleBatch] = None
     strain_triangle: Optional[StrainTriangleBatch] = None
@@ -704,6 +713,16 @@ class ConstraintSet:
     isometric_bending: Optional[IsometricBendingBatch] = None
     extra_batches: Tuple = ()
     jacobi_inv_counts: dict = field(default_factory=dict)
+    joints: Tuple = ()
+    direct_rods: Tuple = ()
+    rigid_generics: Tuple = ()
+
+    def __post_init__(self):
+        for name in ("direct_rods", "rigid_generics"):
+            if getattr(self, name):
+                raise NotImplementedError(
+                    f"ConstraintSet.{name} comes with slice 7 (rods and "
+                    "generic constraints) of the port")
 
     def particle_batches(self):
         """``[(name, batch)]`` in solve order (``constraints.py:
@@ -742,7 +761,8 @@ class ConstraintSet:
     @property
     def device(self) -> Optional[torch.device]:
         batches = (self.grid_cloths + self.grid_tets
-                   + tuple(b for _, b in self.particle_batches()))
+                   + tuple(b for _, b in self.particle_batches())
+                   + self.joints)
         return batches[0].device if batches else None
 
     def to(self, device) -> "ConstraintSet":
@@ -754,6 +774,7 @@ class ConstraintSet:
             self, grid_cloths=tuple(gc.to(device) for gc in self.grid_cloths),
             grid_tets=tuple(gt.to(device) for gt in self.grid_tets),
             extra_batches=tuple(b.to(device) for b in self.extra_batches),
+            joints=tuple(j.to(device) for j in self.joints),
             jacobi_inv_counts={k: v.to(device) for k, v in
                                self.jacobi_inv_counts.items()},
             **moved)

@@ -1,20 +1,22 @@
 """The time stepper — port of ``positionbaseddynamics_tpu/solver/step.py``,
-particle path.
+particles and rigid bodies.
 
-Per sim step: ``substeps`` × {integrate → position-constraint projection →
-velocity update → damping} (``TimeStepController.cpp:93-173``), then the
-time advances by ``dt``. The velocity-level projection of the JAX stepper
-does nothing without rigid bodies (``step.py:480-481``), so the particle
-path has none; orientations, rigid bodies, joints and contacts come with
-later slices of the port.
+Per sim step: ``substeps`` × {integrate particles and rigid bodies →
+position-constraint projection → velocity update → damping}
+(``TimeStepController.cpp:93-173``), then the velocity-level projection of
+the velocity-motor joints (``velocity_constraint_projection``,
+``TimeStepController.cpp:298-357``), then the time advances by ``dt``.
+Orientation particles (slice 7) and the collision pipeline with its
+contacts (slice 6b) come with later slices and raise.
 
-Three routes run the substeps, chosen once from the scene and the
+Four routes run the substeps, chosen once from the scene and the
 configuration:
 
 * ``"cuda_kernel"``: the fused kernel of the scene's one grid, on a CUDA
   device, in Jacobi mode with ``jacobi_omega = 1`` and the first-order
   velocity update, when that grid covers every particle and the scene has
-  no particle batch — either one grid cloth with uniform XPBD parameters
+  no particle batch and no rigid body — either one grid cloth with uniform
+  XPBD parameters
   (``grid_cloth_cuda.py``, one launch per substep) or one tet grid
   without ``inversion_handling`` (``grid_tet_cuda.py``, one launch per
   iteration of each substep);
@@ -22,10 +24,16 @@ configuration:
   (``solver/constraints.py``): per family a gather, the batched op of
   ``ops/`` and an ``index_add_`` scatter, after the grid families, as the
   JAX package computes it in XLA (``step.py:153-176``);
+* ``"torch_rigid"``: a scene with rigid bodies or joints: the rigid
+  integration, and after the particle families each joint batch
+  (``solver/joints.py``) gathered, solved in one batched 6×6 system a
+  joint and scattered with ``index_add_``, colour by colour in
+  ``joint_solver_mode="gauss_seidel"`` (``step.py:229-280``), as the JAX
+  package computes it in XLA; its grid families take the stencil ops;
 * ``"torch_stencil"``: the PyTorch stencil ops of ``grid_cloth.py`` and
   ``grid_tet.py`` for every other configuration.
 
-The last two run on any device.
+The last three run on any device.
 """
 from __future__ import annotations
 
@@ -37,17 +45,25 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from .._device import resolve_device
-from ..ops import integration
+from ..ops import integration, quaternion as quat
 from . import grid_cloth_cuda as gcc
 from . import grid_tet_cuda as gtc
 from .constraints import ConstraintSet, _index_add
-from .state import SimState
+from .state import RigidState, SimState
 
 Tensor = torch.Tensor
 
 PATH_KERNEL = "cuda_kernel"
 PATH_STENCIL = "torch_stencil"
 PATH_UNSTRUCTURED = "torch_unstructured"
+PATH_RIGID = "torch_rigid"
+
+
+def _no_pipeline(pipeline):
+    if pipeline is not None:
+        raise NotImplementedError(
+            "a collision pipeline (contacts, SDF colliders, particle-tet "
+            "contacts) comes with the collision slice (6b) of the port")
 
 
 @dataclass(frozen=True)
@@ -147,16 +163,101 @@ def _rows(corr: Tensor) -> Tensor:
     return corr.reshape(*corr.shape[:-3], -1, corr.shape[-1])
 
 
+def _masked_inv_diag(inertia0: Tensor, inv_mass: Tensor) -> Tensor:
+    """``1/I₀`` of the dynamic bodies, 0 for static ones and for a zero
+    moment, ``(R, 3)``."""
+    inv_diag = torch.where(inertia0 > 0.0,
+                           1.0 / torch.clamp_min(inertia0, 1e-30),
+                           torch.zeros_like(inertia0))
+    return inv_diag * (inv_mass > 0.0)[..., None]
+
+
+def _world_inverse(rq: Tensor, inv_diag: Tensor) -> Tensor:
+    """``R diag(inv_diag) Rᵀ`` of the rotations ``rq``."""
+    r = quat.to_matrix(rq)
+    return torch.matmul(r * inv_diag[..., None, :], r.transpose(-1, -2))
+
+
+def _masked_inv_inertia_w(rq: Tensor, inertia0: Tensor,
+                          inv_mass: Tensor) -> Tensor:
+    """World inverse inertia ``R diag(1/I₀) Rᵀ``, zero for static bodies
+    (the reference adds K blocks only where ``invMass != 0``;
+    ``step.py:229-235``). Masking the diagonal first gives the same
+    numbers as masking the product."""
+    return _world_inverse(rq, _masked_inv_diag(inertia0, inv_mass))
+
+
+def _apply_joint_position(rx, rq, px, jb, corr_x, corr_q, factor=None):
+    """Joint corrections added to the bodies (and, for
+    ``rb_particle_ball``, the particles), then every rotation renormalised
+    (``step.py:238-253``). ``factor`` (``(C, 1, 1)``) keeps one colour's
+    rows. Each correction is added into the array: in Gauss-Seidel a
+    colour moves a body by one row at most (its other rows add exact
+    zeros), which equals JAX's adding the summed corrections; in Jacobi
+    the two orders of a body's sum may round apart."""
+    if factor is not None:
+        corr_x = corr_x * factor
+        corr_q = corr_q * factor
+    if jb.couples_particles:
+        rx = rx.index_add(-2, jb._b0, corr_x[..., 0, :])
+        rq = rq.index_add(-2, jb._b0, corr_q[..., 0, :])
+        if px is not None:
+            px = px.index_add(-2, jb._b1, corr_x[..., 1, :])
+    else:
+        flat = jb.bodies.reshape(-1)
+        rx = rx.index_add(-2, flat, _rows(corr_x))
+        rq = rq.index_add(-2, flat, _rows(corr_q))
+    return rx, quat.normalize(rq), px
+
+
+def _project_joints(rx, rq, rigid: RigidState, px, p_inv_mass,
+                    cset: ConstraintSet, lams, time, dt, cfg: StepConfig):
+    """One pass over every joint batch at position level
+    (``step.py:256-280``). The masked world inverse inertia follows the
+    current rotations before every solve (the reference's
+    ``rotationUpdated``). Gauss-Seidel solves the whole batch once a colour
+    and keeps that colour's rows, as JAX does."""
+    inv_diag = _masked_inv_diag(rigid.inertia0, rigid.inv_mass)
+    for k, jb in enumerate(cset.joints):
+        key = f"joint{k}"
+        if cfg.joint_solver_mode == "gauss_seidel":
+            for sel, factor in zip(jb.color_masks, jb._color_factors):
+                iw = _world_inverse(rq, inv_diag)
+                corr_x, corr_q, new_lam = jb.solve_position(
+                    rx, rq, rigid.inv_mass, iw, time, dt, lams[key],
+                    px=px, pw=p_inv_mass)
+                lams[key] = torch.where(sel[:, None], new_lam, lams[key])
+                rx, rq, px = _apply_joint_position(
+                    rx, rq, px, jb, corr_x, corr_q, factor=factor)
+        else:
+            iw = _world_inverse(rq, inv_diag)
+            corr_x, corr_q, lams[key] = jb.solve_position(
+                rx, rq, rigid.inv_mass, iw, time, dt, lams[key],
+                px=px, pw=p_inv_mass)
+            rx, rq, px = _apply_joint_position(rx, rq, px, jb, corr_x,
+                                               corr_q)
+    return rx, rq, px
+
+
 def project_positions(x: Tensor, inv_mass: Tensor, cset: ConstraintSet, dt,
-                      cfg: StepConfig, passes=None) -> Tensor:
-    """Position-constraint projection (``step.py:283-322``): λ starts at
+                      cfg: StepConfig, passes=None,
+                      rigid: Optional[RigidState] = None, time=None):
+    """Position-constraint projection (``step.py:283-364``): λ starts at
     zero and accumulates across the ``max_iterations`` passes; each pass
     runs the grid families (``gauss_seidel``: the lattice-coloured sweeps
-    of ``project_gs``), then the particle families. ``passes`` are
-    :func:`batch_passes`' (computed here when None)."""
+    of ``project_gs``), then the particle families, then the joints on
+    ``rigid``'s integrated bodies at the step's start ``time`` (motor
+    targets). ``passes`` are :func:`batch_passes`' (computed here when
+    None). Returns ``(x, rigid_x, rigid_q)``, the last two None without
+    rigid bodies."""
     if passes is None:
         passes = batch_passes(cset, cfg, x.shape[-2])
     lams = cset.init_lambdas()
+    rx = rq = None
+    if rigid is not None:
+        rx, rq = rigid.x, rigid.q
+        for k, jb in enumerate(cset.joints):
+            lams[f"joint{k}"] = jb.init_lambda()
     gs = cfg.solver_mode == "gauss_seidel"
     grids = ([(f"grid_cloth{i}", b) for i, b in enumerate(cset.grid_cloths)]
              + [(f"grid_tet{i}", b) for i, b in enumerate(cset.grid_tets)])
@@ -170,7 +271,10 @@ def project_positions(x: Tensor, inv_mass: Tensor, cset: ConstraintSet, dt,
         for bp in passes:
             x, lams[bp.name] = _project_particle_batch(
                 x, inv_mass, bp, lams[bp.name], dt)
-    return x
+        if rigid is not None and cset.joints:
+            rx, rq, x = _project_joints(rx, rq, rigid, x, inv_mass, cset,
+                                        lams, time, dt, cfg)
+    return x, rx, rq
 
 
 @functools.lru_cache(maxsize=None)
@@ -182,13 +286,26 @@ def _gravity(g: tuple, device: torch.device) -> Tensor:
 
 def _substep(state: SimState, cset: ConstraintSet, h, cfg: StepConfig,
              passes=None) -> SimState:
-    """One substep, particle path (``step.py:366-418``)."""
+    """One substep (``step.py:366-449``): particles and rigid bodies
+    integrated, projected, their velocities updated."""
     p = state.particles
     gravity = _gravity(tuple(cfg.gravity), p.x.device)
     last_x, old_x = p.old_x, p.x
     x, v = integration.semi_implicit_euler(
         h, p.inv_mass, p.x, p.v, gravity.expand_as(p.x))
-    x = project_positions(x, p.inv_mass, cset, h, cfg, passes)
+    r = state.rigid
+    if r is not None:
+        accel = (gravity.expand_as(r.x)
+                 + r.ext_force * r.inv_mass[..., None])
+        rx, rv = integration.semi_implicit_euler(h, r.inv_mass, r.x, r.v,
+                                                 accel)
+        iw, inv_iw = r.inertia_world()
+        inv_iw = inv_iw * (r.inv_mass > 0.0)[..., None, None]
+        rq, romega = integration.semi_implicit_euler_rotation(
+            h, r.inv_mass, iw, inv_iw, r.q, r.omega, r.ext_torque)
+        r = dataclasses.replace(r, x=rx, q=rq, v=rv, omega=romega)
+    x, rx, rq = project_positions(x, p.inv_mass, cset, h, cfg, passes,
+                                  rigid=r, time=state.time)
     if cfg.velocity_update_method == 1:
         v = integration.velocity_update_second_order(
             h, p.inv_mass, x, old_x, last_x, v)
@@ -198,7 +315,54 @@ def _substep(state: SimState, cset: ConstraintSet, h, cfg: StepConfig,
     if cfg.damping:
         v = v * (1.0 - cfg.damping)
     particles = dataclasses.replace(p, x=x, v=v, old_x=old_x, last_x=last_x)
-    return dataclasses.replace(state, particles=particles)
+    rigid = r
+    if r is not None:
+        s0 = state.rigid
+        if cfg.velocity_update_method == 1:
+            rv = integration.velocity_update_second_order(
+                h, r.inv_mass, rx, s0.x, s0.old_x, r.v)
+            romega = integration.angular_velocity_update_second_order(
+                h, r.inv_mass, rq, s0.q, s0.old_q, r.omega)
+        else:
+            rv = integration.velocity_update_first_order(
+                h, r.inv_mass, rx, s0.x, r.v)
+            romega = integration.angular_velocity_update_first_order(
+                h, r.inv_mass, rq, s0.q, r.omega)
+        rigid = dataclasses.replace(
+            r, x=rx, q=rq, v=rv, omega=romega, old_x=s0.x, last_x=s0.old_x,
+            old_q=s0.q, last_q=s0.old_q)
+    return dataclasses.replace(state, particles=particles, rigid=rigid)
+
+
+def velocity_constraint_projection(state: SimState, cset: ConstraintSet,
+                                   cfg: StepConfig,
+                                   pipeline=None) -> SimState:
+    """Velocity-level projection once a step, after the substeps
+    (``TimeStepController::velocityConstraintProjection``,
+    ``TimeStepController.cpp:298-357``; ``step.py:455-535``):
+    ``max_iterations_v`` passes over the velocity-motor joints, with the
+    masked world inverse inertia of the step's final rotations. Contacts
+    come with the collision slice (6b): a ``pipeline`` raises."""
+    _no_pipeline(pipeline)
+    r = state.rigid
+    vel_batches = [jb for jb in cset.joints if jb.has_velocity_solve]
+    if r is None or not vel_batches:
+        return state
+    rv, romega = r.v, r.omega
+    iw = _masked_inv_inertia_w(r.q, r.inertia0, r.inv_mass)
+    gs = cfg.joint_solver_mode == "gauss_seidel"
+    for _ in range(cfg.max_iterations_v):
+        for jb in vel_batches:
+            flat = jb.bodies.reshape(-1)
+            for factor in (jb._color_factors if gs else (None,)):
+                corr_v, corr_om = jb.solve_velocity(
+                    r.x, r.q, rv, romega, r.inv_mass, iw, state.time)
+                if factor is not None:
+                    corr_v, corr_om = corr_v * factor, corr_om * factor
+                rv = rv.index_add(-2, flat, _rows(corr_v))
+                romega = romega.index_add(-2, flat, _rows(corr_om))
+    return dataclasses.replace(
+        state, rigid=dataclasses.replace(r, v=rv, omega=romega))
 
 
 @dataclass(frozen=True)
@@ -255,9 +419,11 @@ def kernel_plan(cset: ConstraintSet, cfg: StepConfig
                 ) -> Optional[KernelPlan]:
     """The kernel route's plan when the scene and the configuration allow
     that route, else None (see the module docstring). A scene with any
-    particle batch never takes it: the kernels solve their grid only."""
+    particle batch, joint or rigid body never takes it: the kernels solve
+    their grid only."""
     dev = cset.device
-    if dev is None or dev.type != "cuda" or cset.particle_batches():
+    if (dev is None or dev.type != "cuda" or cset.particle_batches()
+            or cset.joints or cset.n_rigid):
         return None
     if not (cfg.solver_mode == "jacobi" and cfg.jacobi_omega == 1.0
             and cfg.velocity_update_method == 0):
@@ -292,17 +458,25 @@ def _kernel_substeps(state: SimState, plan: KernelPlan, cfg: StepConfig
 
 
 def step(state: SimState, cset: ConstraintSet, cfg: StepConfig,
-         plan: Optional[KernelPlan] = None, passes=None) -> SimState:
-    """One full sim step: ``substeps`` substeps, then ``time += dt``
-    (``step.py:538-571``). With a ``plan`` from :func:`kernel_plan` the
-    substeps run through its kernel, else through the PyTorch ops, with
-    the particle families' ``passes`` from :func:`batch_passes` (computed
-    here when None); ``make_step_fn`` and ``rollout`` compute both once."""
-    if state.orientations is not None or state.rigid is not None:
+         plan: Optional[KernelPlan] = None, passes=None,
+         pipeline=None) -> SimState:
+    """One full sim step: ``substeps`` substeps, the velocity-level
+    projection, then ``time += dt`` (``step.py:538-571``). With a ``plan``
+    from :func:`kernel_plan` the substeps run through its kernel, else
+    through the PyTorch ops, with the particle families' ``passes`` from
+    :func:`batch_passes` (computed here when None); ``make_step_fn`` and
+    ``rollout`` compute both once. A collision ``pipeline`` (slice 6b)
+    raises."""
+    _no_pipeline(pipeline)
+    if state.orientations is not None:
         raise NotImplementedError(
-            "orientations and rigid bodies come with the rod (slice 7) and "
-            "rigid-body (slice 6) slices of the port")
+            "orientation particles come with the rod slice (7) of the port")
     if plan is not None:
+        if state.rigid is not None:
+            raise ValueError(
+                "the kernel route steps particles only; a state with rigid "
+                "bodies needs a constraint set that records them (n_rigid, "
+                "as SceneBuilder and convert.scene_from_numpy set it)")
         state = _kernel_substeps(state, plan, cfg)
     else:
         if passes is None:
@@ -310,6 +484,7 @@ def step(state: SimState, cset: ConstraintSet, cfg: StepConfig,
         h = cfg.dt / cfg.substeps
         for _ in range(cfg.substeps):
             state = _substep(state, cset, h, cfg, passes)
+        state = velocity_constraint_projection(state, cset, cfg)
     return dataclasses.replace(state, time=state.time + cfg.dt)
 
 
@@ -320,13 +495,18 @@ def _route(cset: ConstraintSet, cfg: StepConfig, n: int):
     if plan is not None:
         return plan, (), PATH_KERNEL
     passes = batch_passes(cset, cfg, n)
+    if cset.joints or cset.n_rigid:
+        return None, passes, PATH_RIGID
     return None, passes, PATH_UNSTRUCTURED if passes else PATH_STENCIL
 
 
-def make_step_fn(cset: ConstraintSet, cfg: StepConfig, device=None):
+def make_step_fn(cset: ConstraintSet, cfg: StepConfig, device=None,
+                 pipeline=None):
     """``state → state`` closure over a fixed scene on ``device`` (None
     means CUDA). ``fn.path`` names the route its steps take,
-    ``"cuda_kernel"``, ``"torch_unstructured"`` or ``"torch_stencil"``."""
+    ``"cuda_kernel"``, ``"torch_rigid"``, ``"torch_unstructured"`` or
+    ``"torch_stencil"``. A collision ``pipeline`` (slice 6b) raises."""
+    _no_pipeline(pipeline)
     dev = resolve_device(device)
     if cset.device is not None and cset.device != dev:
         cset = cset.to(dev)
@@ -348,10 +528,12 @@ def make_step_fn(cset: ConstraintSet, cfg: StepConfig, device=None):
 
 
 def rollout(state: SimState, cset: ConstraintSet, cfg: StepConfig,
-            n_steps: int, collect: bool = False):
+            n_steps: int, collect: bool = False, pipeline=None):
     """Run ``n_steps`` sim steps. Returns ``(final state, trajectory)``:
     the stacked positions ``(n_steps, ..., N, 3)`` when ``collect``, else
-    None — the shape of the JAX ``rollout``'s scan result."""
+    None — the shape of the JAX ``rollout``'s scan result. A collision
+    ``pipeline`` (slice 6b) raises."""
+    _no_pipeline(pipeline)
     if state.particles.x.device.type == "cuda":
         plan, passes, _ = _route(cset, cfg, state.particles.n)
     else:

@@ -1,8 +1,9 @@
 """The port's scene builder against the JAX package's: a 33×29 cloth
 built by both gives equal arrays (atol 1e-7: both compute the build in
 float64 numpy and round once to float32), the cloth branches that take
-the particle batches build the same batches, and an unknown method
-raises NotImplementedError."""
+the particle batches build the same batches, every rigid adder builds the
+same rigid state and joint batches exactly, and an unknown method raises
+NotImplementedError."""
 import numpy as np
 import pytest
 
@@ -202,3 +203,106 @@ def test_every_jax_builder_method_exists_and_the_unported_raise():
         with pytest.raises(NotImplementedError, match=r"slice (6a|6b|7)"):
             getattr(b, name)(*[0] * len(inspect.signature(
                 getattr(JBuilder, name)).parameters))
+
+
+def _rigid_zoo(builder, **build_kw):
+    """Every rigid adder: bodies with start velocities and spins, one from a
+    closed box mesh, each of the 14 joint adders (motors with sequences of
+    unequal length and without), a cloth whose corner hangs from a body,
+    and a static body shared by several joints."""
+    b = builder()
+    tm = b.add_regular_triangle_model(4, 4, translation=(0.0, 2.0, 0.0))
+    s = b.add_rigid_body((0.0, 0.0, 0.0), mass=0.0)
+    bodies = [b.add_rigid_body((1.0 + 0.5 * i, 0.1 * i, -0.2 * i),
+                               q=(1.0, 0.1 * i, -0.05 * i, 0.02),
+                               mass=1.0 + 0.1 * i,
+                               inertia=(0.1, 0.2 + 0.01 * i, 0.3),
+                               velocity=(0.0, 0.1 * i, 0.0),
+                               omega=(0.05 * i, 0.0, 0.1))
+              for i in range(6)]
+    corners = np.array([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
+                        for sz in (-1, 1)], np.float64) * (0.3, 0.2, 0.1)
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6),
+             (0, 2, 6, 4), (1, 5, 7, 3)]
+    faces = np.array([f for a, bb, c, d in quads
+                      for f in ((a, bb, c), (a, c, d))], np.int32)
+    mesh_body = b.add_rigid_body_from_mesh(
+        corners, faces, density=500.0, translation=(3.0, 1.0, 0.0),
+        q=(0.9, 0.1, 0.3, 0.0), scale=(1.0, 2.0, 1.5))
+    b0, b1, b2, b3, b4, b5 = bodies
+    b.add_ball_joint(s, b0, (0.5, 0.0, 0.0))
+    b.add_ball_on_line_joint(b0, b1, (1.2, 0.05, -0.1), (1.0, 0.2, 0.0))
+    b.add_hinge_joint(s, b1, (0.7, 0.0, 0.0), (0.0, 0.0, 1.0))
+    b.add_universal_joint(b1, b2, (1.7, 0.15, -0.3), (0.0, 0.0, 1.0),
+                          (0.0, 1.0, 0.0))
+    b.add_slider_joint(s, b2, (1.0, 0.0, 0.3))
+    b.add_target_position_motor_slider_joint(
+        s, b3, (1.0, 0.0, 0.0), sequence=[0.0, 0.0, 1.0, 0.5, 2.0, 0.0],
+        repeat=True)
+    b.add_target_position_motor_slider_joint(b0, b4, (0.0, 1.0, 0.0),
+                                             target=0.2)
+    b.add_target_velocity_motor_slider_joint(b3, b4, (1.0, 0.0, 0.0),
+                                             target=0.4)
+    b.add_target_angle_motor_hinge_joint(
+        s, b5, (2.0, 0.5, -1.0), (0.0, 0.0, 1.0),
+        sequence=[0.0, 0.0, 1.0, 0.8], repeat=False)
+    b.add_target_velocity_motor_hinge_joint(b4, b5, (3.0, 0.4, -0.9),
+                                            (0.0, 1.0, 0.0), target=1.5)
+    b.add_damper_joint(s, b5, (1.0, 0.2, 0.0), stiffness=50.0)
+    b.add_rigid_distance_joint(b1, b3, (1.5, 0.1, 0.0), (2.4, 0.3, -0.6))
+    b.add_rigid_body_spring(b2, mesh_body, (2.0, 0.2, -0.4),
+                            (2.9, 0.9, 0.0), stiffness=200.0)
+    b.add_rigid_body_particle_ball_joint(b0, tm.offset)
+    b.add_rigid_body_particle_ball_joint(s, tm.offset + 3)
+    b.add_stretch_bending_twisting_constraint(
+        b4, mesh_body, (3.0, 0.7, -0.4), average_radius=0.1,
+        average_segment_length=0.5, youngs_modulus=1e6,
+        torsion_modulus=8e5)
+    return b.build(**build_kw)
+
+
+def test_rigid_build_matches_jax():
+    """Every rigid adder builds the same rigid state and the same joint
+    batches (kind order, colours, every field) as JAX's builder, exactly:
+    both compute them in float64 numpy and round once to float32."""
+    import dataclasses
+
+    (ts, tc), (js, jc) = _rigid_zoo(TBuilder, device="cpu"), \
+        _rigid_zoo(JBuilder)
+    for f in dataclasses.fields(js.rigid):
+        np.testing.assert_array_equal(_np(getattr(ts.rigid, f.name)),
+                                      _np(getattr(js.rigid, f.name)),
+                                      err_msg=f.name)
+    assert tc.n_rigid == js.rigid.x.shape[0] == 8
+    assert [j.kind for j in tc.joints] == [j.kind for j in jc.joints]
+    assert len(tc.joints) == 13
+    for tb, jb in zip(tc.joints, jc.joints):
+        assert tb.num_colors == jb.num_colors, tb.kind
+        for f in dataclasses.fields(jb):
+            jv, tv = getattr(jb, f.name), getattr(tb, f.name)
+            if f.metadata.get("static"):
+                assert tv == jv, (tb.kind, f.name)
+            else:
+                assert (jv is None) == (tv is None), (tb.kind, f.name)
+                if jv is not None:
+                    np.testing.assert_array_equal(
+                        _np(tv), _np(jv), err_msg=f"{tb.kind}.{f.name}")
+    assert_builds_equal((ts, tc), (js, jc))
+
+
+def test_rigid_body_from_mesh_keeps_its_mesh_frame_as_jax():
+    b_t, b_j = TBuilder(), JBuilder()
+    verts = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]], float)
+    faces = np.array([[0, 2, 1], [0, 1, 3], [0, 3, 2], [1, 2, 3]], np.int32)
+    for b in (b_t, b_j):
+        b.add_rigid_body_from_mesh(verts, faces, density=2.0,
+                                   translation=(1.0, 2.0, 3.0))
+    for key, v in b_j._rb_mesh_frames[0].items():
+        np.testing.assert_array_equal(b_t._rb_mesh_frames[0][key], v)
+    np.testing.assert_array_equal(b_t._rb_x[0], b_j._rb_x[0])
+    np.testing.assert_array_equal(b_t._rb_inertia[0], b_j._rb_inertia[0])
+
+
+def test_generic_rigid_constraints_raise_naming_slice_7():
+    with pytest.raises(NotImplementedError, match=r"slice 7"):
+        TBuilder().add_generic_rigid_constraints(lambda x, q: x, [(0, 1)])

@@ -33,7 +33,8 @@ def test_port_has_the_slice_modules():
                  "fluids.neighborhood", "fluids.cellgrid",
                  "fluids.cellgrid_cuda", "fluids.model",
                  "fluids.classgrid", "mpc.controls", "mpc.costs",
-                 "mpc.planners"):
+                 "mpc.planners", "ops.quaternion", "ops.rigidbody",
+                 "solver.joints", "utils.npquat", "utils.massprops"):
         assert f"positionbaseddynamics_tpu_torch.{name}" in mods, name
 
 

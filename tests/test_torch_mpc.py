@@ -269,14 +269,14 @@ def test_cem_update_matches_jax_on_fed_noise():
     assert (st.numpy() >= jcfg.min_sigma).all()
 
 
-def _controller_noise(key, n_steps, pcfg, scale):
+def _controller_noise(key, n_steps, pcfg, scale, u_dim=3):
     """The draws JAX's controller makes from ``key``: one key a step
     (``planners.py:176``), split into one a planner update
     (``planners.py:115, :127``)."""
     out = []
     for k in jax.random.split(key, n_steps):
         out.append([scale * jax.random.normal(
-            kk, (pcfg.num_samples, pcfg.horizon, 3), jnp.float32)
+            kk, (pcfg.num_samples, pcfg.horizon, u_dim), jnp.float32)
             for kk in jax.random.split(k, pcfg.plan_iters)])
     return np.asarray(out)
 
@@ -432,14 +432,11 @@ def test_mppi_update_on_the_unstructured_pin_steering_cloth_matches_jax():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: tmpc.RigidWrenchControl(body_indices=(0,)),
-    lambda: tmpc.rigid_target(0, np.zeros(3)),
     lambda: tmpc.sdf_obstacle([]),
     lambda: tmpc.rigid_sdf_obstacle([], 0, 0.1)],
-    ids=["RigidWrenchControl", "rigid_target", "sdf_obstacle",
-         "rigid_sdf_obstacle"])
+    ids=["sdf_obstacle", "rigid_sdf_obstacle"])
 def test_unported_terms_raise_naming_their_slice(make):
-    with pytest.raises(NotImplementedError, match=r"slice \(6[ab]\)"):
+    with pytest.raises(NotImplementedError, match=r"slice \(6b\)"):
         make()
 
 
@@ -447,8 +444,189 @@ def test_pipeline_raises_naming_its_slice():
     _, tc = _cloth(TBuilder, device="cpu")
     ctrl = tmpc.PinVelocityControl(indices=(0,))
     for f in (tmpc.make_sequence_cost, tmpc.make_mpc_controller):
-        with pytest.raises(NotImplementedError, match=r"slice \(6a\)"):
+        with pytest.raises(NotImplementedError, match=r"slice \(6b\)"):
             f(tc, TConfig(), ctrl, pipeline=object(), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# The rigid terms, on JAX's ``_free_rigid_scene`` (tests/test_mpc.py:17-23):
+# one dynamic body at the origin, an inert pinned particle, no constraint;
+# StepConfig(substeps=2) and σ 20, λ 0.05 as JAX's rigid MPPI tests.
+# ---------------------------------------------------------------------------
+
+RIGID_CFG = dict(substeps=2)
+RIGID_TARGET = (1.0, 0.5, 0.0)
+
+
+def _free_rigid_scenes():
+    from positionbaseddynamics_tpu.solver.constraints import (
+        ConstraintSet as JSet)
+    from positionbaseddynamics_tpu.solver.state import RigidState as JRigid
+    from positionbaseddynamics_tpu_torch.solver.constraints import (
+        ConstraintSet as TSet)
+    from positionbaseddynamics_tpu_torch.solver.state import (
+        RigidState as TRigid)
+
+    args = dict(x=np.zeros((1, 3)), q=np.array([[1.0, 0, 0, 0]]),
+                masses=np.ones((1,)), inertia_diag=np.ones((1, 3)))
+    js = JSimState.create(JParticles.create(np.zeros((1, 3)), np.zeros((1,))),
+                          rigid=JRigid.create(**args))
+    ts = TSimState.create(
+        TParticles.create(np.zeros((1, 3)), np.zeros((1,)), device="cpu"),
+        rigid=TRigid.create(**args, device="cpu"))
+    return js, JSet(), ts, TSet(n_particles=1, n_rigid=1)
+
+
+def _rigid_terms(m):
+    return dict(
+        running_cost=m.combine(m.as_running(m.rigid_target(
+            0, RIGID_TARGET, weight=1.0)), m.control_effort(1e-6)),
+        terminal_cost=m.rigid_target(0, RIGID_TARGET, weight=10.0))
+
+
+def _random_rigid(rng, k):
+    """``k`` rollouts of three bodies (``None``: one state) with random
+    positions, velocities and spins, as numpy float32."""
+    lead = () if k is None else (k,)
+    return {f: rng.normal(0.0, 1.0, lead + (3, 3)).astype(np.float32)
+            for f in ("x", "v", "omega")}
+
+
+@pytest.mark.parametrize("k", [None, 4])
+@pytest.mark.parametrize("max_force", [np.inf, 0.7])
+def test_rigid_wrench_control_matches_jax(k, max_force):
+    """Force and torque set on the controlled bodies, zero elsewhere,
+    clipped elementwise when ``max_force`` is finite: bit for bit."""
+    from positionbaseddynamics_tpu.solver.state import RigidState as JRigid
+    from positionbaseddynamics_tpu_torch.solver.state import (
+        RigidState as TRigid)
+
+    rng = np.random.default_rng(12)
+    lead = () if k is None else (k,)
+    args = dict(x=np.zeros((3, 3)), q=np.tile([1.0, 0, 0, 0], (3, 1)),
+                masses=np.ones((3,)), inertia_diag=np.ones((3, 3)))
+    jr, tr = JRigid.create(**args), TRigid.create(**args, device="cpu")
+    pj = JParticles.create(np.zeros((1, 3)), np.zeros((1,)))
+    pt = TParticles.create(np.zeros((1, 3)), np.zeros((1,)), device="cpu")
+    u = rng.normal(0.0, 1.0, lead + (12,)).astype(np.float32)
+    cj = jmpc.RigidWrenchControl(body_indices=(2, 0), max_force=max_force)
+    ct = tmpc.RigidWrenchControl(body_indices=(2, 0), max_force=max_force)
+    assert ct.u_dim == cj.u_dim == 12
+
+    def jax_apply(uu):
+        s = cj.apply(JSimState.create(pj, rigid=jr), uu, 0.01).rigid
+        return s.ext_force, s.ext_torque
+
+    if k is None:
+        fj, tj = jax_apply(jnp.asarray(u))
+        st = TSimState.create(pt, rigid=tr)
+    else:
+        fj, tj = jax.vmap(jax_apply)(jnp.asarray(u))
+        st = dataclasses.replace(TSimState.create(pt, rigid=tr),
+                                 rigid=dataclasses.replace(tr, **{
+                                     f: getattr(tr, f).expand(
+                                         k, *getattr(tr, f).shape).clone()
+                                     for f in ("x", "v", "q", "omega",
+                                               "ext_force",
+                                               "ext_torque")}))
+    out = ct.apply(st, torch.from_numpy(u), 0.01).rigid
+    np.testing.assert_array_equal(out.ext_force.numpy(), np.asarray(fj))
+    np.testing.assert_array_equal(out.ext_torque.numpy(), np.asarray(tj))
+    assert not out.ext_force[..., 1, :].any()
+
+
+@pytest.mark.parametrize("k", [None, 5])
+def test_rigid_target_matches_jax(k):
+    rng = np.random.default_rng(13)
+    x = _random_rigid(rng, k)["x"]
+    from positionbaseddynamics_tpu.solver.state import RigidState as JRigid
+    jterm = jmpc.rigid_target(1, (0.3, -0.2, 1.0), weight=2.5)
+    tterm = tmpc.rigid_target(1, (0.3, -0.2, 1.0), weight=2.5)
+
+    def jcost(xx):
+        r = JRigid.create(xx, np.tile([1.0, 0, 0, 0], (3, 1)), np.ones(3),
+                          np.ones((3, 3)))
+        return jterm(JSimState(particles=None, orientations=None, rigid=r,
+                               time=jnp.float32(0.0)))
+
+    cj = jcost(jnp.asarray(x)) if k is None else jax.vmap(jcost)(
+        jnp.asarray(x))
+    from positionbaseddynamics_tpu_torch.solver.state import (
+        RigidState as TRigid)
+    r = dataclasses.replace(TRigid.create(np.zeros((3, 3)), np.tile(
+        [1.0, 0, 0, 0], (3, 1)), np.ones(3), np.ones((3, 3)), device="cpu"),
+        x=torch.from_numpy(x))
+    ct = tterm(TSimState(particles=None, orientations=None, rigid=r,
+                         time=torch.zeros(())))
+    assert tuple(ct.shape) == (() if k is None else (k,))
+    assert _rel(ct.numpy(), cj) <= 1e-6
+
+
+def test_rigid_sequence_cost_and_mppi_update_match_jax_on_fed_noise():
+    """``make_sequence_cost`` over K rollouts of the free body (the state of
+    one scene expanded to K) and one MPPI update fed JAX's draw: costs 1e-5
+    relative, the update 1e-3 (ROADMAP §C: a cost difference δ moves a
+    weight by δ/λ, λ 0.05)."""
+    js, jc, ts, tc = _free_rigid_scenes()
+    jctl = jmpc.RigidWrenchControl(body_indices=(0,), max_force=120.0)
+    tctl = tmpc.RigidWrenchControl(body_indices=(0,), max_force=120.0)
+    jseq = jmpc.make_sequence_cost(jc, JConfig(**RIGID_CFG), jctl,
+                                   **_rigid_terms(jmpc))
+    tseq = tmpc.make_sequence_cost(tc, TConfig(**RIGID_CFG), tctl,
+                                   **_rigid_terms(tmpc), device="cpu")
+    assert tseq.path == "torch_rigid"
+    pc = dict(horizon=8, num_samples=16, sigma=20.0, temperature=0.05)
+    jcfg, tcfg = jmpc.MPPIConfig(**pc), tmpc.MPPIConfig(**pc)
+    nominal = np.random.default_rng(14).normal(0, 5.0, (8, 6)).astype(
+        np.float32)
+    key = jax.random.PRNGKey(3)
+    eps = np.array(jcfg.sigma * jax.random.normal(key, (16, 8, 6),
+                                                   jnp.float32))
+    cj, xj = jax.vmap(lambda uu: (lambda c, s: (c, s.rigid.x))(
+        *jseq(js, uu)))(jnp.asarray(nominal + eps))
+    ct, st = tseq(ts, torch.from_numpy(nominal + eps))
+    assert ct.shape == (16,) and st.rigid.x.shape == (16, 1, 3)
+    assert st.rigid.inv_mass.shape == (1,)       # shared, not expanded
+    assert _rel(ct.numpy(), cj) <= 1e-5
+    assert np.abs(st.rigid.x.numpy() - np.asarray(xj)).max() <= 1e-5
+    nj, cuj = jmpc.mppi_update(key, js, jnp.asarray(nominal), jseq, jcfg)
+    nt, cut = tmpc.mppi_update(ts, torch.from_numpy(nominal), tseq, tcfg,
+                               eps=torch.from_numpy(eps))
+    assert _rel(cut.numpy(), cuj) <= 1e-5
+    assert np.abs(nt.numpy() - np.asarray(nj)).max() <= 1e-3
+    assert np.abs(nt.numpy() - nominal).max() > 1e-2
+
+
+def test_rigid_mpc_controller_matches_jax_on_fed_noise():
+    """``make_mpc_controller`` on the free body, fed the draws JAX's
+    controller makes from its key: 3 steps of 2 MPPI updates at K 16; the
+    executed controls (updates) 1e-3, costs 1e-5 relative, the state
+    1e-5."""
+    js, jc, ts, tc = _free_rigid_scenes()
+    pc = dict(horizon=6, num_samples=16, sigma=20.0, temperature=0.05,
+              plan_iters=2)
+    jcfg, tcfg = jmpc.MPPIConfig(**pc), tmpc.MPPIConfig(**pc)
+    jrun = jmpc.make_mpc_controller(
+        jc, JConfig(**RIGID_CFG),
+        jmpc.RigidWrenchControl(body_indices=(0,), max_force=120.0),
+        planner="mppi", planner_cfg=jcfg, **_rigid_terms(jmpc))
+    trun = tmpc.make_mpc_controller(
+        tc, TConfig(**RIGID_CFG),
+        tmpc.RigidWrenchControl(body_indices=(0,), max_force=120.0),
+        planner="mppi", planner_cfg=tcfg, device="cpu",
+        **_rigid_terms(tmpc))
+    key = jax.random.PRNGKey(21)
+    n_steps = 3
+    noise = _controller_noise(key, n_steps, jcfg, jcfg.sigma, u_dim=6)
+    fj, ij = jrun(key, js, n_steps)
+    ft, it = trun(ts, n_steps, noise=torch.from_numpy(noise))
+    assert it["controls"].shape == (n_steps, 6)
+    # the executed controls are updates (~90 N here): 1e-3, the costs 1e-5
+    assert np.abs(it["controls"].numpy()
+                  - np.asarray(ij["controls"])).max() <= 1e-3
+    assert _rel(it["cost"].numpy(), ij["cost"]) <= 1e-5
+    assert np.abs(ft.rigid.x.numpy() - np.asarray(fj.rigid.x)).max() <= 1e-5
+    assert ft.rigid.x.shape == (1, 3)
 
 
 def test_mpc_exports_the_jax_names():
