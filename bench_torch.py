@@ -9,6 +9,7 @@ one-line JSON shape with ``bench.py``'s metric names.
     python3 bench_torch.py --fluid               # the 100k PBF breaking dam
     python3 bench_torch.py --mpc                 # MPPI, 32x32 cloth, K 256
     python3 bench_torch.py --mpc-big             # MPPI over K 320x320 cloths
+    python3 bench_torch.py --pile-big            # 100 spheres on a box floor
     python3 bench_torch.py --check               # kernels vs plain versions
 
 Every line carries ``metric``, ``value``, ``unit`` and ``vs_baseline``
@@ -17,8 +18,9 @@ the north-star 60 steps/s, as ``bench.py`` computes it), the extra keys that
 ``bench.py`` prints for the mode, ``"path"`` (``"cuda_per_substep"``: the
 fused cloth substep, one launch per substep; ``"cuda_kernel"``: the
 bar's and the dam's kernels; a ``"torch_..."`` name for the plain
-routes), ``"device"`` and ``"card"``, the card's ``nvidia-smi --query-gpu=
-name,power.limit`` line (None on the CPU).
+routes; ``"batched_broadphase"``: ``--pile-big``'s, as ``bench.py``
+names it), ``"device"`` and ``"card"``, the card's ``nvidia-smi
+--query-gpu=name,power.limit`` line (None on the CPU).
 
 The port runs on the card: ``--device`` defaults to ``cuda`` and the
 script exits 1 without CUDA. ``--device cpu`` runs the plain PyTorch
@@ -28,8 +30,9 @@ it. There is no ``--fuse``: the port's cloth kernel runs one launch per
 substep, and fusing substeps into one launch (``bench.py``'s default) is
 queued (ROADMAP queue B, B1).
 
-The bench scenes (``cloth_scene``, ``bar_scene``, ``dam_scene``, the
-planners' cloth) and the cloth kernel's plain steps live here;
+The bench scenes (``cloth_scene``, ``bar_scene``, ``dam_scene``,
+``pile_scene``, the planners' cloth) and the cloth kernel's plain steps
+live here;
 ``chip_smoke.py`` and ``scripts/`` import them from this file.
 """
 from __future__ import annotations
@@ -43,15 +46,18 @@ import time
 import numpy as np
 import torch
 
+_ARMADILLO = ("scene I/O (slice 8) and the scene file "
+              "data/scenes/ArmadilloCollisionScene.json, which the "
+              "repository does not hold")
 UNPORTED = {
-    "pile": "collision (slice 6b) and scene I/O (slice 8)",
-    "pile_big": "collision (slice 6b)",
-    "scene": "scene I/O (slice 8) and collision (slice 6b)",
+    "pile": "scene I/O (slice 8) and the scene files "
+            "data/scenes/PileScene.json and data/sdf/bunny_10k.csdf, which "
+            "the repository does not hold",
+    "scene": "scene I/O (slice 8)",
     "rods": "rods (slice 7)",
     "tree": "rods (slice 7)",
-    "armadillo_batch": "the unstructured solver (slice 4), collision "
-                       "(slice 6b) and scene I/O (slice 8)",
-    "mpc_contact": "collision (slice 6b)",
+    "armadillo_batch": _ARMADILLO,
+    "mpc_contact": _ARMADILLO,
 }
 CHECK_TOL = {"cloth": 1e-5, "tet": 1e-5, "fluid": 1e-4}
 PLAIN_CHUNK = 2048      # active cells per piece of the plain fluid passes
@@ -114,6 +120,37 @@ def cloth_scene(width, height, device, structured=True):
     b.add_cloth_constraints(tm, method=4, distance_stiffness=1e5)
     b.add_bending_constraints(tm, method=3, stiffness=0.05)
     return b.build(device=device)
+
+
+def pile_scene(n_bodies, device):
+    """``bench.py --pile-big``'s scene (``bench.py:180-227``): ``n_bodies``
+    spheres of radius 0.25 (32 surface samples, restitution 0.1, friction
+    0.3) on a 10×10 grid in layers of 100 above a static (6, 1, 6) box
+    floor, positions jittered from seed 0; the collision pipeline at
+    tolerance 0.02 on the batched broad phase. Returns ``(state, cset,
+    pipeline)``."""
+    from positionbaseddynamics_tpu_torch.collision import sampling
+    from positionbaseddynamics_tpu_torch.models import SceneBuilder
+
+    rng = np.random.default_rng(0)
+    b = SceneBuilder()
+    floor = b.add_rigid_body((0.0, -0.5, 0.0), mass=0.0)
+    b.add_collision_box(floor, (6.0, 1.0, 6.0))
+    r = 0.25
+    sv = sampling.sample_sphere(r, 32)
+    for i in range(n_bodies):
+        gx, gz = i % 10, (i // 10) % 10
+        body = b.add_rigid_body(
+            (0.55 * gx - 2.5 + 0.02 * rng.standard_normal(),
+             0.8 + 0.55 * (i // 100),
+             0.55 * gz - 2.5 + 0.02 * rng.standard_normal()),
+            mass=1.0, inertia=(0.4 * r * r,) * 3)
+        b.add_collision_sphere(body, r, restitution=0.1, friction=0.3,
+                               verts=sv)
+    state, cset = b.build(device=device)
+    pipe = b.build_collision_pipeline(tolerance=0.02, broad_phase="batched",
+                                      device=device)
+    return state, cset, pipe
 
 
 def plain_steps(gc, x, v, inv_mass, n_sub, h, **kw):
@@ -295,6 +332,30 @@ def bench_fluid(args, dev):
                    capacity_overflow=state[0].overflow.item(),
                    n_fluid=len(fluid),
                    n_boundary=scene.boundary_x.shape[0])
+
+
+def bench_pile_big(args, dev):
+    """``--pile-big``: the sphere pile through ``make_step_fn(pipeline=)``,
+    one probe step, then ``--calls`` × ``--steps-per-call`` steps
+    (``bench.py:180-227``)."""
+    from positionbaseddynamics_tpu_torch.solver import (StepConfig,
+                                                        make_step_fn)
+
+    state, cset, pipe = pile_scene(args.pile_bodies, dev)
+    fn = make_step_fn(cset, StepConfig(), dev, pipeline=pipe)
+    st = [fn(state)]                                      # probe
+    _sync(dev)
+    if not torch.isfinite(st[0].rigid.x).all():
+        raise FloatingPointError("pile probe produced non-finite x")
+
+    def call():
+        st[0] = fn(st[0])
+
+    steps = args.calls * args.steps_per_call
+    sps = steps / _timed(dev, call, steps)
+    return _record(dev, f"rigid_pile_{args.pile_bodies}body_steps_per_s",
+                   sps, "steps/s", "batched_broadphase",
+                   capacity_overflow=st[0].overflow.item())
 
 
 def make_mpc(k, horizon, dev, n=32, free_weight=None):
@@ -504,6 +565,8 @@ def parser():
     ap.add_argument("--bar-dims", type=int, nargs=3, default=(80, 36, 36))
     ap.add_argument("--fluid", action="store_true")
     ap.add_argument("--fluid-dims", type=int, nargs=3, default=(80, 50, 25))
+    ap.add_argument("--pile-big", action="store_true")
+    ap.add_argument("--pile-bodies", type=int, default=100)
     ap.add_argument("--check", action="store_true")
     for name in UNPORTED:
         ap.add_argument("--" + name.replace("_", "-"), action="store_true",
@@ -537,7 +600,8 @@ def run(argv=None):
         records = check(args, dev)
         return (0 if all(r["ok"] for r in records) else 1), records
     for flag, fn in (("mpc", bench_mpc), ("mpc_big", bench_mpc_big),
-                     ("fluid", bench_fluid), ("bar", bench_bar)):
+                     ("fluid", bench_fluid), ("bar", bench_bar),
+                     ("pile_big", bench_pile_big)):
         if getattr(args, flag):
             return 0, [fn(args, dev)]
     return 0, [bench_cloth(args, dev)]

@@ -82,7 +82,23 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``joint_demo.py``, ``sbt_demo.py`` and ``coupling_demo.py`` built on the
    card, 20 steps against the CPU (≤ 1e-4) and 200 steps with every launch
    count 0, each joint's residual at the end; printed as one
-   ``{"rigid": ...}`` line before the ``kernels`` line.
+   ``{"rigid": ...}`` line before the ``kernels`` line;
+10. collision (slice 6b), no kernel of the port on its path: P1,
+    ``bench.py --pile-big`` at its default (100 spheres on a box floor,
+    the batched broad phase) through ``bench_torch.pile_scene`` →
+    ``make_step_fn(pipeline=)``: the build's seconds and the route, 20
+    steps on the card against the CPU (≤ 1e-4) with the active contact
+    count equal at every step, one step with no host sync, 200 steps with
+    every launch count 0, overflow 0, finite, every centre at or above
+    the floor top + r − 0.05; steps/s, busy share, device launches and µs
+    a step, peak memory and the top five device operations; then the
+    three collision examples (cloth, rigid and deformable) built on the
+    card, 20 steps against the CPU (≤ 1e-4) and their full length with
+    their own checks and overflow 0; then C1, ``bench.py --mpc-contact``'s
+    inline MPPI (K 8, horizon 5) on the deformable example's two bars:
+    3 updates with overflow 0, 2 of the 8 rollouts against themselves
+    alone (≤ 1e-6), updates/s and busy share; printed as one
+    ``{"collision": ...}`` line before the ``kernels`` line.
 
 The build log's ``-Xptxas -v`` lines are printed per ``__global__`` and
 template instance (registers, shared memory, spills), and for the cloth
@@ -96,7 +112,8 @@ Every steps/s figure is the median of ``N_WINDOWS`` windows of at least
 highest window.
 
 Prints one ``{"unstructured": {...}}`` line (phase 8), one ``{"rigid":
-{...}}`` line (phase 9), one ``{"kernels": [...]}`` JSON line, the card's name and power limit, and as
+{...}}`` line (phase 9), one ``{"collision": {...}}`` line (phase 10),
+one ``{"kernels": [...]}`` JSON line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits 1 and prints no result.
 """
@@ -145,6 +162,23 @@ R1_SINGLE_TOL = 1e-6            # a rollout of K vs the same one alone
 RIGID_DEMO_STEPS = 200
 RIGID_DEMO_CHECK = 20           # card vs CPU steps of each demo
 RIGID_DEMO_TOL = 1e-4
+# phase 10: collision. P1, bench.py --pile-big at its default; the three
+# collision demos; C1, bench.py --mpc-contact's inline MPPI on the demo's
+# two bars (K = max(256 // 32, 4), horizon max(10 // 2, 5))
+PILE_BODIES = 100
+PILE_CHECK_STEPS = 20           # card vs CPU steps, bar PILE_TOL
+PILE_TOL = 1e-4
+PILE_STEPS = 200
+PILE_PROFILE_STEPS = 10
+PILE_FLOOR_TOP = 0.5            # the (6, 1, 6) box at y -0.5
+PILE_RADIUS = 0.25
+COLLISION_DEMO_CHECK = 20       # card vs CPU steps of each demo
+C1_K = max(256 // 32, 4)
+C1_HORIZON = max(10 // 2, 5)
+C1_SIGMA, C1_LAMBDA, C1_MAX_SPEED, C1_EFFORT = 0.5, 0.1, 2.0, 1e-3
+C1_TARGET_OFFSET = (1.5, -0.5, 0.0)
+C1_UPDATES = 3
+C1_SINGLES = (0, C1_K - 1)      # rollouts replayed alone
 
 # fp32 operations of one particle per substep, counted from
 # csrc/grid_cloth_step.cu: integrate 12; per iteration, per anchor, the 3
@@ -558,13 +592,15 @@ def check_tet_kernel_against_plain(dev, bar):
     return max(devs), x10, record
 
 
-def profile_busy(fn, state, n_prof, label, top=5, top_out=None):
+def profile_busy(fn, state, n_prof, label, top=5, top_out=None,
+                 stats=None):
     """Steps ``n_prof`` times under ``torch.profiler``. Returns the card's
     busy share of the wall time and its busy microseconds per step, both
     from the device-side events alone (an aten op's row repeats the device
     time of the kernels it launched), and logs the ``top`` kernels (also
     appended to ``top_out`` as ``{"op", "us_per_step", "count"}`` when a
-    list is given)."""
+    list is given); ``stats``, when a dict, gets the device launches per
+    step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -589,6 +625,8 @@ def profile_busy(fn, state, n_prof, label, top=5, top_out=None):
     busy = busy_us / 1e6 / wall
     log(f"{label} under profiler: {n_prof / wall!r} steps/s, device busy "
         f"{busy!r} of wall time, {busy_us / n_prof!r} us/step")
+    if stats is not None:
+        stats["launches_per_step"] = sum(ev.count for ev in device) / n_prof
     return busy, busy_us / n_prof
 
 
@@ -1875,6 +1913,375 @@ def run_rigid(dev):
     return out
 
 
+def _active(pipe, state):
+    """Active rigid contact rows of ``pipe`` on ``state`` (a host read, for
+    the checks only)."""
+    return int(pipe.detect_rigid(state.rigid).mask.sum().item())
+
+
+def run_pile(dev):
+    """Phase 10, P1: ``bench.py --pile-big`` at its default through
+    ``bench_torch.pile_scene`` → ``make_step_fn(pipeline=)``: the build's
+    seconds and route; ``PILE_CHECK_STEPS`` steps on the card against the
+    port on the CPU (≤ ``PILE_TOL``) with the active contact count equal
+    at every step; one step under CUDA's sync debug mode; ``PILE_STEPS``
+    steps from the start with every launch count 0, finite, overflow 0,
+    every centre at or above the floor top + r − 0.05; steps/s (median of
+    windows), busy share, device launches and µs a step, peak memory and
+    the top five device operations."""
+    from positionbaseddynamics_tpu_torch.solver import StepConfig, make_step_fn
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    state, cset, pipe = bench_torch.pile_scene(PILE_BODIES, dev)
+    fn = make_step_fn(cset, StepConfig(), dev, pipeline=pipe)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"phase 10 P1: {PILE_BODIES} spheres, built in {build_s!r} s, "
+        f"route {fn.path}, broad phase {pipe.broad_phase}, "
+        f"{len(pipe.rb_pairs)} ordered pairs")
+    cs, cc, cp = bench_torch.pile_scene(PILE_BODIES, cpu)
+    cfn = make_step_fn(cc, StepConfig(), cpu, pipeline=cp)
+    a, b, counts_equal, active = state, cs, True, []
+    for _ in range(PILE_CHECK_STEPS):
+        na, nb = _active(pipe, a), _active(cp, b)
+        counts_equal = counts_equal and na == nb
+        active.append(na)
+        a, b = fn(a), cfn(b)
+    dx = max(max_dev(a.rigid.x.cpu(), b.rigid.x),
+             max_dev(a.rigid.q.cpu(), b.rigid.q))
+    log(f"phase 10 P1 {PILE_CHECK_STEPS} steps card vs CPU: max dev {dx!r}, "
+        f"active rows per step {active}, equal {counts_equal}")
+    assert dx <= PILE_TOL, dx
+    assert counts_equal, active
+    del cs, cc, cp, cfn, b
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    sync_error = None
+    try:
+        a = fn(a)
+    except RuntimeError as e:
+        sync_error = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"phase 10 P1 step under sync debug mode 'error': "
+        f"{'no host sync' if sync_error is None else sync_error}")
+    assert sync_error is None, sync_error
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    s = state
+    for _ in range(PILE_STEPS):
+        s = fn(s)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    y = s.rigid.x[1:, 1]
+    finite = bool(torch.isfinite(s.rigid.x).all()
+                  and torch.isfinite(s.rigid.q).all())
+    low = y.min().item()
+    overflow = s.overflow.item()
+    log(f"phase 10 P1 {PILE_STEPS} steps in {run_s!r} s, launch counts "
+        f"{counts}, finite {finite}, overflow {overflow}, lowest centre "
+        f"{low!r} (floor top + r = {PILE_FLOOR_TOP + PILE_RADIUS}), peak "
+        f"device memory {peak} B")
+    assert all(v == 0 for v in counts.values()), counts
+    assert finite and overflow == 0.0
+    assert low >= PILE_FLOOR_TOP + PILE_RADIUS - 0.05, low
+
+    st = [s]
+
+    def one_step():
+        st[0] = fn(st[0])
+
+    rate = rate_windows(one_step, 1)
+    log(f"phase 10 P1 steps/s {rate}")
+    top, stats = [], {}
+    busy, us = profile_busy(fn, st[0], PILE_PROFILE_STEPS, "phase 10 P1",
+                            top_out=top, stats=stats)
+    return {"scene": f"bench.py --pile-big: {PILE_BODIES} spheres r "
+                     f"{PILE_RADIUS} (32 samples) on a (6, 1, 6) box, "
+                     f"tolerance 0.02, batched broad phase, StepConfig()",
+            "build_s": build_s, "route": fn.path,
+            "broad_phase": pipe.broad_phase,
+            "card_vs_cpu_max_dev": dx, "check_steps": PILE_CHECK_STEPS,
+            "active_rows": active, "active_counts_equal": counts_equal,
+            "sync_free_step": sync_error is None, "launches": counts,
+            "steps": PILE_STEPS, "steps_s": run_s, "overflow": overflow,
+            "finite": finite, "lowest_centre": low, "steps_per_s": rate,
+            "device_busy": busy, "device_us_per_step": us,
+            "device_launches_per_step": stats["launches_per_step"],
+            "peak_bytes": peak, "top_ops": top}
+
+
+def cloth_collision_scene(builder, dev, n=20):
+    """``examples/cloth_collision_demo.py`` at its default: an n×n XPBD
+    cloth over a static sphere of radius 0.6, tolerance 0.02."""
+    b = builder()
+    tm = b.add_regular_triangle_model(n, n, translation=(-1.0, 1.0, -1.0),
+                                      scale=(2.0, 2.0))
+    b.add_cloth_constraints(tm, method=4, distance_stiffness=1e5)
+    b.add_bending_constraints(tm, method=3, stiffness=0.05)
+    sph = b.add_rigid_body((0.0, 0.0, 0.0), mass=0.0)
+    b.add_collision_sphere(sph, 0.6, restitution=0.0, friction=0.2,
+                           verts=np.zeros((1, 3), np.float32))
+    b.set_particle_collider(tm, restitution=0.0, friction=0.2)
+    state, cset = b.build(device=dev)
+    return state, cset, b.build_collision_pipeline(tolerance=0.02,
+                                                   device=dev)
+
+
+def rigid_collision_scene(builder, dev, bodies=5):
+    """``examples/rigid_body_collision_demo.py`` at its default: spheres of
+    radius 0.3 (64 samples, restitution 0.4) on a static (10, 1, 10)
+    box."""
+    from positionbaseddynamics_tpu_torch.collision import sampling
+
+    b = builder()
+    floor = b.add_rigid_body((0.0, -0.5, 0.0), mass=0.0)
+    b.add_collision_box(floor, (10.0, 1.0, 10.0))
+    r = 0.3
+    verts = sampling.sample_sphere(r, 64)
+    for i in range(bodies):
+        body = b.add_rigid_body((0.7 * i - 1.4, 2.0 + 0.5 * i, 0.0),
+                                mass=1.0, inertia=(0.4 * r * r,) * 3)
+        b.add_collision_sphere(body, r, restitution=0.4, friction=0.2,
+                               verts=verts)
+    state, cset = b.build(device=dev)
+    return state, cset, b.build_collision_pipeline(tolerance=0.02,
+                                                   device=dev)
+
+
+def deformable_collision_scene(builder, dev, structured=True):
+    """``examples/deformable_collision_demo.py``: a 6×2×2 XPBD FEM bar
+    dropped on a static one, both particle and tet colliders. Returns the
+    top bar's particle slice as a fourth element. ``structured=False``
+    solves the FEM tets as the particle batch, which takes a rollout
+    axis (the tet-grid solver takes one scene)."""
+    b = builder(use_structured_grid=structured)
+    bottom = b.add_regular_tet_model(6, 2, 2, translation=(0.0, 0.0, 0.0),
+                                     scale=(1.2, 0.25, 0.4))
+    for i in range(bottom.mesh.n_vertices):
+        b.set_mass(bottom.offset + i, 0.0)
+    top = b.add_regular_tet_model(6, 2, 2, translation=(0.05, 0.45, 0.0),
+                                  scale=(1.0, 0.25, 0.3))
+    b.add_solid_constraints(top, method=3, stiffness=1e5)
+    for h in (bottom, top):
+        b.set_particle_collider(h, restitution=0.0, friction=0.2)
+        b.set_tet_collider(h, restitution=0.0, friction=0.2,
+                           sdf_resolution=20, grid_resolution=16)
+    state, cset = b.build(device=dev)
+    return (state, cset, b.build_collision_pipeline(device=dev),
+            slice(top.offset, top.offset + top.mesh.n_vertices))
+
+
+def run_collision_demos(dev):
+    """Phase 10 demos: the three collision examples built on the card,
+    ``COLLISION_DEMO_CHECK`` steps against the port on the CPU (≤
+    ``PILE_TOL``), then their full length from the start with every launch
+    count 0 and the demos' own checks: the cloth outside the sphere within
+    the tolerance, the spheres resting at about r above the floor top, the
+    top bar above the bottom one; overflow 0 each."""
+    from positionbaseddynamics_tpu_torch.models import SceneBuilder
+    from positionbaseddynamics_tpu_torch.solver import StepConfig, make_step_fn
+
+    cpu = torch.device("cpu")
+    out = {}
+    for name, build, steps in (
+            ("cloth_collision_demo", cloth_collision_scene, 250),
+            ("rigid_body_collision_demo", rigid_collision_scene, 300),
+            ("deformable_collision_demo", deformable_collision_scene, 150)):
+        built = build(SceneBuilder, dev)
+        state, cset, pipe = built[:3]
+        fn = make_step_fn(cset, StepConfig(), dev, pipeline=pipe)
+        cs, cc, cp = build(SceneBuilder, cpu)[:3]
+        cfn = make_step_fn(cc, StepConfig(), cpu, pipeline=cp)
+        a, b = state, cs
+        for _ in range(COLLISION_DEMO_CHECK):
+            a, b = fn(a), cfn(b)
+        dx = max_dev(a.particles.x.cpu(), b.particles.x) \
+            if b.particles.n else 0.0
+        if b.rigid is not None:
+            dx = max(dx, max_dev(a.rigid.x.cpu(), b.rigid.x),
+                     max_dev(a.rigid.q.cpu(), b.rigid.q))
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        s = state
+        for _ in range(steps):
+            s = fn(s)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        finite = bool(torch.isfinite(s.particles.x).all()
+                      and (s.rigid is None
+                           or torch.isfinite(s.rigid.x).all()))
+        rec = {"route": fn.path, "broad_phase": pipe.broad_phase,
+               "check_steps": COLLISION_DEMO_CHECK,
+               "card_vs_cpu_max_dev": dx, "steps": steps, "steps_s": run_s,
+               "launches": counts, "finite": finite,
+               "overflow": s.overflow.item()}
+        if name == "cloth_collision_demo":
+            r = torch.linalg.vector_norm(s.particles.x, dim=-1)
+            rec["min_radius"] = r.min().item()
+            ok = rec["min_radius"] >= 0.6 - 0.02 - 1e-3
+        elif name == "rigid_body_collision_demo":
+            y = s.rigid.x[1:, 1].cpu()
+            rec["heights"] = y.tolist()
+            ok = bool((y - 0.8).abs().max() <= 0.05)
+        else:
+            x = s.particles.x
+            top = built[3]
+            rec["top_min_y"] = x[top, 1].min().item()
+            rec["bottom_max_y"] = x[:top.start, 1].max().item()
+            ok = rec["top_min_y"] >= rec["bottom_max_y"] - 0.02
+        rec["demo_check"] = ok
+        out[name] = rec
+        log(f"phase 10 {name}: {rec}")
+        assert dx <= PILE_TOL, (name, dx)
+        assert all(v == 0 for v in counts.values()), counts
+        assert finite and rec["overflow"] == 0.0 and ok, name
+        del state, cset, pipe, fn, cs, cc, cp, cfn, a, b, s
+    return out
+
+
+class ContactPlanner:
+    """C1: ``bench.py --mpc-contact``'s inline MPPI (``bench.py:267-335``)
+    on ``deformable_collision_demo.py``'s two bars, the top bar's
+    particles driven: per horizon step their velocity set to the control
+    clipped to ``C1_MAX_SPEED``, one sim step, ``C1_EFFORT``·|u|²; at the
+    end the top bar's centroid's squared distance to its start +
+    ``C1_TARGET_OFFSET``. The ``C1_K`` rollouts are a leading axis of one
+    state; weights softmax(−cost/λ)."""
+
+    def __init__(self, dev):
+        from positionbaseddynamics_tpu_torch.models import SceneBuilder
+        from positionbaseddynamics_tpu_torch.solver import (StepConfig,
+                                                            make_step_fn)
+
+        self.dev = dev
+        self.state, cset, pipe, self.top = deformable_collision_scene(
+            SceneBuilder, dev, structured=False)
+        self.fn = make_step_fn(cset, StepConfig(), dev, pipeline=pipe)
+        self.target = (self.state.particles.x[self.top].mean(0)
+                       + torch.tensor(C1_TARGET_OFFSET, device=dev))
+
+    def rollouts(self, u):
+        """Costs ``(K,)`` and final states of controls ``u (K, h, 3)`` (or
+        one rollout's ``(h, 3)``)."""
+        from positionbaseddynamics_tpu_torch.mpc.planners import _expand_state
+
+        st = (_expand_state(self.state, u.shape[0]) if u.dim() == 3
+              else self.state)
+        cost = torch.zeros(u.shape[:-2], device=self.dev)
+        for t in range(u.shape[-2]):
+            ut = u[..., t, :]
+            p = st.particles
+            v = p.v.clone()
+            v[..., self.top, :] = torch.clamp(
+                ut, -C1_MAX_SPEED, C1_MAX_SPEED)[..., None, :]
+            st = self.fn(dataclasses.replace(
+                st, particles=dataclasses.replace(p, v=v)))
+            cost = cost + C1_EFFORT * torch.sum(ut * ut, dim=-1)
+        com = st.particles.x[..., self.top, :].mean(-2)
+        d = com - self.target
+        return cost + torch.sum(d * d, dim=-1), st
+
+    def update(self, nominal, eps):
+        costs, st = self.rollouts(nominal + eps)
+        w = torch.softmax(-costs / C1_LAMBDA, dim=0)
+        return nominal + torch.einsum("k,khd->hd", w, eps), costs, st
+
+
+def run_contact_planner(dev):
+    """Phase 10, C1 (:class:`ContactPlanner`): ``C1_UPDATES`` updates with
+    every launch count 0 and the rollouts' overflow 0, rollouts
+    ``C1_SINGLES`` of the last update against the same controls run alone
+    (≤ ``BATCH_TOL``), updates/s (median of windows) and busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    planner = ContactPlanner(dev)
+    gen = torch.Generator(device=dev).manual_seed(10)
+
+    def draw():
+        return C1_SIGMA * torch.randn((C1_K, C1_HORIZON, 3), generator=gen,
+                                      device=dev)
+
+    nominal = torch.zeros((C1_HORIZON, 3), device=dev)
+    nominal = planner.update(nominal, draw())[0]            # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    overflow = 0.0
+    for _ in range(C1_UPDATES):
+        eps, last = draw(), nominal
+        nominal, costs, st = planner.update(nominal, eps)
+        overflow = max(overflow, st.overflow.max().item())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    single = 0.0
+    for k in C1_SINGLES:
+        ck, sk = planner.rollouts(last + eps[k])
+        single = max(single, max_dev(st.particles.x[k], sk.particles.x),
+                     abs(costs[k].item() - ck.item())
+                     / max(abs(ck.item()), 1e-30))
+    finite = bool(torch.isfinite(costs).all() and torch.isfinite(
+        nominal).all())
+    log(f"phase 10 C1: K {C1_K}, h {C1_HORIZON}, {C1_UPDATES} updates in "
+        f"{wall!r} s, launch counts {counts}, overflow {overflow}, rollouts "
+        f"{C1_SINGLES} alone max dev {single!r}, cost "
+        f"{costs.min().item()!r}..{costs.max().item()!r}")
+    assert all(v == 0 for v in counts.values()), counts
+    assert overflow == 0.0 and finite
+    assert single <= BATCH_TOL, single
+
+    cur = [nominal]
+
+    def one_update():
+        cur[0] = planner.update(cur[0], draw())[0]
+
+    rate = rate_windows(one_update, 1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_update()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    device = [ev for ev in prof.key_averages()
+              if getattr(ev, "device_type", None) == DeviceType.CUDA]
+    busy_us = sum(ev.self_device_time_total for ev in device)
+    busy = busy_us / 1e6 / pwall
+    log(f"phase 10 C1 updates/s {rate}, busy {busy!r}, {busy_us!r} us and "
+        f"{sum(ev.count for ev in device)} device launches an update")
+    return {"scene": "deformable_collision_demo.py's two bars, the top "
+                     "bar driven (bench.py --mpc-contact's planner; its "
+                     "Armadillo scene file is absent)",
+            "rollouts": C1_K, "horizon": C1_HORIZON, "launches": counts,
+            "overflow": overflow, "singles_max_dev": single,
+            "updates_s_unwindowed": C1_UPDATES / wall,
+            "updates_per_s": rate, "device_busy": busy,
+            "device_us_per_update": busy_us,
+            "device_launches_per_update": sum(ev.count for ev in device)}
+
+
+def run_collision(dev):
+    """Phase 10: slice 6b on the card, no kernel of the port on its path:
+    P1 (:func:`run_pile`), the three collision demos
+    (:func:`run_collision_demos`) and C1 (:func:`run_contact_planner`).
+    Returns the record of ``{"collision": ...}``."""
+    out = {"P1": run_pile(dev)}
+    torch.cuda.empty_cache()
+    out.update(run_collision_demos(dev))
+    out["C1"] = run_contact_planner(dev)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -1926,6 +2333,7 @@ def main() -> int:
     bench_lines = run_bench_modes()
     unstructured = run_unstructured(dev)
     rigid = run_rigid(dev)
+    collision = run_collision(dev)
 
     kernels = [{
         "name": "cloth_substep",
@@ -2030,6 +2438,7 @@ def main() -> int:
     assert dam["sync_error"] is None, dam["sync_error"]
     print(json.dumps({"unstructured": unstructured}))
     print(json.dumps({"rigid": rigid}))
+    print(json.dumps({"collision": collision}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,7 @@ numpy only, never ``jax`` and never the JAX package.
 Ported so far (slice 1, the 320×320 XPBD cloth step; slice 2, the
 80×36×36 XPBD FEM-tet bar; slice 3, the 100k PBF breaking dam; slice 4,
 the general unstructured solver; slice 5, the sampling planner; slice 6a,
-rigid bodies and joints):
+rigid bodies and joints; slice 6b, collision):
 
 * ``ops/integration.py`` — semi-implicit Euler, the rigid rotation step
   and the velocity updates;
@@ -37,7 +37,12 @@ rigid bodies and joints):
   ``solver/grid_tet_cuda.py`` + ``csrc/grid_tet_step.cu`` — the fused
   cloth and tet substeps as hand-written CUDA kernels;
 * ``solver/step.py`` — ``StepConfig``, ``step``, ``make_step_fn``,
-  ``rollout``;
+  ``rollout``, each with an optional collision ``pipeline``;
+* ``collision/`` — SDF shapes and grids, the numpy build-time helpers
+  (surface samples, block spheres, ``.csdf`` reader, mesh baker), the
+  unrolled and batched broad phases, rigid–rigid, particle–rigid and
+  particle–tet contacts and their solves, in plain PyTorch as JAX
+  computes them in XLA;
 * ``models/`` — ``SceneBuilder`` for triangle and tet models, regular or
   not, with the cloth, bending and solid methods and the per-constraint
   adders, and for rigid bodies with the 14 joint adders;
@@ -55,6 +60,6 @@ Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without CUDA they raise rather than run on the CPU.
 """
 
-from . import convert, fluids, models, mpc, ops, solver, utils
+from . import collision, convert, fluids, models, mpc, ops, solver, utils
 
 __version__ = "0.1.0"

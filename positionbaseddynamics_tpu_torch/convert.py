@@ -234,3 +234,89 @@ def fluid_state_from_numpy(state: Mapping[str, Any], device=None
     overflow = state.get("overflow")
     return FluidState(**{k: f32(state[k]) for k in _FLUID_STATE_FIELDS},
                       overflow=None if overflow is None else f32(overflow))
+
+
+#: Index fields of the collision structures, carried as int64.
+_INDEX_FIELDS = ("pair_i", "pair_jj", "pair_bi", "pair_bj", "bodies",
+                 "morton_perm", "tets", "grid_tet", "tet_blocks",
+                 "surf_blocks")
+
+
+def _tensor_field(name: str, a, dev):
+    dtype = torch.int64 if name in _INDEX_FIELDS else torch.float32
+    return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+
+def _fields(d: Mapping[str, Any], cls, dev, **extra) -> Any:
+    """``cls`` from ``d``: its numpy arrays as tensors on ``dev``, its
+    other entries as they are, keys that ``cls`` lacks left out."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    out = {}
+    for k, v in d.items():
+        if k not in names or k in extra:
+            continue
+        out[k] = (_tensor_field(k, v, dev)
+                  if isinstance(v, np.ndarray) else v)
+    return cls(**out, **extra)
+
+
+def _sdf_shape(d: Mapping[str, Any], dev):
+    """An ``SDFShape`` from its kind and arrays; a stack of grids (values
+    with a leading axis) reads its grids through ``grid_row``."""
+    from .collision.sdf import CSDF, SDFShape
+
+    shape = _fields(d, SDFShape, dev)
+    gv = shape.grid_values
+    if gv is not None and gv.dim() > (4 if shape.kind == CSDF else 3):
+        shape = dataclasses.replace(
+            shape, grid_row=torch.arange(gv.shape[0], device=dev))
+    return shape
+
+
+def collision_pipeline_from_numpy(pipe: Mapping[str, Any], device=None):
+    """A JAX ``CollisionPipeline`` flattened to numpy as the port's
+    ``CollisionPipeline`` on ``device`` (None means CUDA). ``pipe`` holds
+    the pipeline's fields by name: ``tolerance``, ``broad_phase``,
+    ``rb_pairs``; ``rigid_colliders`` (per collider its ``body``,
+    ``shape`` — a mapping of ``kind``, ``params``, ``invert``,
+    ``grid_values``, ``grid_origin``, ``grid_inv_cell`` — ``verts``,
+    ``restitution``, ``friction``, ``frame_rot``, ``frame_t``,
+    ``verts_radius``, ``shape_radius``, ``block_centers``,
+    ``block_radii``); ``particle_groups`` (``offset``, ``count``,
+    ``restitution``, ``friction``, ``morton_perm``, ``block_size``);
+    ``solid_pairs`` as ``((offset, count, friction), tet collider
+    fields)``; ``rb_batched`` (``BatchedRigidColliders``' fields with
+    ``groups`` a list of ``RigidPairGroup`` fields, each ``shapes`` a
+    stacked shape mapping) and ``pg_batched`` (``ParticlePairGroup``
+    fields), or None and empty on the unrolled path. Arrays are numpy,
+    absent ones None; indices become int64, the rest float32."""
+    from .collision.batched import (BatchedRigidColliders,
+                                    ParticlePairGroup, RigidPairGroup)
+    from .collision.detection import (CollisionPipeline,
+                                      ParticleGroupCollider, RigidCollider)
+    from .collision.solid import TetCollider
+
+    dev = resolve_device(device)
+    rcs = tuple(_fields(c, RigidCollider, dev,
+                        shape=_sdf_shape(c["shape"], dev))
+                for c in pipe.get("rigid_colliders", ()))
+    pgs = tuple(_fields(g, ParticleGroupCollider, dev)
+                for g in pipe.get("particle_groups", ()))
+    solid = tuple(((int(o), int(n), np.float32(f)),
+                   _fields(tc, TetCollider, dev))
+                  for (o, n, f), tc in pipe.get("solid_pairs", ()))
+    rb = pipe.get("rb_batched")
+    if rb is not None:
+        groups = tuple(_fields(g, RigidPairGroup, dev,
+                               shapes=_sdf_shape(g["shapes"], dev))
+                       for g in rb["groups"])
+        rb = _fields(rb, BatchedRigidColliders, dev, groups=groups)
+    pg = tuple(_fields(g, ParticlePairGroup, dev,
+                       shapes=_sdf_shape(g["shapes"], dev))
+               for g in pipe.get("pg_batched", ()))
+    return CollisionPipeline(
+        rigid_colliders=rcs, particle_groups=pgs,
+        tolerance=float(pipe["tolerance"]),
+        rb_pairs=tuple(tuple(int(i) for i in p) for p in pipe["rb_pairs"]),
+        solid_pairs=solid, broad_phase=str(pipe["broad_phase"]),
+        rb_batched=rb, pg_batched=pg)

@@ -2,13 +2,14 @@
 builders.py`` (``SimulationModel``'s ``add*`` surface,
 ``Simulation/SimulationModel.h:186-249``): triangle and tet models, the
 per-constraint adders, cloth, bending and solid constraints on the
-structured grid solvers or on the unstructured particle batches, and rigid
-bodies with the 14 joint adders.
+structured grid solvers or on the unstructured particle batches, rigid
+bodies with the 14 joint adders, and the collision objects frozen into a
+``CollisionPipeline`` by ``build_collision_pipeline(device=)``.
 
 A :class:`SceneBuilder` accumulates particles, bodies and constraint specs
 on the host in numpy, then ``build(device=)`` freezes them into a
 ``(SimState, ConstraintSet)`` pair of tensors. Masses of 0 pin particles
-and make bodies static. Branches that later slices port (collision, rods,
+and make bodies static. Branches that later slices port (rods,
 ghost-point rods, generic constraints) raise ``NotImplementedError``
 naming the slice, rather than dropping their input.
 """
@@ -38,11 +39,6 @@ from .mesh import TetMesh, TriangleMesh
 #: The JAX builder's methods that later slices port, by slice: each
 #: raises NotImplementedError naming its slice rather than drop its input.
 _UNPORTED = {
-    "6b (collision)": (
-        "add_collision_object", "add_collision_sphere", "add_collision_box",
-        "add_collision_cylinder", "add_collision_torus", "add_collision_sdf",
-        "set_particle_collider", "set_tet_collider",
-        "build_collision_pipeline"),
     "7 (rods and generic constraints)": (
         "add_quaternions", "set_quaternion_mass", "add_ghost_rod_model",
         "add_ghost_rod_constraints", "add_line_model", "add_rod_constraints",
@@ -207,8 +203,12 @@ class SceneBuilder:
     _rb_inertia: list = field(default_factory=list)
     _joints: list = field(default_factory=list)
     # body -> its mesh frame (add_rigid_body_from_mesh), for the collision
-    # shapes of slice 6b
+    # shapes attached to it
     _rb_mesh_frames: dict = field(default_factory=dict)
+    # collision objects (frozen by build_collision_pipeline)
+    _rb_colliders: list = field(default_factory=list)
+    _pg_colliders: list = field(default_factory=list)
+    _tet_colliders: list = field(default_factory=list)
 
     # ---- particles -------------------------------------------------------
 
@@ -298,7 +298,7 @@ class SceneBuilder:
         …)`` + ``determineMassProperties``, ``Simulation/RigidBody.h:122-151,
         211-260``), its state re-expressed in the principal frame about the
         centre of mass as the reference does. The scaled mesh frame is kept
-        in ``_rb_mesh_frames`` for the collision shapes of slice 6b."""
+        in ``_rb_mesh_frames`` for the collision shapes attached to it."""
         verts = np.asarray(vertices, np.float64) * np.asarray(scale,
                                                               np.float64)
         mass, com, inertia = mass_properties(verts, faces, density)
@@ -419,6 +419,189 @@ class SceneBuilder:
             directions=np.asarray(
                 [average_radius, youngs_modulus, torsion_modulus],
                 np.float64))
+
+    # ---- collision objects (DistanceFieldCollisionDetection add*) --------
+
+    def add_collision_object(self, rb: int, shape, verts=None,
+                             restitution=0.6, friction=0.2):
+        """Attach an SDF collision geometry (``collision.SDFShape``) to a
+        rigid body, with body-frame surface samples used when the body is
+        the point side of an rb–rb test (``builders.py:533-573``). Without
+        ``verts`` a mesh-built body takes its own mesh vertices, an
+        analytic shape its default surface sampling."""
+        from ..collision import sampling
+        from ..collision.sdf import (BOX, CYLINDER, HOLLOW_BOX,
+                                     HOLLOW_SPHERE, SPHERE, TORUS)
+
+        mesh_frame = self._rb_mesh_frames.get(int(rb))
+        if verts is None:
+            if mesh_frame is not None:
+                verts = mesh_frame["verts"]
+            else:
+                k = shape.kind
+                p = shape.params.detach().cpu().numpy()
+                if k == SPHERE:
+                    verts = sampling.sample_sphere(float(p[0]))
+                elif k in (BOX, HOLLOW_BOX):
+                    verts = sampling.sample_box(p[:3])
+                elif k == CYLINDER:
+                    verts = sampling.sample_cylinder(float(p[0]),
+                                                     2 * float(p[1]))
+                elif k == TORUS:
+                    verts = sampling.sample_torus(float(p[0]), float(p[1]))
+                elif k == HOLLOW_SPHERE:
+                    verts = sampling.sample_sphere(float(p[0]) + float(p[1]))
+        self._rb_colliders.append(dict(
+            body=int(rb), shape=shape,
+            verts=None if verts is None else np.asarray(verts, np.float32),
+            frame_rot=(None if mesh_frame is None
+                       else mesh_frame["frame_rot"]),
+            frame_t=None if mesh_frame is None else mesh_frame["frame_t"],
+            restitution=float(restitution), friction=float(friction)))
+
+    def add_collision_sphere(self, rb, radius, **kw):
+        from ..collision.sdf import SDFShape
+        self.add_collision_object(rb, SDFShape.sphere(radius), **kw)
+
+    def add_collision_box(self, rb, half_extents, **kw):
+        from ..collision.sdf import SDFShape
+        self.add_collision_object(rb, SDFShape.box(half_extents), **kw)
+
+    def add_collision_cylinder(self, rb, radius, height, **kw):
+        from ..collision.sdf import SDFShape
+        self.add_collision_object(rb, SDFShape.cylinder(radius, height),
+                                  **kw)
+
+    def add_collision_torus(self, rb, major_r, minor_r, **kw):
+        from ..collision.sdf import SDFShape
+        self.add_collision_object(rb, SDFShape.torus(major_r, minor_r), **kw)
+
+    def add_collision_sdf(self, rb, values, origin, extent, verts=None, **kw):
+        """Baked-grid SDF (``CubicSDFCollisionDetection`` analogue); bake a
+        mesh with ``collision.bake_mesh_sdf``."""
+        from ..collision.sdf import SDFShape
+        self.add_collision_object(
+            rb, SDFShape.grid(values, origin, extent), verts=verts, **kw)
+
+    def set_particle_collider(self, handle, restitution=0.1, friction=0.2):
+        """Let a triangle/tet model's particles collide with rigid SDFs
+        (the ``collisionDetectionRBSolid`` path)."""
+        self._pg_colliders.append(dict(
+            offset=handle.offset, count=int(handle.mesh.n_vertices),
+            restitution=float(restitution), friction=float(friction)))
+
+    def set_tet_collider(self, handle: TetModelHandle, restitution=0.1,
+                         friction=0.2, sdf_resolution=24,
+                         grid_resolution=24, cache_dir=None):
+        """Register a tet model as a solid collision target: other
+        deformables' particles collide with its rest-pose surface through
+        the barycentric ref-tet map (``collisionDetectionSolidSolid``,
+        ``DistanceFieldCollisionDetection.cpp:361-470``).
+        ``sdf_resolution``/``cache_dir`` are kept as JAX's, which queries
+        the exact rest surface instead of a baked grid; ``grid_resolution``
+        sizes the ref-tet lookup grid."""
+        self._tet_colliders.append(dict(
+            offset=handle.offset, count=int(handle.mesh.n_vertices),
+            tets_local=handle.mesh.tets,
+            surface_faces=handle.mesh.surface_faces,
+            restitution=float(restitution), friction=float(friction),
+            sdf_resolution=sdf_resolution, grid_resolution=grid_resolution,
+            cache_dir=cache_dir))
+
+    def build_collision_pipeline(self, tolerance=0.01,
+                                 max_collider_verts=512,
+                                 broad_phase="auto", pair_capacity=None,
+                                 device=None):
+        """Freeze the colliders into a ``CollisionPipeline`` on ``device``
+        (None means CUDA), to pass to ``make_step_fn`` / ``step`` /
+        ``rollout`` or the planner (``builders.py:620-752``).
+        ``broad_phase``: "auto" (the batched pipeline once more than 24
+        gates would unroll), "unrolled" or "batched"; ``pair_capacity``
+        bounds the batched active-pair list per shape kind. Pairs of two
+        static bodies are dropped, and point clouds larger than
+        ``max_collider_verts`` are subsampled evenly (None keeps them)."""
+        from ..collision.bvh import build_block_spheres, morton_order
+        from ..collision.detection import (CollisionPipeline,
+                                           ParticleGroupCollider,
+                                           RigidCollider)
+        from ..collision.sdf import shape_bounding_radius
+        from ..collision.solid import TetCollider
+
+        dev = resolve_device(device)
+
+        def f32(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+        def _sub(v):
+            if (v is None or max_collider_verts is None
+                    or len(v) <= max_collider_verts):
+                return v
+            sel = np.linspace(0, len(v) - 1, max_collider_verts).astype(int)
+            return v[sel]
+
+        def _radii(c):
+            vr = (float(np.linalg.norm(c["verts"], axis=1).max())
+                  if c["verts"] is not None and len(c["verts"])
+                  else float("inf"))
+            sr = shape_bounding_radius(c["shape"])
+            if c.get("frame_t") is not None and np.isfinite(sr):
+                sr += float(np.linalg.norm(c["frame_t"]))
+            return vr, sr
+
+        rcs = []
+        for c in self._rb_colliders:
+            vr, sr = _radii(c)
+            verts_np = None if c["verts"] is None else _sub(c["verts"])
+            bc = br_ = None
+            if verts_np is not None and len(verts_np) >= 16:
+                # Morton-sorted vertices and their block spheres (bvh.py)
+                verts_np, centers, radii = build_block_spheres(
+                    verts_np, block_size=16)
+                bc, br_ = f32(centers), f32(radii)
+            rcs.append(RigidCollider(
+                body=c["body"], shape=c["shape"].to(dev),
+                verts=None if verts_np is None else f32(verts_np),
+                block_centers=bc, block_radii=br_,
+                frame_rot=(None if c.get("frame_rot") is None
+                           else f32(c["frame_rot"])),
+                frame_t=(None if c.get("frame_t") is None
+                         else f32(c["frame_t"])),
+                restitution=f32(c["restitution"]),
+                friction=f32(c["friction"]),
+                verts_radius=vr, shape_radius=sr))
+        dyn = [self._rb_mass[c["body"]] != 0.0 for c in self._rb_colliders]
+        rb_pairs = tuple(
+            (i, j) for i in range(len(rcs)) for j in range(len(rcs))
+            if i != j and rcs[i].verts is not None and (dyn[i] or dyn[j]))
+        x_all = (np.concatenate(self._x, axis=0)
+                 if self._x else np.zeros((0, 3), np.float32))
+        pgs = tuple(
+            ParticleGroupCollider(
+                offset=c["offset"], count=c["count"],
+                restitution=f32(c["restitution"]),
+                friction=f32(c["friction"]),
+                morton_perm=(torch.as_tensor(morton_order(
+                    x_all[c["offset"]:c["offset"] + c["count"]]),
+                    dtype=torch.int64, device=dev)
+                    if c["count"] >= 64 else None))
+            for c in self._pg_colliders)
+        # solid-solid: every particle group with every other tet collider
+        tcs = [TetCollider.create(
+            s["offset"], s["count"], s["tets_local"],
+            x_all[s["offset"]:s["offset"] + s["count"]], s["surface_faces"],
+            restitution=s["restitution"], friction=s["friction"],
+            sdf_resolution=s["sdf_resolution"],
+            grid_resolution=s["grid_resolution"], cache_dir=s["cache_dir"],
+            device=dev) for s in self._tet_colliders]
+        point_groups = [(c["offset"], c["count"], np.float32(c["friction"]))
+                        for c in self._pg_colliders]
+        solid_pairs = tuple((pg, tc) for pg in point_groups for tc in tcs
+                            if pg[0] != tc.offset)
+        return CollisionPipeline.create(rcs, pgs, tolerance=tolerance,
+                                        rb_pairs=rb_pairs,
+                                        solid_pairs=solid_pairs,
+                                        broad_phase=broad_phase,
+                                        pair_capacity=pair_capacity)
 
     # ---- per-constraint adders -------------------------------------------
 

@@ -12,8 +12,9 @@ any leading rollout axis: it returns a 0-d tensor for one state and a
 ``u`` of shape ``(K, u_dim)``). JAX gets the same by vmapping the scalar
 terms over K.
 
-The SDF obstacle penalties wait for the collision slice (6b), which
-brings ``collision/sdf.py``'s ``SDFShape``; building one of them raises.
+The SDF obstacle penalties evaluate ``collision/sdf.py``'s ``SDFShape``
+(its tensors copied once to the state's device) on the same leading
+rollout axis.
 """
 from __future__ import annotations
 
@@ -104,22 +105,66 @@ def as_running(terminal_cost: Callable) -> Callable:
 # ---------------------------------------------------------------------------
 
 
+class _OnDevice:
+    """The obstacle shapes and their translations, copied once to each
+    device a cost is evaluated on."""
+
+    def __init__(self, shapes, translations):
+        if translations is None:
+            translations = [(0.0, 0.0, 0.0)] * len(shapes)
+        self.shapes = list(shapes)
+        self.translations = [torch.as_tensor(t, dtype=torch.float32)
+                             for t in translations]
+        self.cache = {}
+
+    def __call__(self, device):
+        if device not in self.cache:
+            self.cache[device] = [
+                (s.to(device), t.to(device))
+                for s, t in zip(self.shapes, self.translations)]
+        return self.cache[device]
+
+
 def sdf_obstacle(shapes, weight: float = 1.0, margin: float = 0.0,
                  translations=None, subset=None) -> Callable:
-    """Penetration penalty of particles against SDF obstacles — needs
-    ``collision/sdf.py``'s ``SDFShape``, the collision slice (6b)."""
-    raise NotImplementedError(
-        "sdf_obstacle needs collision/sdf.py's SDFShape, which comes with "
-        "the collision slice (6b) of the port")
+    """Quadratic penetration penalty ``Σ max(0, margin − φ(x))²`` over (a
+    subset of) particles against static world-frame SDF obstacles, each
+    placed at its translation (``costs.py:92-113``). Running signature."""
+    on = _OnDevice(shapes, translations)
+    sub = None if subset is None else [int(i) for i in subset]
+    subs = {}
+
+    def cost(state, u):
+        x = state.particles.x
+        if sub is not None:
+            if x.device not in subs:
+                subs[x.device] = torch.as_tensor(sub, dtype=torch.int64,
+                                                 device=x.device)
+            x = x.index_select(x.dim() - 2, subs[x.device])
+        c = torch.zeros(x.shape[:-2], dtype=torch.float32, device=x.device)
+        for shape, t in on(x.device):
+            pen = torch.clamp_min(margin - shape.distance(x - t), 0.0)
+            c = c + torch.sum(pen * pen, dim=-1)
+        return weight * c
+
+    return cost
 
 
 def rigid_sdf_obstacle(shapes, body_index: int, radius: float,
                        weight: float = 1.0, translations=None) -> Callable:
-    """Penetration penalty of a rigid body's bounding sphere — needs
-    ``collision/sdf.py``'s ``SDFShape``, the collision slice (6b)."""
-    raise NotImplementedError(
-        "rigid_sdf_obstacle needs collision/sdf.py's SDFShape, which comes "
-        "with the collision slice (6b) of the port")
+    """Penetration penalty of one rigid body's bounding sphere against
+    static obstacles (``costs.py:116-133``). Running signature."""
+    on = _OnDevice(shapes, translations)
+
+    def cost(state, u):
+        p = state.rigid.x[..., body_index, :]
+        c = torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device)
+        for shape, t in on(p.device):
+            pen = torch.clamp_min(radius - shape.distance(p - t), 0.0)
+            c = c + pen * pen
+        return weight * c
+
+    return cost
 
 
 def control_effort(weight: float = 1.0) -> Callable:

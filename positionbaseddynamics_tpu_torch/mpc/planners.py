@@ -40,7 +40,7 @@ import torch
 from .._device import resolve_device
 from ..solver.constraints import ConstraintSet
 from ..solver.state import ParticleState, SimState
-from ..solver.step import StepConfig, _no_pipeline, make_step_fn
+from ..solver.step import StepConfig, make_step_fn
 
 Tensor = torch.Tensor
 
@@ -100,10 +100,10 @@ def make_sequence_cost(cset: ConstraintSet, cfg: StepConfig, control_model,
     rollout, or ``(K, T, u)`` for K: a state of one scene is then expanded
     to K rollouts (:func:`_expand_state`), and a state of K rollouts is
     taken as it is. The cost is 0-d or ``(K,)``. The step function is
-    built once, here; ``seq_cost.step`` is it, and ``seq_cost.path`` its
-    route."""
-    _no_pipeline(pipeline)
-    step_fn = make_step_fn(cset, cfg, device)
+    built once, here, with the collision ``pipeline`` when given (its
+    detection and contact solves run once for all K rollouts);
+    ``seq_cost.step`` is it, and ``seq_cost.path`` its route."""
+    step_fn = make_step_fn(cset, cfg, device, pipeline=pipeline)
 
     def seq_cost(state: SimState, controls: Tensor):
         x = state.particles.x
@@ -219,13 +219,14 @@ def make_mpc_controller(cset: ConstraintSet, cfg: StepConfig, control_model,
     is ``(n_steps, plan_iters, K, T, u)``: ``noise[s, i]`` is the ``eps``
     of update i at step s, as :func:`mppi_update` or :func:`cem_update`
     takes it. The nominal sequence warm-starts each step by a one-step
-    shift (zero tail)."""
-    _no_pipeline(pipeline)
+    shift (zero tail). A collision ``pipeline`` steps every rollout and
+    the executed step."""
     if planner_cfg is None:
         planner_cfg = MPPIConfig() if planner == "mppi" else CEMConfig()
     dev = resolve_device(device)
     seq_cost = make_sequence_cost(cset, cfg, control_model, running_cost,
-                                  terminal_cost, device=dev)
+                                  terminal_cost, pipeline=pipeline,
+                                  device=dev)
     u_dim = control_model.u_dim
     T = planner_cfg.horizon
     plan = plan_mppi if planner == "mppi" else plan_cem

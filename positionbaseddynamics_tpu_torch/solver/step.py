@@ -6,8 +6,12 @@ position-constraint projection → velocity update → damping}
 (``TimeStepController.cpp:93-173``), then the velocity-level projection of
 the velocity-motor joints (``velocity_constraint_projection``,
 ``TimeStepController.cpp:298-357``), then the time advances by ``dt``.
-Orientation particles (slice 7) and the collision pipeline with its
-contacts (slice 6b) come with later slices and raise.
+With a collision pipeline (``collision/``), the particle–tet contacts are
+detected once a step before the substeps and position-solved after the
+particle families in every projection iteration, and the velocity-level
+projection detects the rigid–rigid and particle–rigid contacts and solves
+them after the motors (``step.py:283-365, 455-590``). Orientation
+particles (slice 7) come with a later slice and raise.
 
 Four routes run the substeps, chosen once from the scene and the
 configuration:
@@ -15,8 +19,9 @@ configuration:
 * ``"cuda_kernel"``: the fused kernel of the scene's one grid, on a CUDA
   device, in Jacobi mode with ``jacobi_omega = 1`` and the first-order
   velocity update, when that grid covers every particle and the scene has
-  no particle batch and no rigid body — either one grid cloth with uniform
-  XPBD parameters
+  no particle batch, no rigid body and no collision pipeline (JAX also
+  steps collision scenes outside its kernels) — either one grid cloth
+  with uniform XPBD parameters
   (``grid_cloth_cuda.py``, one launch per substep) or one tet grid
   without ``inversion_handling`` (``grid_tet_cuda.py``, one launch per
   iteration of each substep);
@@ -57,13 +62,6 @@ PATH_KERNEL = "cuda_kernel"
 PATH_STENCIL = "torch_stencil"
 PATH_UNSTRUCTURED = "torch_unstructured"
 PATH_RIGID = "torch_rigid"
-
-
-def _no_pipeline(pipeline):
-    if pipeline is not None:
-        raise NotImplementedError(
-            "a collision pipeline (contacts, SDF colliders, particle-tet "
-            "contacts) comes with the collision slice (6b) of the port")
 
 
 @dataclass(frozen=True)
@@ -241,15 +239,22 @@ def _project_joints(rx, rq, rigid: RigidState, px, p_inv_mass,
 
 def project_positions(x: Tensor, inv_mass: Tensor, cset: ConstraintSet, dt,
                       cfg: StepConfig, passes=None,
-                      rigid: Optional[RigidState] = None, time=None):
+                      rigid: Optional[RigidState] = None, time=None,
+                      solid_contacts=None):
     """Position-constraint projection (``step.py:283-364``): λ starts at
     zero and accumulates across the ``max_iterations`` passes; each pass
     runs the grid families (``gauss_seidel``: the lattice-coloured sweeps
     of ``project_gs``), then the particle families, then the joints on
     ``rigid``'s integrated bodies at the step's start ``time`` (motor
-    targets). ``passes`` are :func:`batch_passes`' (computed here when
-    None). Returns ``(x, rigid_x, rigid_q)``, the last two None without
-    rigid bodies."""
+    targets), then the particle–tet ``solid_contacts``
+    (``TimeStepController.cpp:288-291``). ``passes`` are
+    :func:`batch_passes`' (computed here when None). Returns ``(x,
+    rigid_x, rigid_q, solid_lam)``: the rigid entries None without rigid
+    bodies, ``solid_lam`` the last pass's particle–tet λ (None without
+    solid contacts), which the friction pass reads."""
+    from ..collision.solid import solve_solid_contacts_position
+
+    solid_lam = None
     if passes is None:
         passes = batch_passes(cset, cfg, x.shape[-2])
     lams = cset.init_lambdas()
@@ -274,7 +279,11 @@ def project_positions(x: Tensor, inv_mass: Tensor, cset: ConstraintSet, dt,
         if rigid is not None and cset.joints:
             rx, rq, x = _project_joints(rx, rq, rigid, x, inv_mass, cset,
                                         lams, time, dt, cfg)
-    return x, rx, rq
+        if solid_contacts is not None:
+            dx, solid_lam = solve_solid_contacts_position(solid_contacts, x,
+                                                          inv_mass)
+            x = x + dx
+    return x, rx, rq, solid_lam
 
 
 @functools.lru_cache(maxsize=None)
@@ -285,9 +294,10 @@ def _gravity(g: tuple, device: torch.device) -> Tensor:
 
 
 def _substep(state: SimState, cset: ConstraintSet, h, cfg: StepConfig,
-             passes=None) -> SimState:
+             passes=None, solid_contacts=None):
     """One substep (``step.py:366-449``): particles and rigid bodies
-    integrated, projected, their velocities updated."""
+    integrated, projected, their velocities updated. Returns ``(state,
+    solid_lam)``."""
     p = state.particles
     gravity = _gravity(tuple(cfg.gravity), p.x.device)
     last_x, old_x = p.old_x, p.x
@@ -304,8 +314,9 @@ def _substep(state: SimState, cset: ConstraintSet, h, cfg: StepConfig,
         rq, romega = integration.semi_implicit_euler_rotation(
             h, r.inv_mass, iw, inv_iw, r.q, r.omega, r.ext_torque)
         r = dataclasses.replace(r, x=rx, q=rq, v=rv, omega=romega)
-    x, rx, rq = project_positions(x, p.inv_mass, cset, h, cfg, passes,
-                                  rigid=r, time=state.time)
+    x, rx, rq, solid_lam = project_positions(
+        x, p.inv_mass, cset, h, cfg, passes, rigid=r, time=state.time,
+        solid_contacts=solid_contacts)
     if cfg.velocity_update_method == 1:
         v = integration.velocity_update_second_order(
             h, p.inv_mass, x, old_x, last_x, v)
@@ -331,25 +342,77 @@ def _substep(state: SimState, cset: ConstraintSet, h, cfg: StepConfig,
         rigid = dataclasses.replace(
             r, x=rx, q=rq, v=rv, omega=romega, old_x=s0.x, last_x=s0.old_x,
             old_q=s0.q, last_q=s0.old_q)
-    return dataclasses.replace(state, particles=particles, rigid=rigid)
+    return (dataclasses.replace(state, particles=particles, rigid=rigid),
+            solid_lam)
+
+
+def _max_overflow(overflow: Optional[Tensor], new: Optional[Tensor]):
+    """The state's counter raised to ``new`` (JAX's ``jnp.maximum``
+    accumulation, ``step.py:485-492, 553-561``)."""
+    if overflow is None or new is None:
+        return overflow
+    return torch.maximum(overflow, new)
 
 
 def velocity_constraint_projection(state: SimState, cset: ConstraintSet,
-                                   cfg: StepConfig,
-                                   pipeline=None) -> SimState:
+                                   cfg: StepConfig, pipeline=None,
+                                   solid_contacts=None,
+                                   solid_lam=None) -> SimState:
     """Velocity-level projection once a step, after the substeps
     (``TimeStepController::velocityConstraintProjection``,
-    ``TimeStepController.cpp:298-357``; ``step.py:455-535``):
-    ``max_iterations_v`` passes over the velocity-motor joints, with the
-    masked world inverse inertia of the step's final rotations. Contacts
-    come with the collision slice (6b): a ``pipeline`` raises."""
-    _no_pipeline(pipeline)
+    ``TimeStepController.cpp:298-357``; ``step.py:455-535``): the
+    particle–tet friction pass with the last position pass's λ, then, on
+    a scene with rigid bodies, the rigid–rigid and particle–rigid
+    detection (its overflow into ``state.overflow``) and
+    ``max_iterations_v`` passes over the velocity-motor joints and the two
+    contact families (per-contact impulse sums carried across passes), in
+    ``contact_solver_mode``, with the masked world inverse inertia of the
+    step's final rotations."""
+    from ..collision import contacts as cops
+    from ..collision.batched import flat_contacts
+
     r = state.rigid
     vel_batches = [jb for jb in cset.joints if jb.has_velocity_solve]
-    if r is None or not vel_batches:
+    has_contacts = (pipeline is not None and pipeline.active
+                    and r is not None)
+    if solid_contacts is not None:
+        from ..collision.solid import solve_solid_contacts_velocity
+        p = state.particles
+        pv = p.v + solve_solid_contacts_velocity(
+            solid_contacts, p.x, p.v, p.inv_mass, lam=solid_lam)
+        state = dataclasses.replace(
+            state, particles=dataclasses.replace(p, v=pv))
+    if r is None or not (vel_batches or has_contacts):
         return state
+    p = state.particles
     rv, romega = r.v, r.omega
     iw = _masked_inv_inertia_w(r.q, r.inertia0, r.inv_mass)
+    rc = pc = None
+    if has_contacts:
+        from ..collision.detection import contacts_overflow
+        rc = pipeline.detect_rigid(r)
+        pc = pipeline.detect_particles(p.x, p.v, p.inv_mass, r)
+        state = dataclasses.replace(state, overflow=_max_overflow(
+            state.overflow, contacts_overflow(rc, pc)))
+    # the contact solves run on one flattened batch axis
+    nd = r.x.dim() - 2
+    lead, nr, n = r.x.shape[:nd], r.x.shape[-2], p.x.shape[-2]
+    rx_f = r.x.reshape(-1, nr, 3)
+    iw_f = iw.reshape(-1, nr, 3, 3)
+    if rc is not None:
+        rc = flat_contacts(rc, nd)
+        rc_sum = torch.zeros_like(rc.nkn_inv)
+    if pc is not None:
+        pc = flat_contacts(pc, nd)
+        pc_sum = torch.zeros_like(pc.nkn_inv)
+        pv_f = p.v.reshape(-1, n, 3)
+        pw = (p.inv_mass if p.inv_mass.dim() == 1
+              else p.inv_mass.reshape(-1, n))
+    sequential = cfg.contact_solver_mode == "gauss_seidel"
+    solve_rc = (cops._solve_rigid_sequential if sequential
+                else cops._solve_rigid)
+    solve_pc = (cops._solve_particle_rigid_sequential if sequential
+                else cops._solve_particle_rigid)
     gs = cfg.joint_solver_mode == "gauss_seidel"
     for _ in range(cfg.max_iterations_v):
         for jb in vel_batches:
@@ -361,8 +424,25 @@ def velocity_constraint_projection(state: SimState, cset: ConstraintSet,
                     corr_v, corr_om = corr_v * factor, corr_om * factor
                 rv = rv.index_add(-2, flat, _rows(corr_v))
                 romega = romega.index_add(-2, flat, _rows(corr_om))
-    return dataclasses.replace(
+        if rc is None and pc is None:
+            continue
+        rv_f, om_f = rv.reshape(-1, nr, 3), romega.reshape(-1, nr, 3)
+        if rc is not None:
+            rv_f, om_f, rc_sum = solve_rc(
+                rc, rx_f, rv_f, om_f, r.inv_mass, iw_f, rc_sum,
+                cfg.contact_stiffness_rb)
+        if pc is not None:
+            pv_f, rv_f, om_f, pc_sum = solve_pc(
+                pc, pv_f, pw, rx_f, rv_f, om_f, r.inv_mass, iw_f, pc_sum,
+                cfg.contact_stiffness_particle_rb)
+        rv = rv_f.reshape(*lead, nr, 3)
+        romega = om_f.reshape(*lead, nr, 3)
+    state = dataclasses.replace(
         state, rigid=dataclasses.replace(r, v=rv, omega=romega))
+    if pc is not None:
+        state = dataclasses.replace(state, particles=dataclasses.replace(
+            p, v=pv_f.reshape(p.v.shape)))
+    return state
 
 
 @dataclass(frozen=True)
@@ -465,33 +545,48 @@ def step(state: SimState, cset: ConstraintSet, cfg: StepConfig,
     from :func:`kernel_plan` the substeps run through its kernel, else
     through the PyTorch ops, with the particle families' ``passes`` from
     :func:`batch_passes` (computed here when None); ``make_step_fn`` and
-    ``rollout`` compute both once. A collision ``pipeline`` (slice 6b)
-    raises."""
-    _no_pipeline(pipeline)
+    ``rollout`` compute both once. A collision ``pipeline`` detects the
+    particle–tet contacts before the substeps (their overflow into
+    ``state.overflow``) and the other contacts in the velocity-level
+    projection."""
     if state.orientations is not None:
         raise NotImplementedError(
             "orientation particles come with the rod slice (7) of the port")
     if plan is not None:
-        if state.rigid is not None:
+        if state.rigid is not None or _has_pipeline(pipeline):
             raise ValueError(
                 "the kernel route steps particles only; a state with rigid "
-                "bodies needs a constraint set that records them (n_rigid, "
-                "as SceneBuilder and convert.scene_from_numpy set it)")
+                "bodies or a collision pipeline needs the PyTorch route "
+                "(a constraint set that records its bodies, n_rigid, as "
+                "SceneBuilder and convert.scene_from_numpy set it)")
         state = _kernel_substeps(state, plan, cfg)
-    else:
-        if passes is None:
-            passes = batch_passes(cset, cfg, state.particles.n)
-        h = cfg.dt / cfg.substeps
-        for _ in range(cfg.substeps):
-            state = _substep(state, cset, h, cfg, passes)
-        state = velocity_constraint_projection(state, cset, cfg)
+        return dataclasses.replace(state, time=state.time + cfg.dt)
+    if passes is None:
+        passes = batch_passes(cset, cfg, state.particles.n)
+    solid_contacts = solid_lam = None
+    if pipeline is not None and pipeline.solid_pairs:
+        p = state.particles
+        solid_contacts = pipeline.detect_solids(p.x, p.v, p.inv_mass)
+        state = dataclasses.replace(state, overflow=_max_overflow(
+            state.overflow, solid_contacts.overflow))
+    h = cfg.dt / cfg.substeps
+    for _ in range(cfg.substeps):
+        state, solid_lam = _substep(state, cset, h, cfg, passes,
+                                    solid_contacts)
+    state = velocity_constraint_projection(state, cset, cfg, pipeline,
+                                           solid_contacts, solid_lam)
     return dataclasses.replace(state, time=state.time + cfg.dt)
 
 
-def _route(cset: ConstraintSet, cfg: StepConfig, n: int):
+def _has_pipeline(pipeline) -> bool:
+    return pipeline is not None and pipeline.active
+
+
+def _route(cset: ConstraintSet, cfg: StepConfig, n: int, pipeline=None):
     """``(plan, passes, path)`` of a scene: the kernel plan, or the
-    particle passes and the PyTorch route's name."""
-    plan = kernel_plan(cset, cfg)
+    particle passes and the PyTorch route's name. A collision pipeline
+    takes the PyTorch route."""
+    plan = None if _has_pipeline(pipeline) else kernel_plan(cset, cfg)
     if plan is not None:
         return plan, (), PATH_KERNEL
     passes = batch_passes(cset, cfg, n)
@@ -503,25 +598,28 @@ def _route(cset: ConstraintSet, cfg: StepConfig, n: int):
 def make_step_fn(cset: ConstraintSet, cfg: StepConfig, device=None,
                  pipeline=None):
     """``state → state`` closure over a fixed scene on ``device`` (None
-    means CUDA). ``fn.path`` names the route its steps take,
+    means CUDA), with its collision ``pipeline`` when given (moved to
+    ``device``). ``fn.path`` names the route its steps take,
     ``"cuda_kernel"``, ``"torch_rigid"``, ``"torch_unstructured"`` or
-    ``"torch_stencil"``. A collision ``pipeline`` (slice 6b) raises."""
-    _no_pipeline(pipeline)
+    ``"torch_stencil"``; a scene with a pipeline never takes the kernel
+    route."""
     dev = resolve_device(device)
     if cset.device is not None and cset.device != dev:
         cset = cset.to(dev)
+    if pipeline is not None and pipeline.device not in (None, dev):
+        pipeline = pipeline.to(dev)
     n = cset.n_particles
     if n is None and cset.particle_batches():
         raise ValueError("a constraint set with particle batches needs its "
                          "n_particles; build it with SceneBuilder or "
                          "convert.scene_from_numpy")
-    plan, passes, path = _route(cset, cfg, n)
+    plan, passes, path = _route(cset, cfg, n, pipeline)
 
     def fn(state: SimState) -> SimState:
         if state.particles.x.device != dev:
             raise ValueError(f"step function built for {dev}; the state "
                              f"is on {state.particles.x.device}")
-        return step(state, cset, cfg, plan, passes)
+        return step(state, cset, cfg, plan, passes, pipeline)
 
     fn.path = path
     return fn
@@ -529,18 +627,17 @@ def make_step_fn(cset: ConstraintSet, cfg: StepConfig, device=None,
 
 def rollout(state: SimState, cset: ConstraintSet, cfg: StepConfig,
             n_steps: int, collect: bool = False, pipeline=None):
-    """Run ``n_steps`` sim steps. Returns ``(final state, trajectory)``:
-    the stacked positions ``(n_steps, ..., N, 3)`` when ``collect``, else
-    None — the shape of the JAX ``rollout``'s scan result. A collision
-    ``pipeline`` (slice 6b) raises."""
-    _no_pipeline(pipeline)
+    """Run ``n_steps`` sim steps (with the collision ``pipeline`` when
+    given). Returns ``(final state, trajectory)``: the stacked positions
+    ``(n_steps, ..., N, 3)`` when ``collect``, else None — the shape of
+    the JAX ``rollout``'s scan result."""
     if state.particles.x.device.type == "cuda":
-        plan, passes, _ = _route(cset, cfg, state.particles.n)
+        plan, passes, _ = _route(cset, cfg, state.particles.n, pipeline)
     else:
         plan, passes = None, batch_passes(cset, cfg, state.particles.n)
     xs = []
     for _ in range(n_steps):
-        state = step(state, cset, cfg, plan, passes)
+        state = step(state, cset, cfg, plan, passes, pipeline)
         if collect:
             xs.append(state.particles.x)
     return state, (torch.stack(xs) if collect else None)

@@ -38,8 +38,10 @@ def _one_torch_thread():
     (["--bar", "--bar-dims", "6", "4", "4"], "xpbd_fem_bar_0k_steps_per_s",
      ()),
     (["--fluid", "--fluid-dims", "6", "8", "6"], "pbf_dam_0k_steps_per_s",
-     ("capacity_overflow", "n_fluid", "n_boundary"))],
-    ids=["default", "batch", "mpc", "mpc_big", "bar", "fluid"])
+     ("capacity_overflow", "n_fluid", "n_boundary")),
+    (["--pile-big", "--pile-bodies", "4"], "rigid_pile_4body_steps_per_s",
+     ("capacity_overflow",))],
+    ids=["default", "batch", "mpc", "mpc_big", "bar", "fluid", "pile_big"])
 def test_mode_prints_one_line_with_the_bench_metric(capsys, mode, metric,
                                                     extra):
     assert bench_torch.main(SMALL + mode) == 0
@@ -56,7 +58,9 @@ def test_mode_prints_one_line_with_the_bench_metric(capsys, mode, metric,
     for k in ("unit", "path", "device", "card") + extra:
         assert k in rec, k
     assert rec["device"] == "cpu" and rec["card"] is None
-    assert rec["path"].startswith("torch_")
+    # bench.py names --pile-big's path by its broad phase
+    assert rec["path"].startswith("torch_") or (
+        rec["path"] == "batched_broadphase" and "pile" in metric)
     if "capacity_overflow" in extra:
         assert rec["capacity_overflow"] == 0.0
 
@@ -74,10 +78,10 @@ def test_without_cuda_it_exits_non_zero_and_prints_nothing():
 
 
 @pytest.mark.parametrize("flag,names", [
-    ("--check", "no kernel"), ("--pile", "slice 6b"),
-    ("--pile-big", "slice 6b"), ("--scene", "slice 8"),
-    ("--rods", "slice 7"), ("--tree", "slice 7"),
-    ("--armadillo-batch", "slice 4"), ("--mpc-contact", "slice 6b")])
+    ("--check", "no kernel"), ("--pile", "PileScene.json"),
+    ("--scene", "slice 8"), ("--rods", "slice 7"), ("--tree", "slice 7"),
+    ("--armadillo-batch", "ArmadilloCollisionScene.json"),
+    ("--mpc-contact", "slice 8")])
 def test_check_on_cpu_and_unported_modes_exit_2(capsys, flag, names):
     assert bench_torch.main(SMALL + [flag]) == 2
     out = capsys.readouterr()

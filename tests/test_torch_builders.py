@@ -306,3 +306,86 @@ def test_rigid_body_from_mesh_keeps_its_mesh_frame_as_jax():
 def test_generic_rigid_constraints_raise_naming_slice_7():
     with pytest.raises(NotImplementedError, match=r"slice 7"):
         TBuilder().add_generic_rigid_constraints(lambda x, q: x, [(0, 1)])
+
+
+def _collision_zoo(pkg, broad_phase):
+    """Every collision adder: a static box floor, bodies with a sphere, a
+    cylinder, a torus, a hollow box and a hollow sphere (their default
+    surface samples, one beyond ``max_collider_verts``), a mesh-built body
+    with a baked grid SDF (its mesh vertices as samples), a 10×10 cloth as
+    a particle collider (Morton-ordered: ≥ 64 particles) and two tet bars
+    as particle and tet colliders."""
+    import torch_collision_scenes as scenes
+
+    builder, col = scenes.mods(pkg)
+    sdf = col.SDFShape
+    b = builder()
+    floor = b.add_rigid_body((0.0, -0.5, 0.0), mass=0.0)
+    b.add_collision_box(floor, (3.0, 0.5, 3.0), restitution=0.3)
+    bodies = [b.add_rigid_body((0.8 * i - 2.0, 1.0, 0.0), mass=1.0 + i)
+              for i in range(5)]
+    b.add_collision_sphere(bodies[0], 0.3, friction=0.4)
+    b.add_collision_cylinder(bodies[1], 0.2, 0.6)
+    b.add_collision_torus(bodies[2], 0.3, 0.1)
+    b.add_collision_object(bodies[3], sdf.hollow_box((0.3, 0.2, 0.2), 0.02))
+    b.add_collision_object(bodies[4], sdf.hollow_sphere(0.3, 0.05),
+                           restitution=0.1)
+    v, f = scenes.cube_mesh(0.25)
+    mesh = b.add_rigid_body_from_mesh(v * [1.0, 0.7, 1.2], f, density=3.0,
+                                      translation=(1.5, 1.0, 0.5))
+    values, origin, extent = col.bake_mesh_sdf(v * [1.0, 0.7, 1.2], f,
+                                               resolution=10)
+    b.add_collision_sdf(mesh, values, origin, extent)
+    cloth = b.add_regular_triangle_model(10, 10, translation=(-1, 2, -1),
+                                         rotation=scenes.FLAT,
+                                         scale=(2.0, 2.0))
+    b.set_particle_collider(cloth, restitution=0.2, friction=0.1)
+    for y in (0.3, 0.8):
+        bar = b.add_regular_tet_model(4, 2, 2, translation=(0.0, y, 0.0),
+                                      scale=(1.0, 0.2, 0.3))
+        b.set_particle_collider(bar)
+        b.set_tet_collider(bar, grid_resolution=8)
+    kw = {} if pkg == "jax" else {"device": "cpu"}
+    return b.build_collision_pipeline(
+        tolerance=0.015, max_collider_verts=40, broad_phase=broad_phase,
+        pair_capacity=16 if broad_phase == "batched" else None, **kw)
+
+
+def _same(t, j, path="pipeline"):
+    """The port's collision structure ``t`` equals JAX's ``j`` field by
+    field: tensors exactly (indices as int64), numbers and tuples equal;
+    ``grid_row``, the port's handle on a stack of grids, is skipped."""
+    import dataclasses
+
+    import torch
+
+    if dataclasses.is_dataclass(j):
+        assert type(t).__name__ == type(j).__name__, path
+        for f in dataclasses.fields(j):
+            _same(getattr(t, f.name), getattr(j, f.name),
+                  f"{path}.{f.name}")
+    elif isinstance(j, (tuple, list)):
+        assert len(t) == len(j), path
+        for i, (a, b) in enumerate(zip(t, j)):
+            _same(a, b, f"{path}[{i}]")
+    elif j is None or t is None:
+        assert t is None and j is None, path
+    elif isinstance(j, np.generic):
+        assert t == j, path
+    elif hasattr(j, "shape"):
+        assert isinstance(t, torch.Tensor), path
+        assert t.dtype in (torch.float32, torch.int64), path
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j), path)
+    else:
+        assert t == j, path
+
+
+@pytest.mark.parametrize("broad_phase", ["auto", "unrolled", "batched"])
+def test_collision_adders_build_jax_pipeline(broad_phase):
+    jp = _collision_zoo("jax", broad_phase)
+    tp = _collision_zoo("torch", broad_phase)
+    assert tp.broad_phase == jp.broad_phase
+    assert tp.broad_phase == ("unrolled" if broad_phase == "unrolled"
+                              else "batched")
+    assert tp.active and len(tp.solid_pairs) == 4
+    _same(tp, jp)

@@ -34,7 +34,11 @@ def test_port_has_the_slice_modules():
                  "fluids.cellgrid_cuda", "fluids.model",
                  "fluids.classgrid", "mpc.controls", "mpc.costs",
                  "mpc.planners", "ops.quaternion", "ops.rigidbody",
-                 "solver.joints", "utils.npquat", "utils.massprops"):
+                 "solver.joints", "utils.npquat", "utils.massprops",
+                 "collision", "collision.sdf", "collision.sampling",
+                 "collision.bvh", "collision.csdf", "collision.bake",
+                 "collision.detection", "collision.batched",
+                 "collision.contacts", "collision.solid"):
         assert f"positionbaseddynamics_tpu_torch.{name}" in mods, name
 
 

@@ -604,3 +604,88 @@ def test_fluid_step_fn_takes_the_kernels_on_card(cuda):
     assert np.isfinite(s.x.cpu().numpy()).all()
     assert (s.x.cpu() - r.x).abs().max().item() <= 1e-4
     assert abs(s.time.item() - r.time.item()) <= 1e-5 * r.time.item()
+
+
+# ---------------------------------------------------------------------------
+# Collision (no kernel of the port on its path: plain PyTorch on the card)
+# ---------------------------------------------------------------------------
+
+
+def _pile(device, n=12):
+    import bench_torch
+
+    return bench_torch.pile_scene(n, device)
+
+
+def test_pile_step_on_card_matches_cpu(cuda):
+    """The batched broad phase on a 12-body pile: 20 steps on the card
+    against the port on the CPU within 1e-4 (``BASELINE.md``'s end-to-end
+    bar), the same active contact count each step, overflow 0."""
+    ts, tc, tp = _pile(cuda)
+    cs, cc, cp = _pile(torch.device("cpu"))
+    fn = make_step_fn(tc, StepConfig(), device=cuda, pipeline=tp)
+    ref = make_step_fn(cc, StepConfig(), device="cpu", pipeline=cp)
+    for _ in range(20):
+        na = int(tp.detect_rigid(ts.rigid).mask.sum().item())
+        nb = int(cp.detect_rigid(cs.rigid).mask.sum().item())
+        assert na == nb
+        ts, cs = fn(ts), ref(cs)
+    assert (ts.rigid.x.cpu() - cs.rigid.x).abs().max().item() <= 1e-4
+    assert ts.overflow.item() == 0.0
+
+
+def test_collision_step_never_syncs_the_host(cuda):
+    """One step of the pile and one of the two bars (particle–tet
+    contacts) under CUDA's sync debug mode "error", after a warm-up
+    step."""
+    from positionbaseddynamics_tpu_torch.models import SceneBuilder as B
+
+    def bars():
+        b = B()
+        bottom = b.add_regular_tet_model(6, 2, 2, scale=(1.2, 0.25, 0.4))
+        for i in range(bottom.mesh.n_vertices):
+            b.set_mass(bottom.offset + i, 0.0)
+        top = b.add_regular_tet_model(6, 2, 2, translation=(0.05, 0.2, 0.0),
+                                      scale=(1.0, 0.25, 0.3))
+        b.add_solid_constraints(top, method=3, stiffness=1e5)
+        for h in (bottom, top):
+            b.set_particle_collider(h, restitution=0.0)
+            b.set_tet_collider(h, restitution=0.0, grid_resolution=16)
+        state, cset = b.build(device=cuda)
+        return state, cset, b.build_collision_pipeline(device=cuda)
+
+    for state, cset, pipe in (_pile(cuda), bars()):
+        fn = make_step_fn(cset, StepConfig(), device=cuda, pipeline=pipe)
+        state = fn(state)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state = fn(state)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.isfinite(state.particles.x).all()
+
+
+def test_pile_rollouts_on_card_equal_each_alone(cuda):
+    """K 3 rollouts of the pile with their own start velocities as one
+    batched state, against each alone, 10 steps: within 1e-6."""
+    import dataclasses
+
+    from positionbaseddynamics_tpu_torch.mpc.planners import _expand_state
+
+    ts, tc, tp = _pile(cuda)
+    fn = make_step_fn(tc, StepConfig(), device=cuda, pipeline=tp)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    kick = 0.5 * torch.randn((3,) + tuple(ts.rigid.v.shape), generator=g,
+                             device=cuda)
+    batch = _expand_state(ts, 3)
+    batch = dataclasses.replace(batch, rigid=dataclasses.replace(
+        batch.rigid, v=batch.rigid.v + kick))
+    alone = [dataclasses.replace(ts, rigid=dataclasses.replace(
+        ts.rigid, v=ts.rigid.v + kick[k])) for k in range(3)]
+    for _ in range(10):
+        batch = fn(batch)
+        alone = [fn(a) for a in alone]
+    for k in range(3):
+        assert (batch.rigid.x[k] - alone[k].rigid.x).abs().max().item() \
+            <= 1e-6

@@ -431,21 +431,113 @@ def test_mppi_update_on_the_unstructured_pin_steering_cloth_matches_jax():
     assert np.abs(np.asarray(ij["controls"])).max() > 1e-2
 
 
+def _obstacles(m):
+    """A sphere, a box turned inside out and a grid obstacle of package
+    ``m``'s ``SDFShape``, placed by translations."""
+    from importlib import import_module
+    sdf = import_module(m.__name__.rsplit(".", 1)[0] + ".collision.sdf")
+    vals = np.random.default_rng(9).normal(0.3, 0.2, (6, 5, 7)).astype(
+        np.float32)
+    return ([sdf.SDFShape.sphere(0.4), sdf.SDFShape.box((0.3, 0.2, 0.5)),
+             sdf.SDFShape.grid(vals, (-1.0, -1.0, -1.0), (2.0, 2.0, 2.0))],
+            [(0.2, 0.1, -0.1), (-0.3, 0.0, 0.2), (0.0, 0.0, 0.0)])
+
+
 @pytest.mark.parametrize("make", [
-    lambda: tmpc.sdf_obstacle([]),
-    lambda: tmpc.rigid_sdf_obstacle([], 0, 0.1)],
+    lambda m: m.sdf_obstacle(*_obstacles(m)[:1], weight=3.0, margin=0.1,
+                             translations=_obstacles(m)[1], subset=[0, 2, 5,
+                                                                    7]),
+    lambda m: m.rigid_sdf_obstacle(_obstacles(m)[0], 1, radius=0.3,
+                                   weight=500.0,
+                                   translations=_obstacles(m)[1])],
     ids=["sdf_obstacle", "rigid_sdf_obstacle"])
 def test_unported_terms_raise_naming_their_slice(make):
-    with pytest.raises(NotImplementedError, match=r"slice \(6b\)"):
-        make()
+    """The SDF obstacle terms (ported with collision): penetration
+    penalties of particles (a subset, with a margin) and of a rigid body's
+    bounding sphere against three placed obstacles, over one state and K 5
+    rollouts, 1e-6 relative to JAX's."""
+    from positionbaseddynamics_tpu.solver.state import RigidState as JRigid
+    from positionbaseddynamics_tpu_torch.solver.state import (
+        RigidState as TRigid)
+
+    rng = np.random.default_rng(15)
+    jterm, tterm = make(jmpc), make(tmpc)
+    for k in (None, 5):
+        lead = () if k is None else (k,)
+        x = rng.uniform(-0.8, 0.8, lead + (8, 3)).astype(np.float32)
+        rx = rng.uniform(-0.8, 0.8, lead + (3, 3)).astype(np.float32)
+        u = np.zeros(lead + (3,), np.float32)
+
+        def jcost(xx, rr, uu):
+            r = JRigid.create(rr, np.tile([1.0, 0, 0, 0], (3, 1)),
+                              np.ones(3), np.ones((3, 3)))
+            p = JParticles.create(xx, np.ones(8))
+            return jterm(JSimState.create(p, rigid=r), uu)
+
+        args = (jnp.asarray(x), jnp.asarray(rx), jnp.asarray(u))
+        cj = np.asarray(jcost(*args) if k is None
+                        else jax.vmap(jcost)(*args))
+        r = dataclasses.replace(TRigid.create(
+            np.zeros((3, 3)), np.tile([1.0, 0, 0, 0], (3, 1)), np.ones(3),
+            np.ones((3, 3)), device="cpu"), x=torch.from_numpy(rx))
+        st = TSimState(particles=dataclasses.replace(TParticles.create(
+            np.zeros((8, 3)), np.ones(8), device="cpu"),
+            x=torch.from_numpy(x)), orientations=None, rigid=r,
+            time=torch.zeros(()))
+        ct = tterm(st, torch.from_numpy(u))
+        assert tuple(ct.shape) == lead
+        assert (cj > 0).any()
+        assert _rel(ct.numpy(), cj) <= 1e-6
 
 
 def test_pipeline_raises_naming_its_slice():
-    _, tc = _cloth(TBuilder, device="cpu")
-    ctrl = tmpc.PinVelocityControl(indices=(0,))
-    for f in (tmpc.make_sequence_cost, tmpc.make_mpc_controller):
-        with pytest.raises(NotImplementedError, match=r"slice \(6b\)"):
-            f(tc, TConfig(), ctrl, pipeline=object(), device="cpu")
+    """``make_sequence_cost(pipeline=)`` (ported with collision) over K 4
+    rollouts of the 12×12 cloth landing on the sphere, with the
+    particle–rigid contacts, the SDF obstacle term on the cloth and the
+    corner pin's velocity as the control: costs 1e-5 relative and
+    positions 1e-5 from JAX's vmapped sequence cost, overflow 0; and
+    ``make_mpc_controller(pipeline=)`` runs a step on it."""
+    import torch_collision_scenes as scenes
+    from positionbaseddynamics_tpu.collision.sdf import SDFShape as JShape
+    from positionbaseddynamics_tpu_torch.collision.sdf import (
+        SDFShape as TShape)
+
+    js, jc, jp = scenes.cloth_on_sphere("jax", height=0.63)
+    ts, tc, tp = scenes.cloth_on_sphere("torch", height=0.63)
+    terms = {}
+    for name, m, shape in (("j", jmpc, JShape), ("t", tmpc, TShape)):
+        terms[name] = dict(
+            running_cost=m.combine(
+                m.control_effort(1e-3),
+                m.sdf_obstacle([shape.sphere(0.6)], weight=10.0,
+                               margin=0.05)),
+            terminal_cost=m.velocity_penalty(0.1))
+    cj_ = jmpc.PinVelocityControl(indices=(0,), max_speed=2.0)
+    ct_ = tmpc.PinVelocityControl(indices=(0,), max_speed=2.0)
+    jseq = jmpc.make_sequence_cost(jc, JConfig(), cj_, pipeline=jp,
+                                   **terms["j"])
+    tseq = tmpc.make_sequence_cost(tc, TConfig(), ct_, pipeline=tp,
+                                   device="cpu", **terms["t"])
+    assert tseq.path == "torch_rigid"
+    u = np.random.default_rng(16).normal(0.0, 1.0, (4, 16, 3)).astype(
+        np.float32)
+    cj, xj, oj = jax.vmap(lambda uu: (lambda c, s: (
+        c, s.particles.x, s.overflow))(*jseq(js, uu)))(jnp.asarray(u))
+    ct, st = tseq(ts, torch.from_numpy(u))
+    assert ct.shape == (4,)
+    assert _rel(ct.numpy(), cj) <= 1e-5
+    assert np.abs(st.particles.x.numpy() - np.asarray(xj)).max() <= 1e-5
+    assert float(st.overflow.max()) == float(np.asarray(oj).max()) == 0.0
+    # the cloth reached the sphere in every rollout
+    assert (np.linalg.norm(st.particles.x.numpy(), axis=-1).min(-1)
+            < 0.625).all()
+    run = tmpc.make_mpc_controller(
+        tc, TConfig(), ct_, planner="mppi", pipeline=tp, device="cpu",
+        planner_cfg=tmpc.MPPIConfig(horizon=2, num_samples=3,
+                                    plan_iters=1), **terms["t"])
+    fin, info = run(ts, 1, generator=torch.Generator().manual_seed(0))
+    assert info["controls"].shape == (1, 3)
+    assert torch.isfinite(fin.particles.x).all()
 
 
 # ---------------------------------------------------------------------------
@@ -627,6 +719,54 @@ def test_rigid_mpc_controller_matches_jax_on_fed_noise():
     assert _rel(it["cost"].numpy(), ij["cost"]) <= 1e-5
     assert np.abs(ft.rigid.x.numpy() - np.asarray(fj.rigid.x)).max() <= 1e-5
     assert ft.rigid.x.shape == (1, 3)
+
+
+def test_mppi_avoids_sdf_obstacle_fed_jax_noise():
+    """JAX's ``test_mppi_avoids_sdf_obstacle`` scene (``tests/test_mpc.py:
+    51-87``): the free body, no gravity, a sphere obstacle of radius 0.25
+    between it and the target, ``rigid_sdf_obstacle`` at weight 500, MPPI
+    K 96, h 10, 2 updates a step; 10 controller steps fed the draws JAX's
+    controller makes from its key. Costs 1e-5 relative, the body 1e-5; it
+    stays out of the obstacle. The executed controls are updates: a cost
+    rounding δ moves a weight by δ/λ (λ 0.05), and the obstacle's weight
+    500 makes the costs large, so they are held to 1e-4 relative to the
+    largest (~120 N)."""
+    from positionbaseddynamics_tpu.collision.sdf import SDFShape as JShape
+    from positionbaseddynamics_tpu_torch.collision.sdf import (
+        SDFShape as TShape)
+
+    js, jc, ts, tc = _free_rigid_scenes()
+    cfg = dict(substeps=2, gravity=(0.0, 0.0, 0.0))
+    target = np.array([1.2, 0.0, 0.0], np.float32)
+    obstacle_pos = np.array([0.6, 0.0, 0.0], np.float32)
+    pc = dict(horizon=10, num_samples=96, sigma=20.0, temperature=0.05,
+              plan_iters=2)
+    runs = {}
+    for name, m, shape, conf in (("j", jmpc, JShape, JConfig),
+                                 ("t", tmpc, TShape, TConfig)):
+        kw = {} if name == "j" else {"device": "cpu"}
+        runs[name] = m.make_mpc_controller(
+            jc if name == "j" else tc, conf(**cfg),
+            m.RigidWrenchControl(body_indices=(0,), max_force=120.0),
+            running_cost=m.combine(
+                m.as_running(m.rigid_target(0, target, weight=1.0)),
+                m.rigid_sdf_obstacle([shape.sphere(0.25)], 0, radius=0.1,
+                                     weight=500.0,
+                                     translations=[obstacle_pos]),
+                m.control_effort(1e-6)),
+            terminal_cost=m.rigid_target(0, target, weight=10.0),
+            planner="mppi", planner_cfg=m.MPPIConfig(**pc), **kw)
+    key = jax.random.PRNGKey(1)
+    n_steps = 10
+    noise = _controller_noise(key, n_steps, jmpc.MPPIConfig(**pc), 20.0,
+                              u_dim=6)
+    fj, ij = jax.jit(lambda k, s: runs["j"](k, s, n_steps))(key, js)
+    ft, it = runs["t"](ts, n_steps, noise=torch.from_numpy(noise))
+    assert _rel(it["controls"].numpy(), ij["controls"]) <= 1e-4
+    assert _rel(it["cost"].numpy(), ij["cost"]) <= 1e-5
+    assert np.abs(ft.rigid.x.numpy() - np.asarray(fj.rigid.x)).max() <= 1e-5
+    assert np.linalg.norm(ft.rigid.x.numpy()[0] - obstacle_pos) > 0.25
+    assert np.linalg.norm(ft.rigid.x.numpy()[0]) > 0.05
 
 
 def test_mpc_exports_the_jax_names():

@@ -330,12 +330,19 @@ def test_rigid_entry_points_need_cuda_or_the_cpu(monkeypatch):
 
 
 def test_unported_rigid_branches_raise_naming_their_slice():
+    """The rod branches raise naming slice 7. A collision pipeline (ported
+    with collision) that holds no pair steps the chain as no pipeline
+    does, through ``make_step_fn`` and ``rollout``."""
+    from positionbaseddynamics_tpu_torch.collision import CollisionPipeline
+
     ts, tc = scenes.chain(TBuilder, device="cpu")
-    for f in (lambda: make_step_fn(tc, TConfig(), device="cpu",
-                                   pipeline=object()),
-              lambda: trollout(ts, tc, TConfig(), 1, pipeline=object())):
-        with pytest.raises(NotImplementedError, match=r"slice \(6b\)"):
-            f()
+    idle = CollisionPipeline.create()
+    assert not idle.active
+    plain = make_step_fn(tc, TConfig(), device="cpu")(ts)
+    for s in (make_step_fn(tc, TConfig(), device="cpu", pipeline=idle)(ts),
+              trollout(ts, tc, TConfig(), 1, pipeline=idle)[0]):
+        assert torch.equal(s.rigid.x, plain.rigid.x)
+        assert torch.equal(s.overflow, plain.overflow)
     for field in ("direct_rods", "rigid_generics"):
         with pytest.raises(NotImplementedError, match="slice 7"):
             ConstraintSet(**{field: (object(),)})
