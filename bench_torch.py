@@ -10,6 +10,8 @@ one-line JSON shape with ``bench.py``'s metric names.
     python3 bench_torch.py --mpc                 # MPPI, 32x32 cloth, K 256
     python3 bench_torch.py --mpc-big             # MPPI over K 320x320 cloths
     python3 bench_torch.py --pile-big            # 100 spheres on a box floor
+    python3 bench_torch.py --rods                # 1024 Cosserat rods
+    python3 bench_torch.py --tree                # a 100-constraint stiff tree
     python3 bench_torch.py --check               # kernels vs plain versions
 
 Every line carries ``metric``, ``value``, ``unit`` and ``vs_baseline``
@@ -18,8 +20,10 @@ the north-star 60 steps/s, as ``bench.py`` computes it), the extra keys that
 ``bench.py`` prints for the mode, ``"path"`` (``"cuda_per_substep"``: the
 fused cloth substep, one launch per substep; ``"cuda_kernel"``: the
 bar's and the dam's kernels; a ``"torch_..."`` name for the plain
-routes; ``"batched_broadphase"``: ``--pile-big``'s, as ``bench.py``
-names it), ``"device"`` and ``"card"``, the card's ``nvidia-smi
+routes; ``"batched_broadphase"``: ``--pile-big``'s, ``"rod_lattice"``
+or ``"unstructured"``: ``--rods``', ``"tree_scheduled"``: ``--tree``'s,
+as ``bench.py`` names them), ``"device"`` and ``"card"``, the card's
+``nvidia-smi
 --query-gpu=name,power.limit`` line (None on the CPU).
 
 The port runs on the card: ``--device`` defaults to ``cuda`` and the
@@ -54,8 +58,6 @@ UNPORTED = {
             "data/scenes/PileScene.json and data/sdf/bunny_10k.csdf, which "
             "the repository does not hold",
     "scene": "scene I/O (slice 8)",
-    "rods": "rods (slice 7)",
-    "tree": "rods (slice 7)",
     "armadillo_batch": _ARMADILLO,
     "mpc_contact": _ARMADILLO,
 }
@@ -358,6 +360,115 @@ def bench_pile_big(args, dev):
                    capacity_overflow=st[0].overflow.item())
 
 
+ROD_POINTS = 51          # bench.py --rods: 51 points, 50 segments a rod
+TREE_SEGMENTS = 101      # bench.py --rods --tree at --rod-batch >= 512
+
+
+def rod_scene(n_rods, device, structured=True, n_points=ROD_POINTS):
+    """``bench.py --rods``' scene (``bench.py:396-416``): ``n_rods``
+    straight rods of ``n_points`` along x at 0.02 spacing in y, each root
+    particle and frame pinned, stretch-shear (1, 1, 1) and bend-twist
+    (0.5, 0.5, 0.5); the rod lattice unless ``structured`` is False."""
+    from positionbaseddynamics_tpu_torch.models import SceneBuilder
+
+    b = SceneBuilder(use_structured_grid=structured)
+    for r in range(n_rods):
+        pts = np.stack([np.linspace(0.0, 1.0, n_points),
+                        np.full(n_points, 0.02 * r), np.zeros(n_points)], 1)
+        lm = b.add_line_model(pts)
+        b.set_mass(lm.offset, 0.0)
+        b.set_quaternion_mass(lm.offset_q, 0.0)
+        b.add_rod_constraints(lm, stretch_stiffness=(1.0, 1.0, 1.0),
+                              bend_twist_stiffness=(0.5, 0.5, 0.5))
+    return b.build(device=device)
+
+
+def tree_scene(n_seg, device, solver="tree", seed=0):
+    """``bench.py --rods --tree``'s scene (``bench.py:336-371``): a random
+    tree of ``n_seg`` stiff-rod segments (r 0.05, length 0.3, density
+    1000, E = G = 1e6) from ``default_rng(seed)``, segment i hung from a
+    random earlier one in a random direction, the root static, its
+    solver forced to ``solver``."""
+    import dataclasses
+
+    from positionbaseddynamics_tpu_torch.models import SceneBuilder
+
+    rng = np.random.default_rng(seed)
+    seg_len, radius, density = 0.3, 0.05, 1000.0
+    mass = density * np.pi * radius**2 * seg_len
+    ix = 0.5 * mass * radius**2
+    iyz = mass * (3 * radius**2 + seg_len**2) / 12.0
+    b = SceneBuilder()
+    bodies = [b.add_rigid_body((0.0, 0.0, 0.0), mass=0.0,
+                               inertia=(ix, iyz, iyz))]
+    centers = [np.zeros(3)]
+    edges, positions = [], []
+    for i in range(1, n_seg):
+        parent = int(rng.integers(0, i))
+        d = rng.standard_normal(3)
+        d /= np.linalg.norm(d)
+        joint = centers[parent] + 0.5 * seg_len * d
+        c = joint + 0.5 * seg_len * d
+        centers.append(c)
+        bodies.append(b.add_rigid_body(tuple(c), mass=mass,
+                                       inertia=(ix, iyz, iyz)))
+        edges.append((parent, i))
+        positions.append(tuple(joint))
+    b.add_direct_rod_tree(bodies, edges, positions, radius, seg_len, 1e6,
+                          1e6)
+    state, cset = b.build(device=device)
+    db = cset.direct_rods[0]
+    return state, dataclasses.replace(cset, direct_rods=(
+        dataclasses.replace(db, solver=solver),))
+
+
+def _bench_steps(args, dev, state, fn, finite):
+    """One probe step (its ``finite(state)`` checked), then ``--calls`` ×
+    ``--steps-per-call`` steps timed. Returns ``(steps/s, state)``."""
+    st = [fn(state)]
+    _sync(dev)
+    if not finite(st[0]):
+        raise FloatingPointError("the probe step produced non-finite values")
+
+    def call():
+        st[0] = fn(st[0])
+
+    steps = args.calls * args.steps_per_call
+    return steps / _timed(dev, call, steps), st[0]
+
+
+def bench_rods(args, dev):
+    """``--rods``: ``--rod-batch`` Cosserat rods of 51 points stepped as one
+    scene (``bench.py:396-435``)."""
+    from positionbaseddynamics_tpu_torch.solver import (StepConfig,
+                                                        make_step_fn)
+
+    state, cset = rod_scene(args.rod_batch, dev)
+    path = "rod_lattice" if cset.rod_lattices else "unstructured"
+    fn = make_step_fn(cset, StepConfig(), dev)
+    sps, _ = _bench_steps(args, dev, state, fn,
+                          lambda s: bool(torch.isfinite(s.particles.x).all()))
+    return _record(dev, f"cosserat_rods_x{args.rod_batch}_steps_per_s", sps,
+                   "steps/s", path,
+                   aggregate_rod_steps_per_s=round(sps * args.rod_batch, 1))
+
+
+def bench_tree(args, dev):
+    """``--tree`` (``bench.py --rods --tree``): the random stiff-rod tree of
+    101 segments (``--rod-batch`` segments below 512), solved by the
+    scheduled tree elimination (``bench.py:336-393``)."""
+    from positionbaseddynamics_tpu_torch.solver import (StepConfig,
+                                                        make_step_fn)
+
+    n_seg = args.rod_batch if args.rod_batch < 512 else TREE_SEGMENTS
+    state, cset = tree_scene(n_seg, dev)
+    fn = make_step_fn(cset, StepConfig(), dev)
+    sps, _ = _bench_steps(args, dev, state, fn,
+                          lambda s: bool(torch.isfinite(s.rigid.x).all()))
+    return _record(dev, f"stiff_rod_tree_{n_seg - 1}c_steps_per_s", sps,
+                   "steps/s", "tree_scheduled")
+
+
 def make_mpc(k, horizon, dev, n=32, free_weight=None):
     """``bench.py --mpc``'s planner (``bench.py:19-50``): an n×n cloth
     (32×32 in ``bench.py``), its first corner pinned and dragged by a
@@ -567,6 +678,10 @@ def parser():
     ap.add_argument("--fluid-dims", type=int, nargs=3, default=(80, 50, 25))
     ap.add_argument("--pile-big", action="store_true")
     ap.add_argument("--pile-bodies", type=int, default=100)
+    ap.add_argument("--rods", action="store_true")
+    ap.add_argument("--rod-batch", type=int, default=1024)
+    ap.add_argument("--tree", action="store_true",
+                    help="the stiff-rod tree (bench.py --rods --tree)")
     ap.add_argument("--check", action="store_true")
     for name in UNPORTED:
         ap.add_argument("--" + name.replace("_", "-"), action="store_true",
@@ -600,6 +715,7 @@ def run(argv=None):
         records = check(args, dev)
         return (0 if all(r["ok"] for r in records) else 1), records
     for flag, fn in (("mpc", bench_mpc), ("mpc_big", bench_mpc_big),
+                     ("tree", bench_tree), ("rods", bench_rods),
                      ("fluid", bench_fluid), ("bar", bench_bar),
                      ("pile_big", bench_pile_big)):
         if getattr(args, flag):

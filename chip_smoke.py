@@ -15,7 +15,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    iterations and damping and with 6 iterations (two launches a substep);
    the fused tet substep on the 80×36×36 bench bar over 10 steps, at 5
    iterations on the bar and on a 13×7×5 grid with damping, and at
-   stiffness 0;
+   stiffness 0, and at ``n_batch`` 4 (the rollout a launch-grid
+   dimension; rollouts set apart by their start velocities, and again by
+   a seeded 1 cm jitter) over 10 steps, rollouts 0 and 3 bit for bit
+   equal to themselves launched alone, its time a launch at 1 and 4
+   rollouts;
 4. the main paths through the public entry points, each with every
    kernel's launch count set to 0 just before it and read just after:
    the 320×320 bench cloth and the 80×36×36 bench bar, each built by
@@ -57,6 +61,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    share, the cloth kernel's time a launch at ``n_batch`` 256 beside its
    bound, the copy kernels' share of the device time and the peak device
    memory;
+   then one fed-noise MPPI update at K 8, h 5 on a 20×6×6 structured tet
+   bar, its tip driven, through the tet kernel at ``n_batch = K`` against
+   the stencil route on the CPU (costs within 1e-5 relative, the nominal
+   within 1e-5);
    then ``bench_torch.py``'s ``--mpc``, ``--check`` and default modes in
    this process, their JSON lines printed as they come;
 8. the unstructured route (slice 4) at full width, no kernel of the port
@@ -94,11 +102,34 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     a step, peak memory and the top five device operations; then the
     three collision examples (cloth, rigid and deformable) built on the
     card, 20 steps against the CPU (≤ 1e-4) and their full length with
-    their own checks and overflow 0; then C1, ``bench.py --mpc-contact``'s
+    their own checks and overflow 0, and the cloth laid flat over the
+    sphere so that it lands on it (20 steps against the CPU with equal
+    active particle–rigid rows at every step, rows > 0 from some step on,
+    the final minimum radius ≥ 0.6 − 0.02 − 1e-3); then C1, ``bench.py
+    --mpc-contact``'s
     inline MPPI (K 8, horizon 5) on the deformable example's two bars:
     3 updates with overflow 0, 2 of the 8 rollouts against themselves
     alone (≤ 1e-6), updates/s and busy share; printed as one
-    ``{"collision": ...}`` line before the ``kernels`` line.
+    ``{"collision": ...}`` line before the ``kernels`` line;
+11. rods (slice 7), no kernel of the port on their path: ``bench.py
+    --rods`` at its default (1024 rods of 51 points on the rod lattice):
+    the build's seconds and the route, 10 steps against the same rods as
+    the unstructured batches on the card (≤ 2e-5 in positions and in
+    sign-folded quaternions) and against the CPU (≤ 1e-4), 200 steps with
+    every launch count 0, finite, the pinned particles exact and the pinned
+    frames where their first renormalisation put them, unit quaternions
+    (1e-4), one step with no host sync, steps/s, rod-steps/s, busy share,
+    device launches and µs a step, peak memory and the top five device
+    operations; ``bench.py --rods --tree`` at its default (a random tree of
+    101 stiff-rod segments, the scheduled elimination): against the dense
+    solve over 20 steps (≤ 2e-4) and against the CPU (≤ 1e-4), 200 steps,
+    the same counters; the rod examples (the Cosserat helix, the
+    ghost-point rod, the stiff-rod chain and Y-tree, the two generic
+    demos with their constraint functions written in torch here), each 20
+    steps against the CPU (≤ 1e-4) and its full length with its own
+    check; MPPI at K 64, h 5 over 16 lattice rods, one rod's free end
+    driven, rollouts 0, 21, 42 and 63 against themselves alone (≤ 1e-6);
+    printed as one ``{"rods": ...}`` line before the ``kernels`` line.
 
 The build log's ``-Xptxas -v`` lines are printed per ``__global__`` and
 template instance (registers, shared memory, spills), and for the cloth
@@ -113,7 +144,8 @@ highest window.
 
 Prints one ``{"unstructured": {...}}`` line (phase 8), one ``{"rigid":
 {...}}`` line (phase 9), one ``{"collision": {...}}`` line (phase 10),
-one ``{"kernels": [...]}`` JSON line, the card's name and power limit, and as
+one ``{"rods": {...}}`` line (phase 11), one ``{"kernels": [...]}`` JSON
+line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits 1 and prints no result.
 """
@@ -179,6 +211,27 @@ C1_SIGMA, C1_LAMBDA, C1_MAX_SPEED, C1_EFFORT = 0.5, 0.1, 2.0, 1e-3
 C1_TARGET_OFFSET = (1.5, -0.5, 0.0)
 C1_UPDATES = 3
 C1_SINGLES = (0, C1_K - 1)      # rollouts replayed alone
+# phase 3, C-1: B2 at a rollout axis
+TET_BATCH = 4                   # B2's n_batch check on the bench bar
+TET_BATCH_JITTER = 0.01         # seeded jitter of free x, second case
+TET_BATCH_SINGLES = (0, TET_BATCH - 1)   # launched alone, bit for bit
+# phase 7, C-1: a planner over a structured tet bar on both routes
+BAR_PLANNER = ((20, 6, 6), 8, 5)  # bar, rollouts K, horizon
+# phase 10, C-2: the cloth laid flat over the sphere, landing on it
+SPHERE_CLOTH_STEPS = 250
+SPHERE_CLOTH_N = 12
+# phase 11: rods (slice 7). bench.py --rods at its default and --rods
+# --tree at its default, the rod examples, MPPI over rods
+RODS = 1024                     # bench.py --rod-batch default
+ROD_UNSTRUCTURED_TOL = 2e-5     # lattice vs the batches, tests/test_grid_rods
+ROD_CHECK_STEPS = 10            # lattice vs batches, card vs CPU
+ROD_STEPS = 200
+ROD_PROFILE_STEPS = 10
+TREE_TOL = 2e-4                 # scheduled vs dense, tests/test_stiff_rods
+TREE_CHECK_STEPS = 20
+ROD_DEMO_CHECK = 20             # card vs CPU steps of each rod demo
+ROD_PLANNER = (16, 64, 5)       # rods, rollouts K, horizon
+ROD_PLANNER_SINGLES = (0, 21, 42, 63)
 
 # fp32 operations of one particle per substep, counted from
 # csrc/grid_cloth_step.cu: integrate 12; per iteration, per anchor, the 3
@@ -590,6 +643,82 @@ def check_tet_kernel_against_plain(dev, bar):
               "small_it5_dev": ds, "small_it5_plain_moved": ms,
               "stiffness0_dev": max(d0)}
     return max(devs), x10, record
+
+
+def check_tet_kernel_batched(dev, bar):
+    """Phase 3, C-1: B2 at ``n_batch`` ``TET_BATCH`` on the bench bar.
+    Rollout k starts at rest shape with its free vertices moving at
+    ``(0, −0.1 k, 0.05 k)`` m/s: 10 steps against the plain version on the
+    same rollouts (≤ ``CHECK_TOL``), and rollouts ``TET_BATCH_SINGLES``
+    against themselves launched alone, bit for bit. The same with each
+    rollout's free vertices jittered by a seeded ``TET_BATCH_JITTER``:
+    bit for bit alone, the distance from the plain version logged (a
+    rough start makes the stiff bar carry the kernel's FMA roundings
+    further, as B1's jittered rollouts do, PERF.md §6). Then B2's
+    device time a launch at 1 and at ``TET_BATCH`` rollouts. Returns the
+    record."""
+    from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
+
+    state, cset = bar
+    gt, p = cset.grid_tets[0], state.particles
+    dims = (gt.width, gt.height, gt.depth)
+    params = gtc.kernel_params(gt, h=0.001)
+    w = p.inv_mass.contiguous()
+    ic = gt.inv_cnt.reshape(-1).contiguous()
+    free = (p.inv_mass > 0)[:, None]
+
+    def kernel_steps(x, v, n):
+        xp, vp = gtc.to_planes(x), gtc.to_planes(v)
+        for _ in range(n):
+            xp, vp, _, _ = gtc.run_substeps(xp, vp, w, ic, params, dims, 1, 5)
+        lead = x.shape[:-2]
+        return gtc.from_planes(xp, lead), gtc.from_planes(vp, lead)
+
+    def run(x0, v0):
+        devs, x, v, xr, vr = [], x0, v0, x0, v0
+        for _ in range(10):
+            x, v = kernel_steps(x, v, 1)
+            for _ in range(5):
+                xr, vr = gtc.tet_substep_reference(gt, xr, vr, p.inv_mass,
+                                                   h=0.001)
+            devs.append(max_dev(x, xr))
+        singles = {}
+        for k in TET_BATCH_SINGLES:
+            xa, va = kernel_steps(x0[k], v0[k], 10)
+            singles[k] = bool(torch.equal(xa, x[k]) and torch.equal(va, v[k]))
+        return devs, singles
+
+    ks = torch.arange(TET_BATCH, device=dev, dtype=torch.float32)
+    vel = torch.stack([torch.zeros_like(ks), -0.1 * ks, 0.05 * ks], -1)
+    v0 = torch.where(free, vel[:, None, :], 0.0)
+    x0 = p.x.expand(TET_BATCH, -1, -1).contiguous()
+    devs, singles = run(x0, v0)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    xj = p.x + torch.where(free, TET_BATCH_JITTER * torch.randn(
+        (TET_BATCH,) + tuple(p.x.shape), generator=gen, device=dev), 0.0)
+    jdevs, jsingles = run(xj, torch.zeros_like(xj))
+    torch.cuda.synchronize()
+    times = {}
+    for nb in (1, TET_BATCH):
+        xs = xj[:nb] if nb > 1 else xj[0]
+        buf = [gtc.to_planes(xs), gtc.to_planes(torch.zeros_like(xs))]
+
+        def launch():
+            buf[:] = gtc.tet_substep_cuda(buf[0], buf[1], w, ic, params, dims)
+
+        times[nb] = device_ms(launch, 200, "tet_substep_kernel")
+    out = {"n_batch": TET_BATCH, "max_abs_err_per_step": devs,
+           "singles_bitwise": singles, "jitter": TET_BATCH_JITTER,
+           "jittered_max_abs_err_per_step": jdevs,
+           "jittered_singles_bitwise": jsingles,
+           "ms_b1": times[1], f"ms_b{TET_BATCH}": times[TET_BATCH]}
+    log(f"check tet n_batch {TET_BATCH}: {out}")
+    log(f"timing tet_substep at one rollout: {times[1]!r} ms a launch in "
+        f"this run; PERF.md records 0.01585 ms for it")
+    assert max(devs) <= CHECK_TOL, devs
+    assert all(singles.values()) and all(jsingles.values()), (singles,
+                                                              jsingles)
+    return out
 
 
 def profile_busy(fn, state, n_prof, label, top=5, top_out=None,
@@ -1315,6 +1444,65 @@ def check_planner_routes(dev):
     return out
 
 
+def bar_planner(dev):
+    """A planner over the structured tet bar ``BAR_PLANNER[0]`` (the i = 0
+    face pinned): ``mpc.make_sequence_cost`` with the tip vertex driven by
+    a ``PinVelocityControl`` (≤ 2 m/s), the control effort (1e-3) and the
+    tip's squared distance to a target 0.3 down of it at the end. Returns
+    ``(state, seq_cost, MPPIConfig)``."""
+    from positionbaseddynamics_tpu_torch import mpc
+    from positionbaseddynamics_tpu_torch.solver import StepConfig
+
+    dims, k, hz = BAR_PLANNER
+    state, cset = bar_scene(dims, dev, scale=(2.0, 0.5, 0.5))
+    tip = state.particles.n - 1
+    target = state.particles.x[tip].cpu().numpy() + np.float32(
+        [0.0, -0.3, 0.0])
+    seq = mpc.make_sequence_cost(
+        cset, StepConfig(), mpc.PinVelocityControl(indices=(tip,),
+                                                   max_speed=2.0),
+        running_cost=mpc.control_effort(1e-3),
+        terminal_cost=mpc.particle_target([tip], target), device=dev)
+    return state, seq, mpc.MPPIConfig(horizon=hz, num_samples=k, sigma=0.5,
+                                      temperature=0.1)
+
+
+def check_bar_planner_routes(dev):
+    """Phase 7a, C-1: one fed-noise MPPI update over the structured bar of
+    :func:`bar_planner` through the tet kernel at ``n_batch = K`` and
+    through the stencil route on the CPU: costs within ``PLANNER_RTOL``
+    relative, the nominal within ``PLANNER_RTOL``."""
+    from positionbaseddynamics_tpu_torch import mpc
+    from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
+
+    dims, k, hz = BAR_PLANNER
+    sk, seq_k, mcfg = bar_planner(dev)
+    sp, seq_p, _ = bar_planner(torch.device("cpu"))
+    assert seq_k.path == "cuda_kernel" and seq_p.path == "torch_stencil", (
+        seq_k.path, seq_p.path)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    eps = mcfg.sigma * torch.randn((k, hz, 3), generator=gen, device=dev)
+    nominal = 0.2 * torch.randn((hz, 3), generator=gen, device=dev)
+    before = gtc.tet_substep_cuda.launches
+    nk, ck = mpc.mppi_update(sk, nominal, seq_k, mcfg, eps=eps)
+    torch.cuda.synchronize()
+    launches = gtc.tet_substep_cuda.launches - before
+    npl, cpl = mpc.mppi_update(sp, nominal.cpu(), seq_p, mcfg,
+                               eps=eps.cpu())
+    cost_rel = ((ck.cpu() - cpl).abs().max() / cpl.abs().max()).item()
+    nom_dev = max_dev(nk.cpu(), npl)
+    out = {"bar": dims, "rollouts": k, "horizon": hz, "launches": launches,
+           "cost_max_rel_err": cost_rel, "nominal_max_abs_err": nom_dev,
+           "cost_min": cpl.min().item(), "cost_max": cpl.max().item()}
+    log(f"planner over the {dims} bar, K {k} h {hz}, tet kernel vs stencil "
+        f"route on the CPU: {out}")
+    assert launches == hz * 5, launches           # 5 substeps a step
+    assert cost_rel <= PLANNER_RTOL, cost_rel
+    assert nom_dev <= PLANNER_RTOL, nom_dev
+    assert torch.isfinite(ck).all() and torch.isfinite(nk).all()
+    return out
+
+
 def run_mpc_big(dev):
     """Phase 7b: ``bench.py --mpc-big`` at full width through
     ``bench_torch.MpcBig``: one warm-up update, then ``MPC_BIG_UPDATES``
@@ -2035,6 +2223,35 @@ def cloth_collision_scene(builder, dev, n=20):
                                                    device=dev)
 
 
+def cloth_on_sphere_scene(builder, dev, n=SPHERE_CLOTH_N, height=0.63):
+    """``tests/torch_collision_scenes.py::cloth_on_sphere``: the demo's
+    cloth at n×n laid flat in the x–z plane at ``height`` over the static
+    sphere of radius 0.6, so that it lands on it (at 0.63, as
+    ``tests/test_torch_mpc.py`` lays it, the first contact row is active
+    at step 14)."""
+    flat = np.array([[1.0, 0.0, 0.0], [0.0, 0.0, -1.0], [0.0, 1.0, 0.0]])
+    b = builder()
+    tm = b.add_regular_triangle_model(n, n, translation=(-1.0, height, -1.0),
+                                      rotation=flat, scale=(2.0, 2.0))
+    b.add_cloth_constraints(tm, method=4, distance_stiffness=1e5)
+    b.add_bending_constraints(tm, method=3, stiffness=0.05)
+    sph = b.add_rigid_body((0.0, 0.0, 0.0), mass=0.0)
+    b.add_collision_sphere(sph, 0.6, restitution=0.0, friction=0.2,
+                           verts=np.zeros((1, 3), np.float32))
+    b.set_particle_collider(tm, restitution=0.0, friction=0.2)
+    state, cset = b.build(device=dev)
+    return state, cset, b.build_collision_pipeline(tolerance=0.02,
+                                                   device=dev)
+
+
+def _active_particle_rows(pipe, state):
+    """Active particle–rigid contact rows of ``pipe`` on ``state`` (a host
+    read, for the checks only)."""
+    p = state.particles
+    return int(pipe.detect_particles(p.x, p.v, p.inv_mass, state.rigid)
+               .mask.sum().item())
+
+
 def rigid_collision_scene(builder, dev, bodies=5):
     """``examples/rigid_body_collision_demo.py`` at its default: spheres of
     radius 0.3 (64 samples, restitution 0.4) on a static (10, 1, 10)
@@ -2080,12 +2297,15 @@ def deformable_collision_scene(builder, dev, structured=True):
 
 
 def run_collision_demos(dev):
-    """Phase 10 demos: the three collision examples built on the card,
-    ``COLLISION_DEMO_CHECK`` steps against the port on the CPU (≤
-    ``PILE_TOL``), then their full length from the start with every launch
-    count 0 and the demos' own checks: the cloth outside the sphere within
-    the tolerance, the spheres resting at about r above the floor top, the
-    top bar above the bottom one; overflow 0 each."""
+    """Phase 10 demos: the three collision examples and the cloth laid over
+    the sphere (fault C-2: the demo's cloth never touches its sphere)
+    built on the card, ``COLLISION_DEMO_CHECK`` steps against the port on
+    the CPU (≤ ``PILE_TOL``; the laid cloth with equal active
+    particle–rigid rows at every step, and rows at the last of them), then
+    their full length from the start with every launch count 0 and the
+    demos' own checks: the cloth outside the sphere within the tolerance,
+    the spheres resting at about r above the floor top, the top bar above
+    the bottom one; overflow 0 each."""
     from positionbaseddynamics_tpu_torch.models import SceneBuilder
     from positionbaseddynamics_tpu_torch.solver import StepConfig, make_step_fn
 
@@ -2093,6 +2313,7 @@ def run_collision_demos(dev):
     out = {}
     for name, build, steps in (
             ("cloth_collision_demo", cloth_collision_scene, 250),
+            ("cloth_on_sphere", cloth_on_sphere_scene, SPHERE_CLOTH_STEPS),
             ("rigid_body_collision_demo", rigid_collision_scene, 300),
             ("deformable_collision_demo", deformable_collision_scene, 150)):
         built = build(SceneBuilder, dev)
@@ -2101,7 +2322,13 @@ def run_collision_demos(dev):
         cs, cc, cp = build(SceneBuilder, cpu)[:3]
         cfn = make_step_fn(cc, StepConfig(), cpu, pipeline=cp)
         a, b = state, cs
+        rows, rows_equal = [], True
         for _ in range(COLLISION_DEMO_CHECK):
+            if name == "cloth_on_sphere":
+                na, nb = _active_particle_rows(pipe, a), \
+                    _active_particle_rows(cp, b)
+                rows_equal = rows_equal and na == nb
+                rows.append(na)
             a, b = fn(a), cfn(b)
         dx = max_dev(a.particles.x.cpu(), b.particles.x) \
             if b.particles.n else 0.0
@@ -2125,10 +2352,17 @@ def run_collision_demos(dev):
                "card_vs_cpu_max_dev": dx, "steps": steps, "steps_s": run_s,
                "launches": counts, "finite": finite,
                "overflow": s.overflow.item()}
-        if name == "cloth_collision_demo":
+        if name in ("cloth_collision_demo", "cloth_on_sphere"):
             r = torch.linalg.vector_norm(s.particles.x, dim=-1)
             rec["min_radius"] = r.min().item()
             ok = rec["min_radius"] >= 0.6 - 0.02 - 1e-3
+            if name == "cloth_on_sphere":
+                rec["active_particle_rows"] = rows
+                rec["active_rows_equal"] = rows_equal
+                rec["final_active_rows"] = _active_particle_rows(pipe, s)
+                # C-2: the contact is active, card and CPU agree on it
+                ok = (ok and rows_equal and rows[-1] > 0
+                      and rec["final_active_rows"] > 0)
         elif name == "rigid_body_collision_demo":
             y = s.rigid.x[1:, 1].cpu()
             rec["heights"] = y.tolist()
@@ -2282,6 +2516,487 @@ def run_collision(dev):
     return out
 
 
+def _quat_dev(a, b) -> float:
+    """Largest difference of two quaternion arrays, each entry's sign
+    folded (``q`` and ``−q`` are one rotation; ``tests/test_grid_rods.py:
+    40-41``)."""
+    return torch.minimum((a - b).abs(), (a + b).abs()).max().item()
+
+
+def _sync_free(fn, state, label):
+    """One step of ``fn`` under CUDA's sync debug mode 'error'. Returns
+    the error text, None when the step never waited for the card."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    err = None
+    try:
+        fn(state)
+    except RuntimeError as e:
+        err = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"{label} step under sync debug mode 'error': "
+        f"{'no host sync' if err is None else err}")
+    return err
+
+
+def _counted_run(fn, state, steps):
+    """``steps`` steps from ``state`` with every kernel launch count set to
+    0 just before and read just after. Returns ``(state, seconds,
+    counts, peak device bytes)``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    s = state
+    for _ in range(steps):
+        s = fn(s)
+    torch.cuda.synchronize()
+    return (s, time.perf_counter() - t0, read_counts(),
+            torch.cuda.max_memory_allocated())
+
+
+def _rates(fn, state, label, units):
+    """Steps/s (median of windows), busy share, device µs and launches a
+    step and the top five device operations of ``fn`` from ``state``."""
+    st = [state]
+
+    def one_step():
+        st[0] = fn(st[0])
+
+    rate = rate_windows(one_step, 1)
+    log(f"{label} steps/s {rate}")
+    top, stats = [], {}
+    busy, us = profile_busy(fn, st[0], ROD_PROFILE_STEPS, label,
+                            top_out=top, stats=stats)
+    return {"steps_per_s": rate,
+            "aggregate_per_s": {k: v * units for k, v in rate.items()
+                                if k in ("median", "min", "max")},
+            "device_busy": busy, "device_us_per_step": us,
+            "device_launches_per_step": stats["launches_per_step"],
+            "top_ops": top}
+
+
+def run_rod_lattice(dev):
+    """Phase 11, rods: ``bench.py --rods`` at its default through
+    ``bench_torch.rod_scene`` → ``make_step_fn``."""
+    from positionbaseddynamics_tpu_torch.solver import StepConfig, make_step_fn
+
+    cfg = StepConfig()
+    t0 = time.perf_counter()
+    state, cset = bench_torch.rod_scene(RODS, dev)
+    fn = make_step_fn(cset, cfg, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    route = "rod_lattice" if cset.rod_lattices else "unstructured"
+    log(f"phase 11 rods: {RODS} x {bench_torch.ROD_POINTS} points "
+        f"({state.particles.n} particles, {state.orientations.n} "
+        f"quaternions), built in {build_s!r} s, route {fn.path}, {route}")
+    assert route == "rod_lattice" and fn.path == "torch_rods"
+    t0 = time.perf_counter()
+    us, uc = bench_torch.rod_scene(RODS, dev, structured=False)
+    ufn = make_step_fn(uc, cfg, dev)
+    torch.cuda.synchronize()
+    u_build_s = time.perf_counter() - t0
+    cpu = torch.device("cpu")
+    cs, cc = bench_torch.rod_scene(RODS, cpu)
+    cfn = make_step_fn(cc, cfg, cpu)
+    a, b, c = state, us, cs
+    for _ in range(ROD_CHECK_STEPS):
+        a, b, c = fn(a), ufn(b), cfn(c)
+    u_dx = max_dev(a.particles.x, b.particles.x)
+    u_dq = _quat_dev(a.orientations.q, b.orientations.q)
+    c_dx = max_dev(a.particles.x.cpu(), c.particles.x)
+    c_dq = max_dev(a.orientations.q.cpu(), c.orientations.q)
+    log(f"phase 11 rods {ROD_CHECK_STEPS} steps: lattice vs batches (built "
+        f"in {u_build_s!r} s) max|dx| {u_dx!r}, sign-folded max|dq| "
+        f"{u_dq!r}; card vs CPU max|dx| {c_dx!r}, max|dq| {c_dq!r}")
+    assert max(u_dx, u_dq) <= ROD_UNSTRUCTURED_TOL, (u_dx, u_dq)
+    assert max(c_dx, c_dq) <= PILE_TOL, (c_dx, c_dq)
+    del us, uc, ufn, b, cs, cc, cfn, c
+
+    sync_error = _sync_free(fn, state, "phase 11 rods")
+    assert sync_error is None, sync_error
+    first = fn(state)
+    s, run_s, counts, peak = _counted_run(fn, state, ROD_STEPS)
+    p, o = s.particles, s.orientations
+    pin = state.particles.inv_mass == 0
+    pin_q = state.orientations.inv_mass == 0
+    finite = bool(torch.isfinite(p.x).all() and torch.isfinite(o.q).all())
+    pins_exact = bool(torch.equal(p.x[pin], state.particles.x[pin]))
+    frames_exact = bool(torch.equal(o.q[pin_q], first.orientations.q[pin_q]))
+    unit = (torch.linalg.vector_norm(o.q, dim=-1) - 1.0).abs().max().item()
+    tip_y = p.x[bench_torch.ROD_POINTS - 1, 1].item()
+    log(f"phase 11 rods {ROD_STEPS} steps in {run_s!r} s, launch counts "
+        f"{counts}, finite {finite}, pinned particles exact {pins_exact}, "
+        f"pinned frames as after the first step {frames_exact}, max|1 - "
+        f"|q|| {unit!r}, rod 0 tip y {tip_y!r}, peak device memory {peak} B")
+    assert all(v == 0 for v in counts.values()), counts
+    assert finite and pins_exact and frames_exact, (finite, pins_exact,
+                                                    frames_exact)
+    assert unit <= 1e-4 and tip_y < 0.0, (unit, tip_y)
+    out = {"scene": f"bench.py --rods: {RODS} rods of "
+                    f"{bench_torch.ROD_POINTS} points, stretch-shear "
+                    f"(1, 1, 1), bend-twist (0.5, 0.5, 0.5), StepConfig()",
+           "build_s": build_s, "route": fn.path, "path": route,
+           "particles": state.particles.n,
+           "quaternions": state.orientations.n,
+           "vs_unstructured_max_dx": u_dx, "vs_unstructured_max_dq": u_dq,
+           "card_vs_cpu_max_dx": c_dx, "card_vs_cpu_max_dq": c_dq,
+           "check_steps": ROD_CHECK_STEPS, "sync_free_step": True,
+           "launches": counts, "steps": ROD_STEPS, "steps_s": run_s,
+           "finite": finite, "pinned_exact": pins_exact,
+           "pinned_frames_exact": frames_exact, "max_unit_err": unit,
+           "peak_bytes": peak}
+    out.update(_rates(fn, s, "phase 11 rods", RODS))
+    return out
+
+
+def run_tree(dev):
+    """Phase 11, the stiff-rod tree: ``bench.py --rods --tree`` at its
+    default through ``bench_torch.tree_scene`` → ``make_step_fn``."""
+    from positionbaseddynamics_tpu_torch.solver import StepConfig, make_step_fn
+
+    cfg = StepConfig()
+    n_seg = bench_torch.TREE_SEGMENTS
+    t0 = time.perf_counter()
+    state, cset = bench_torch.tree_scene(n_seg, dev)
+    fn = make_step_fn(cset, cfg, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    db = cset.direct_rods[0]
+    log(f"phase 11 tree: {n_seg} segments, {db.edges.shape[0]} constraints "
+        f"in {len(db.levels)} levels, built in {build_s!r} s, route "
+        f"{fn.path}, scheduled {db.uses_tree}")
+    assert fn.path == "torch_rigid" and db.uses_tree
+    _, dc = bench_torch.tree_scene(n_seg, dev, solver="dense")
+    dfn = make_step_fn(dc, cfg, dev)
+    cpu = torch.device("cpu")
+    cs, cc = bench_torch.tree_scene(n_seg, cpu)
+    cfn = make_step_fn(cc, cfg, cpu)
+    a, b, c = state, state, cs
+    for _ in range(TREE_CHECK_STEPS):
+        a, b, c = fn(a), dfn(b), cfn(c)
+    d_dx = max_dev(a.rigid.x, b.rigid.x)
+    d_dq = max_dev(a.rigid.q, b.rigid.q)
+    c_dx = max_dev(a.rigid.x.cpu(), c.rigid.x)
+    c_dq = max_dev(a.rigid.q.cpu(), c.rigid.q)
+    log(f"phase 11 tree {TREE_CHECK_STEPS} steps: scheduled vs dense max|dx| "
+        f"{d_dx!r} max|dq| {d_dq!r}; card vs CPU max|dx| {c_dx!r} max|dq| "
+        f"{c_dq!r}")
+    assert max(d_dx, d_dq) <= TREE_TOL, (d_dx, d_dq)
+    assert max(c_dx, c_dq) <= PILE_TOL, (c_dx, c_dq)
+    del dc, dfn, cs, cc, cfn, b, c
+
+    sync_error = _sync_free(fn, state, "phase 11 tree")
+    assert sync_error is None, sync_error
+    s, run_s, counts, peak = _counted_run(fn, state, ROD_STEPS)
+    root = state.rigid.inv_mass == 0
+    finite = bool(torch.isfinite(s.rigid.x).all()
+                  and torch.isfinite(s.rigid.q).all())
+    root_exact = bool(torch.equal(s.rigid.x[root], state.rigid.x[root]))
+    log(f"phase 11 tree {ROD_STEPS} steps in {run_s!r} s, launch counts "
+        f"{counts}, finite {finite}, root exact {root_exact}, peak device "
+        f"memory {peak} B")
+    assert all(v == 0 for v in counts.values()), counts
+    assert finite and root_exact
+    out = {"scene": f"bench.py --rods --tree: a random tree of {n_seg} "
+                    "stiff-rod segments (r 0.05, length 0.3, E = G = 1e6) "
+                    "from default_rng(0), the scheduled elimination, "
+                    "StepConfig()",
+           "build_s": build_s, "route": fn.path, "path": "tree_scheduled",
+           "constraints": int(db.edges.shape[0]), "levels": len(db.levels),
+           "vs_dense_max_dx": d_dx, "vs_dense_max_dq": d_dq,
+           "card_vs_cpu_max_dx": c_dx, "card_vs_cpu_max_dq": c_dq,
+           "check_steps": TREE_CHECK_STEPS, "sync_free_step": True,
+           "launches": counts, "steps": ROD_STEPS, "steps_s": run_s,
+           "finite": finite, "root_exact": root_exact, "peak_bytes": peak}
+    out.update(_rates(fn, s, "phase 11 tree", 1))
+    return out
+
+
+def helix_scene(builder, dev, segments=50):
+    """``examples/cosserat_rods_demo.py`` at its default: a helix of 50 rod
+    segments, its top particle and frame pinned."""
+    n = segments + 1
+    t = np.linspace(0.0, 4.0 * np.pi, n)
+    pts = np.stack([0.3 * np.cos(t), -0.1 * t, 0.3 * np.sin(t)], 1)
+    b = builder()
+    lm = b.add_line_model(pts)
+    b.set_mass(lm.offset, 0.0)
+    b.set_quaternion_mass(lm.offset_q, 0.0)
+    b.add_rod_constraints(lm, stretch_stiffness=(1.0, 1.0, 1.0),
+                          bend_twist_stiffness=(0.5, 0.5, 0.5))
+    return b.build(device=dev)
+
+
+def ghost_rod_scene(builder, dev, points=10):
+    """``examples/elastic_rods_demo.py`` at its default: the ghost-point rod
+    of 10 points at 0.25 spacing, the first two points and the first ghost
+    pinned."""
+    pts = np.stack([0.25 * np.arange(points), np.zeros(points),
+                    np.zeros(points)], 1)
+    b = builder()
+    h = b.add_ghost_rod_model(pts)
+    b.set_mass(h.offset, 0.0)
+    b.set_mass(h.offset + 1, 0.0)
+    b.set_mass(h.ghost_offset, 0.0)
+    b.add_ghost_rod_constraints(h, stretching_stiffness=1.0,
+                                bending_twisting=(0.5, 0.5, 0.5))
+    return b.build(device=dev)
+
+
+def _segment_body():
+    radius, seg_len = 0.1, 0.5
+    mass = 1000.0 * np.pi * radius**2 * seg_len
+    ix = 0.5 * mass * radius**2
+    iyz = mass * (3 * radius**2 + seg_len**2) / 12.0
+    return radius, seg_len, mass, (ix, iyz, iyz)
+
+
+def stiff_chain_scene(builder, dev, segments=10):
+    """``examples/stiff_rods_demo.py`` at its default: a chain of 10 rigid
+    segments (the first static) for the direct solver."""
+    radius, seg_len, mass, inertia = _segment_body()
+    b = builder()
+    bodies = [b.add_rigid_body(x=((i + 0.5) * seg_len, 0.0, 0.0),
+                               mass=(0.0 if i == 0 else mass),
+                               inertia=inertia) for i in range(segments)]
+    pos = [((i + 1) * seg_len, 0.0, 0.0) for i in range(segments - 1)]
+    b.add_direct_rod_chain(bodies, np.asarray(pos), radius, seg_len, 1e6,
+                           1e6)
+    return b.build(device=dev)
+
+
+def y_tree_scene(builder, dev):
+    """``examples/stiff_rods_demo.py --tree``: the Y of two trunk segments
+    and two branches."""
+    radius, seg_len, mass, inertia = _segment_body()
+    centers = [(0.25, 0, 0), (0.75, 0, 0), (1.25, 0.08, 0),
+               (1.25, -0.08, 0)]
+    b = builder()
+    bodies = [b.add_rigid_body(x=c, mass=(0.0 if i == 0 else mass),
+                               inertia=inertia)
+              for i, c in enumerate(centers)]
+    b.add_direct_rod_tree(bodies, [(0, 1), (1, 2), (1, 3)],
+                          [(0.5, 0, 0), (1.0, 0, 0), (1.0, 0, 0)],
+                          radius, seg_len, 1e6, 1e6)
+    return b.build(device=dev)
+
+
+def generic_particle_scene(builder, dev, n=12):
+    """``examples/generic_particle_demo.py`` at its default: an n×n cloth
+    held by generic distance constraints, the JAX demo's function written
+    in torch."""
+    b = builder(use_structured_grid=False)
+    tm = b.add_regular_triangle_model(n, n)
+    b.set_mass(tm.offset, 0.0)
+    b.set_mass(tm.offset + n - 1, 0.0)
+    edges = tm.mesh.edges + tm.offset
+    x0 = np.concatenate(b._x)
+    rests = np.linalg.norm(x0[edges[:, 0]] - x0[edges[:, 1]],
+                           axis=-1)[:, None]
+
+    def distance_c(pts, params):
+        return (torch.linalg.vector_norm(pts[1] - pts[0])
+                - params[0]).reshape(1)
+
+    b.add_generic_constraints(distance_c, edges, stiffness=1.0,
+                              params=rests)
+    return b.build(device=dev)
+
+
+def generic_rigid_scene(builder, dev):
+    """``examples/generic_rigidbody_demo.py``: a pendulum whose ball joint
+    is a constraint function of the two bodies, written in torch."""
+    from positionbaseddynamics_tpu_torch.ops import quaternion as quat
+
+    def ball_c(x, q):
+        e = torch.zeros_like(x[0])
+        e0 = torch.cat([e[:1] + 1.0, e[1:]])
+        return (quat.rotate(q[0], e0) + x[0]) - (quat.rotate(q[1], -e0)
+                                                 + x[1])
+
+    b = builder()
+    b.add_rigid_body((0.0, 0.0, 0.0), mass=0.0)
+    b.add_rigid_body((2.0, 0.0, 0.0), mass=1.0, inertia=(0.4, 0.4, 0.4))
+    b.add_generic_rigid_constraints(ball_c, [[0, 1]])
+    return b.build(device=dev)
+
+
+def connector_gap(db, rx, rq) -> float:
+    """Largest distance between the two connectors of a stiff-rod batch's
+    constraints, the zero-stretch residual (``tests/test_stiff_rods.py``
+    holds it under 5e-3)."""
+    from positionbaseddynamics_tpu_torch.ops import quaternion as quat
+
+    if hasattr(db, "edges"):
+        b0, b1 = db.bodies[db.edges[:, 0]], db.bodies[db.edges[:, 1]]
+    else:
+        b0, b1 = db.bodies[:, :-1], db.bodies[:, 1:]
+    c0 = quat.rotate(rq[b0], db.local0) + rx[b0]
+    c1 = quat.rotate(rq[b1], db.local1) + rx[b1]
+    return torch.linalg.vector_norm(c0 - c1, dim=-1).max().item()
+
+
+def _rod_demo_check(name, start, s, cset):
+    """The demo's own check of a rod example's final state ``s`` (its
+    start ``start``), after ``tests/test_examples.py`` and JAX's rod tests:
+    pins fixed and the free end fallen, segment lengths kept; the stiff
+    rods' root exact, their connectors closed (< 5e-3) and their tips
+    fallen; the pendulum's base fixed and its bob within reach of its
+    anchor. Returns ``(ok, record)``."""
+    rec = {}
+    if s.particles.n:
+        p0, p = start.particles, s.particles
+        pin = p0.inv_mass == 0
+        rec["pins_exact"] = bool(torch.equal(p.x[pin], p0.x[pin]))
+        rec["fall"] = (p0.x[~pin, 1] - p.x[~pin, 1]).max().item()
+        ok = rec["pins_exact"] and rec["fall"] > 1e-3
+    if name == "cosserat_rods_demo":
+        seg = torch.linalg.vector_norm(s.particles.x[1:] - s.particles.x[:-1],
+                                       dim=-1)
+        rec["max_segment_stretch"] = (seg.max() / seg.min()).item()
+        rec["max_unit_err"] = (torch.linalg.vector_norm(
+            s.orientations.q, dim=-1) - 1.0).abs().max().item()
+        ok = (ok and rec["max_segment_stretch"] < 1.1
+              and rec["max_unit_err"] <= 1e-4)
+    elif name == "elastic_rods_demo":
+        seg = torch.linalg.vector_norm(s.particles.x[1:10]
+                                       - s.particles.x[:9], dim=-1)
+        rec["segments"] = [seg.min().item(), seg.max().item()]
+        ok = ok and (seg - 0.25).abs().max().item() < 0.05
+    elif name in ("stiff_rods_demo", "stiff_rods_demo_tree"):
+        r0, r = start.rigid.x, s.rigid.x
+        rec["root_exact"] = bool(torch.equal(r[0], r0[0]))
+        rec["connector_gap"] = connector_gap(cset.direct_rods[0], r,
+                                             s.rigid.q)
+        rec["drop"] = (r0[1:, 1] - r[1:, 1]).tolist()
+        ok = (rec["root_exact"] and rec["connector_gap"] < 5e-3
+              and min(rec["drop"][-2:]) > 0.002)
+    elif name == "generic_rigidbody_demo":
+        r = s.rigid.x
+        rec["base_exact"] = bool(torch.equal(r[0], start.rigid.x[0]))
+        rec["bob"] = r[1].tolist()
+        ok = (rec["base_exact"] and r[1].norm().item() < 2.1
+              and r[1, 1].item() < -0.05)
+    return bool(ok), rec
+
+
+def run_rod_demos(dev):
+    """Phase 11 coverage: the rod examples built on the card,
+    ``ROD_DEMO_CHECK`` steps against the port on the CPU (≤ ``PILE_TOL``),
+    then their full length from the start with every launch count 0 and
+    the demo's own check (:func:`_rod_demo_check`)."""
+    from positionbaseddynamics_tpu_torch.models import SceneBuilder
+    from positionbaseddynamics_tpu_torch.solver import StepConfig, make_step_fn
+
+    cpu = torch.device("cpu")
+    damped = StepConfig(damping=0.001)      # the two rod demos' stepper
+    out = {}
+    for name, build, cfg, steps in (
+            ("cosserat_rods_demo", helix_scene, damped, 300),
+            ("elastic_rods_demo", ghost_rod_scene, damped, 300),
+            ("stiff_rods_demo", stiff_chain_scene, StepConfig(), 200),
+            ("stiff_rods_demo_tree", y_tree_scene, StepConfig(), 200),
+            ("generic_particle_demo", generic_particle_scene, StepConfig(),
+             200),
+            ("generic_rigidbody_demo", generic_rigid_scene, StepConfig(),
+             200)):
+        state, cset = build(SceneBuilder, dev)
+        fn = make_step_fn(cset, cfg, dev)
+        cs, cc = build(SceneBuilder, cpu)
+        cfn = make_step_fn(cc, cfg, cpu)
+        a, b = state, cs
+        for _ in range(ROD_DEMO_CHECK):
+            a, b = fn(a), cfn(b)
+        dx = max_dev(a.particles.x.cpu(), b.particles.x) \
+            if b.particles.n else 0.0
+        if b.orientations is not None:
+            dx = max(dx, max_dev(a.orientations.q.cpu(), b.orientations.q))
+        if b.rigid is not None:
+            dx = max(dx, max_dev(a.rigid.x.cpu(), b.rigid.x),
+                     max_dev(a.rigid.q.cpu(), b.rigid.q))
+        s, run_s, counts, _ = _counted_run(fn, state, steps)
+        finite = bool(torch.isfinite(s.particles.x).all()
+                      and (s.rigid is None
+                           or torch.isfinite(s.rigid.x).all()))
+        ok, rec = _rod_demo_check(name, state, s, cset)
+        rec.update({"route": fn.path, "check_steps": ROD_DEMO_CHECK,
+                    "card_vs_cpu_max_dev": dx, "steps": steps,
+                    "steps_s": run_s, "launches": counts, "finite": finite,
+                    "demo_check": ok})
+        out[name] = rec
+        log(f"phase 11 {name}: {rec}")
+        assert dx <= PILE_TOL, (name, dx)
+        assert all(v == 0 for v in counts.values()), counts
+        assert finite and ok, name
+    return out
+
+
+def run_rod_planner(dev):
+    """Phase 11, a planner over rods: one MPPI update (fed noise) at K
+    ``ROD_PLANNER[1]``, horizon ``ROD_PLANNER[2]`` over
+    ``ROD_PLANNER[0]`` lattice rods of ``bench.py --rods``' shape, rod 0's
+    free end driven by a ``PinVelocityControl`` (≤ 2 m/s) toward a target
+    0.2 above it; rollouts ``ROD_PLANNER_SINGLES`` of the update against
+    their controls run alone (≤ ``BATCH_TOL`` in positions and
+    quaternions), the orientations carrying the rollout axis through
+    ``make_sequence_cost``."""
+    from positionbaseddynamics_tpu_torch import mpc
+    from positionbaseddynamics_tpu_torch.solver import StepConfig
+
+    n_rods, k, hz = ROD_PLANNER
+    state, cset = bench_torch.rod_scene(n_rods, dev)
+    tip = bench_torch.ROD_POINTS - 1
+    target = state.particles.x[tip].cpu().numpy() + np.float32(
+        [0.0, 0.2, 0.0])
+    seq = mpc.make_sequence_cost(
+        cset, StepConfig(), mpc.PinVelocityControl(indices=(tip,),
+                                                   max_speed=2.0),
+        running_cost=mpc.control_effort(1e-3),
+        terminal_cost=mpc.particle_target([tip], target), device=dev)
+    mcfg = mpc.MPPIConfig(horizon=hz, num_samples=k, sigma=0.5,
+                          temperature=0.1)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    eps = mcfg.sigma * torch.randn((k, hz, 3), generator=gen, device=dev)
+    nominal = torch.zeros((hz, 3), device=dev)
+    new, costs = mpc.mppi_update(state, nominal, seq, mcfg, eps=eps)
+    _, fin = seq(state, nominal + eps)
+    single = 0.0
+    for i in ROD_PLANNER_SINGLES:
+        ci, si = seq(state, nominal + eps[i])
+        single = max(single, max_dev(fin.particles.x[i], si.particles.x),
+                     max_dev(fin.orientations.q[i], si.orientations.q),
+                     abs(costs[i].item() - ci.item())
+                     / max(abs(ci.item()), 1e-30))
+    finite = bool(torch.isfinite(costs).all() and torch.isfinite(new).all())
+    out = {"rods": n_rods, "rollouts": k, "horizon": hz,
+           "route": seq.path, "q_shape": list(fin.orientations.q.shape),
+           "singles": list(ROD_PLANNER_SINGLES), "singles_max_dev": single,
+           "cost_min": costs.min().item(), "cost_max": costs.max().item(),
+           "finite": finite}
+    log(f"phase 11 MPPI over rods: {out}")
+    assert seq.path == "torch_rods" and finite
+    assert tuple(fin.orientations.q.shape[:1]) == (k,)
+    assert single <= BATCH_TOL, single
+    return out
+
+
+def run_rods(dev):
+    """Phase 11: slice 7 on the card, no kernel of the port on its path:
+    the rods (:func:`run_rod_lattice`), the stiff-rod tree
+    (:func:`run_tree`), the rod examples (:func:`run_rod_demos`) and MPPI
+    over rods (:func:`run_rod_planner`). Returns the record of ``{"rods":
+    ...}``."""
+    out = {"rods": run_rod_lattice(dev)}
+    torch.cuda.empty_cache()
+    out["tree"] = run_tree(dev)
+    out.update(run_rod_demos(dev))
+    out["planner"] = run_rod_planner(dev)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -2319,6 +3034,7 @@ def main() -> int:
     log(f"built the {BAR} bar in {time.perf_counter() - t0!r} s")
     tet_err, bar_plain10, tet_record = check_tet_kernel_against_plain(dev,
                                                                       bar)
+    tet_batch = check_tet_kernel_batched(dev, bar)
     launches, main_rate, busy = run_main_path(dev, x_plain10)
     tet_main = run_tet_main_path(dev, bar_plain10)
     t = time_cloth_kernel(dev)
@@ -2329,11 +3045,13 @@ def main() -> int:
     ft = time_fluid_kernels(dam["scene"], dam["state"])
     del dam["scene"], dam["state"]
     planner_check = check_planner_routes(dev)
+    bar_planner_check = check_bar_planner_routes(dev)
     mpc_big = run_mpc_big(dev)
     bench_lines = run_bench_modes()
     unstructured = run_unstructured(dev)
     rigid = run_rigid(dev)
     collision = run_collision(dev)
+    rods = run_rods(dev)
 
     kernels = [{
         "name": "cloth_substep",
@@ -2392,6 +3110,8 @@ def main() -> int:
         "main_path_peak_bytes": tet_main["peak_bytes"],
         "ptxas": ptxas.get("tet_substep_kernel"),
         "runtime_resources": tet_resources,
+        "n_batch_check": tet_batch,
+        "planner_route_check": bar_planner_check,
         **tet_record,
     }]
     pbf = {"pbf_density_lambda": ("fluids/cellgrid_pallas.py:94", "rho"),
@@ -2439,6 +3159,7 @@ def main() -> int:
     print(json.dumps({"unstructured": unstructured}))
     print(json.dumps({"rigid": rigid}))
     print(json.dumps({"collision": collision}))
+    print(json.dumps({"rods": rods}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,8 @@ numpy only, never ``jax`` and never the JAX package.
 Ported so far (slice 1, the 320×320 XPBD cloth step; slice 2, the
 80×36×36 XPBD FEM-tet bar; slice 3, the 100k PBF breaking dam; slice 4,
 the general unstructured solver; slice 5, the sampling planner; slice 6a,
-rigid bodies and joints; slice 6b, collision):
+rigid bodies and joints; slice 6b, collision; slice 7, rods and generic
+constraints):
 
 * ``ops/integration.py`` — semi-implicit Euler, the rigid rotation step
   and the velocity updates;
@@ -21,16 +22,23 @@ rigid bodies and joints; slice 6b, collision):
   helpers, the signed SVD in its LAPACK and Jacobi forms, the polar
   decompositions, and the classic PBD and XPBD constraint solves, batched
   over leading axes;
-* ``solver/state.py`` — ``ParticleState`` / ``RigidState`` / ``SimState``;
+* ``solver/state.py`` — ``ParticleState`` / ``OrientationState`` /
+  ``RigidState`` / ``SimState``;
+* ``ops/rods.py``, ``ops/ghost_rods.py``, ``ops/generic.py`` — Cosserat
+  and ghost-point rod solves and the user's generic constraints, their
+  Jacobians by ``torch.func.jacfwd``; ``solver/grid_rods.py`` — identical
+  rods as plane stencils (the rod lattice); ``solver/direct_rods.py`` —
+  the direct stiff-rod chain and tree solvers;
 * ``solver/joints.py`` — the 13 joint kinds (ball … stretch-bending-
   twisting) as ``JointBatch``-es, gathered, solved in one batched 6×6
   system a joint and scattered with ``index_add_`` in plain PyTorch, as
   JAX computes them in XLA;
 * ``solver/coloring.py``, ``solver/constraints.py`` — greedy colouring
-  and the nine particle constraint batches (distance, FEM and strain
-  triangles, FEM and strain tets, volume, shape matching, dihedral and
-  isometric bending), gathered, solved and scattered with ``index_add_``
-  in plain PyTorch, as JAX computes them in XLA;
+  and the constraint batches (distance, FEM and strain triangles, FEM and
+  strain tets, volume, shape matching, dihedral and isometric bending, the
+  Cosserat and ghost-point rod families, the generic particle and rigid
+  constraints), gathered, solved and scattered with ``index_add_`` in
+  plain PyTorch, as JAX computes them in XLA;
 * ``solver/grid_cloth.py``, ``solver/grid_tet.py`` — the structured-grid
   stencil solvers of cloths and tet bars;
 * ``solver/grid_cloth_cuda.py`` + ``csrc/grid_cloth_step.cu`` and
@@ -45,7 +53,8 @@ rigid bodies and joints; slice 6b, collision):
   computes them in XLA;
 * ``models/`` — ``SceneBuilder`` for triangle and tet models, regular or
   not, with the cloth, bending and solid methods and the per-constraint
-  adders, and for rigid bodies with the 14 joint adders;
+  adders, for rigid bodies with the 14 joint adders, and for line models,
+  ghost-point rods, stiff rods and generic constraints;
 * ``fluids/`` — the SPH kernel, the hash neighbor search, the cell-dense
   PBF pipeline (``cellgrid.py``) with its density, correction and XSPH
   passes as hand-written CUDA kernels (``cellgrid_cuda.py`` +

@@ -1,10 +1,13 @@
 """Carry a scene of the JAX package across to the port.
 
-The JAX package's ``SimState`` (its particles and ``RigidState``),
-``GridClothBatch``, ``GridTetBatch``, particle-batch leaves
-(``DistanceBatch`` … ``ShapeMatchingBatch``) and ``JointBatch``-es, taken
-out as numpy arrays (``np.asarray`` of each leaf) together with the
-batches' static fields, become the port's ``(SimState, ConstraintSet)``;
+The JAX package's ``SimState`` (its particles, ``OrientationState`` and
+``RigidState``), ``GridClothBatch``, ``GridTetBatch``, particle-batch
+leaves (``DistanceBatch`` … ``DarbouxVectorBatch``, the generic batches
+with the caller's torch function), ``JointBatch``-es, the Cosserat
+batches, ``RodLatticeBatch``, the stiff-rod batches and
+``GenericRigidBatch``-es, taken out as numpy arrays (``np.asarray`` of
+each leaf) together with the batches' static fields, become the port's
+``(SimState, ConstraintSet)``;
 a JAX ``FluidScene`` (with its ``CellGridSpec`` and
 ``BoundaryTables``) and ``FluidState`` become the port's. Both packages
 then compute the same trajectory from the same scene. This module reads
@@ -23,10 +26,13 @@ from .fluids.cellgrid import CellGridSpec, boundary_tables
 from .fluids.model import FluidScene, FluidState
 from .solver import constraints
 from .solver.constraints import PARTICLE_BATCH_ORDER, ConstraintSet
+from .solver.direct_rods import DirectRodBatch, DirectRodTreeBatch
 from .solver.grid_cloth import GridClothBatch
+from .solver.grid_rods import RodLatticeBatch
 from .solver.grid_tet import GridTetBatch
 from .solver.joints import JointBatch
-from .solver.state import ParticleState, RigidState, SimState
+from .solver.state import (OrientationState, ParticleState, RigidState,
+                           SimState)
 
 _PARTICLE_FIELDS = ("x", "v", "old_x", "last_x", "x0", "inv_mass")
 _META_FIELDS = ("height", "width", "offset", "xpbd_distance", "xpbd_bending",
@@ -44,7 +50,12 @@ def scene_from_numpy(state_arrays: Mapping[str, np.ndarray],
                      grid_tet_meta: Sequence[Mapping] = (),
                      particle_batches: Mapping[str, Tuple] = None,
                      rigid: Optional[Mapping[str, np.ndarray]] = None,
-                     joints: Sequence[Tuple[Mapping, Mapping]] = ()
+                     joints: Sequence[Tuple[Mapping, Mapping]] = (),
+                     orientations: Optional[Mapping[str, np.ndarray]] = None,
+                     rods: Mapping[str, Tuple] = None,
+                     rod_lattices: Sequence[Tuple[Mapping, Mapping]] = (),
+                     direct_rods: Sequence[Tuple] = (),
+                     rigid_generics: Sequence[Tuple[Mapping, Mapping]] = ()
                      ) -> Tuple[SimState, ConstraintSet]:
     """``state_arrays``: the particle leaves ``x, v, old_x, last_x, x0,
     inv_mass`` and ``time`` (``overflow`` optional). ``grid_cloth_arrays``:
@@ -65,10 +76,21 @@ def scene_from_numpy(state_arrays: Mapping[str, np.ndarray],
     ext_torque``). ``joints``: per ``JointBatch`` of the JAX set, in its
     order, ``(arrays, statics)``: its array fields that are not None
     (``bodies``, ``color``, ``local0``, …, ``seq_repeat``) and its static
-    fields ``kind`` and ``num_colors``. Every array is copied to
-    ``device`` (None means CUDA), the index tables as int64, the colours as
-    int32, ``seq_repeat`` as bool, the rest as float32; the Jacobi counts
-    are computed again from the indices."""
+    fields ``kind`` and ``num_colors``. ``orientations``: the JAX
+    ``OrientationState``'s fields by name (``q, omega, old_q, last_q, q0,
+    inv_mass``). ``rods``: ``"stretch_shear"`` and ``"bend_twist"`` as
+    ``(class name, arrays, statics)``. ``rod_lattices``: per
+    ``RodLatticeBatch``, ``(arrays, statics)``. ``direct_rods``: per
+    stiff-rod batch, ``(class name, arrays, statics)``; a tree's
+    ``arrays`` hold its ``schedule`` (a dict of arrays) and its
+    ``statics`` ``n_slots``, ``dmax``, ``pmax`` and ``solver``.
+    ``rigid_generics``: per ``GenericRigidBatch``, ``(arrays, statics)``,
+    its statics ``fn`` (the constraint written as a torch function) and
+    ``num_colors``; a ``GenericConstraintBatch`` comes among
+    ``particle_batches`` as ``"generic{i}"``, its ``fn`` in its statics.
+    Every array is copied to ``device`` (None means CUDA), the index tables
+    as int64, the colours as int32, ``seq_repeat`` as bool, the rest as
+    float32; the Jacobi counts are computed again from the indices."""
     dev = resolve_device(device)
     if len(grid_cloth_arrays) != len(meta):
         raise ValueError(f"{len(grid_cloth_arrays)} grid cloths but "
@@ -94,7 +116,12 @@ def scene_from_numpy(state_arrays: Mapping[str, np.ndarray],
         if missing:
             raise ValueError(f"rigid lacks {missing}")
         rigid_state = RigidState(**{k: f32(rigid[k]) for k in names})
-    state = SimState(particles=particles, orientations=None,
+    ori = None
+    if orientations is not None:
+        ori = OrientationState(**{
+            f.name: f32(orientations[f.name])
+            for f in dataclasses.fields(OrientationState)})
+    state = SimState(particles=particles, orientations=ori,
                      rigid=rigid_state, time=f32(state_arrays["time"]),
                      overflow=None if overflow is None else f32(overflow))
 
@@ -113,14 +140,48 @@ def scene_from_numpy(state_arrays: Mapping[str, np.ndarray],
                         **{k: m[k] for k in _TET_META_FIELDS})
            for arrays, m in zip(grid_tet_arrays, grid_tet_meta)]
     n = particles.x.shape[-2]
+    kw = _particle_batches(particle_batches or {}, dev)
+    for name, (cls_name, arrays, statics) in (rods or {}).items():
+        if name not in ("stretch_shear", "bend_twist"):
+            raise ValueError(f"unknown rod batch name {name!r}")
+        kw[name] = _batch(getattr(constraints, cls_name), arrays, statics,
+                          dev)
+    lattices = tuple(RodLatticeBatch(
+        **{f: torch.tensor(np.asarray(a, np.float32), device=dev)
+           for f, a in arrays.items()}, **dict(statics))
+        for arrays, statics in rod_lattices)
     cset = ConstraintSet(grid_cloths=tuple(gcs), n_particles=n,
                          grid_tets=tuple(gts),
                          n_rigid=None if rigid_state is None
                          else rigid_state.n,
                          joints=tuple(_joint_batch(a, st, dev)
                                       for a, st in joints),
-                         **_particle_batches(particle_batches or {}, dev))
-    return state, cset.with_jacobi_counts(n)
+                         rod_lattices=lattices,
+                         direct_rods=tuple(_direct_rod(*d, dev)
+                                           for d in direct_rods),
+                         rigid_generics=tuple(
+                             _batch(constraints.GenericRigidBatch, arrays,
+                                    statics, dev)
+                             for arrays, statics in rigid_generics), **kw)
+    n_q = 0 if ori is None else ori.n
+    return state, cset.with_jacobi_counts(n, n_q)
+
+
+def _direct_rod(cls_name: str, arrays: Mapping, statics: Mapping, dev):
+    """A JAX stiff-rod batch's arrays and statics as the port's."""
+    if cls_name == "DirectRodBatch":
+        return _batch(DirectRodBatch, arrays, {}, dev)
+    if cls_name != "DirectRodTreeBatch":
+        raise ValueError(f"{cls_name} is not a stiff-rod batch")
+    arrays = dict(arrays)
+    sched = arrays.pop("schedule", None)
+    statics = dict(statics)
+    solver = statics.pop("solver", "auto")
+    if sched is not None:
+        sched = dict(sched, **{k: statics[k] for k in ("n_slots", "dmax",
+                                                       "pmax")})
+    return DirectRodTreeBatch.from_arrays(arrays, sched, solver=solver,
+                                          device=dev)
 
 
 def _joint_batch(arrays: Mapping, statics: Mapping, dev) -> JointBatch:
@@ -138,28 +199,26 @@ def _joint_batch(arrays: Mapping, statics: Mapping, dev) -> JointBatch:
 def _particle_batches(batches: Mapping[str, Tuple], dev) -> dict:
     """``ConstraintSet`` fields of the particle batches given as name →
     ``(class name, arrays, statics)``."""
-    def tensor(field, a):
-        dtype = {"idx": torch.int64, "color": torch.int32}.get(
-            field, torch.float32)
-        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
-
-    kw, extras = {}, {}
+    kw, extras, gens = {}, {}, {}
     for name, (cls_name, arrays, statics) in batches.items():
         cls = getattr(constraints, cls_name, None)
         if cls is None or not issubclass(cls, constraints._ParticleBatch):
             raise ValueError(f"{name}: {cls_name} is not a particle batch "
                              "of the port")
-        batch = cls(**{f: tensor(f, a) for f, a in arrays.items()},
-                    **dict(statics))
+        batch = _batch(cls, arrays, statics, dev)
         if name.startswith("extra"):
             extras[int(name[len("extra"):])] = batch
+        elif name.startswith("generic"):
+            gens[int(name[len("generic"):])] = batch
         elif name in PARTICLE_BATCH_ORDER:
             kw[name] = batch
         else:
             raise ValueError(f"unknown particle batch name {name!r}")
-    if sorted(extras) != list(range(len(extras))):
-        raise ValueError(f"extra batches {sorted(extras)} are not 0..n-1")
+    for what, d in (("extra", extras), ("generic", gens)):
+        if sorted(d) != list(range(len(d))):
+            raise ValueError(f"{what} batches {sorted(d)} are not 0..n-1")
     kw["extra_batches"] = tuple(extras[i] for i in range(len(extras)))
+    kw["generics"] = tuple(gens[i] for i in range(len(gens)))
     return kw
 
 
@@ -239,11 +298,19 @@ def fluid_state_from_numpy(state: Mapping[str, Any], device=None
 #: Index fields of the collision structures, carried as int64.
 _INDEX_FIELDS = ("pair_i", "pair_jj", "pair_bi", "pair_bj", "bodies",
                  "morton_perm", "tets", "grid_tet", "tet_blocks",
-                 "surf_blocks")
+                 "surf_blocks", "idx", "idx_p", "idx_q", "edges")
+
+
+def _batch(cls, arrays: Mapping, statics: Mapping, dev):
+    """``cls`` from its numpy ``arrays`` (as tensors on ``dev``) and its
+    ``statics``."""
+    return cls(**{f: _tensor_field(f, a, dev) for f, a in arrays.items()},
+               **dict(statics))
 
 
 def _tensor_field(name: str, a, dev):
-    dtype = torch.int64 if name in _INDEX_FIELDS else torch.float32
+    dtype = (torch.int64 if name in _INDEX_FIELDS
+             else torch.int32 if name == "color" else torch.float32)
     return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
 
 

@@ -325,9 +325,10 @@ __device__ __forceinline__ void solve_cell(const volatile float* sx,
 }
 
 // One Jacobi iteration of a substep for the box of block blockIdx.x (boxes
-// numbered with k fastest). x_cur is null in a substep's first iteration
-// (integrate); lam_in is null in the first iteration (lambda 0) and lam_out
-// in the last; v_out is set in the last iteration only.
+// numbered with k fastest) of rollout blockIdx.y. x_cur is null in a
+// substep's first iteration (integrate); lam_in is null in the first
+// iteration (lambda 0) and lam_out in the last; v_out is set in the last
+// iteration only.
 __global__ void __launch_bounds__(Tile::threads, kMinBlocks)
 tet_substep_kernel(const float* __restrict__ x_in,
                    const float* __restrict__ v_in,
@@ -337,7 +338,7 @@ tet_substep_kernel(const float* __restrict__ x_in,
                    const float* __restrict__ lam_in,
                    float* __restrict__ lam_out, float* __restrict__ x_out,
                    float* __restrict__ v_out, const TetParams P, int W, int H,
-                   int D) {
+                   int D, int w_bstride) {
   extern __shared__ float smem[];
   float* sx = smem;                       // [3][S]
   float* sw = sx + 3 * Tile::S;           // [S]
@@ -350,6 +351,21 @@ tet_substep_kernel(const float* __restrict__ x_in,
   const int br = blockIdx.x / nbk;
   const int i0 = br / nbj * TI, j0 = br % nbj * TJ, k0 = bk * TK;
   const int n = W * H * D;
+  // rollout blockIdx.y: its own state and lambda planes; w is shared when
+  // w_bstride is 0
+  {
+    const long long b = blockIdx.y;
+    const long long xo = b * 3 * n;
+    const long long lo = b * 5 * (long long)(W - 1) * (H - 1) * (D - 1);
+    x_in += xo;
+    v_in += xo;
+    if (x_cur != nullptr) x_cur += xo;
+    x_out += xo;
+    if (v_out != nullptr) v_out += xo;
+    if (lam_in != nullptr) lam_in += lo;
+    if (lam_out != nullptr) lam_out += lo;
+    w_g += b * w_bstride;
+  }
 
   // ---- 1. stage the box and its halo, integrating in the first iteration;
   //      a thread issues every load of its staged vertices before it uses
@@ -551,19 +567,24 @@ int pbd_tet_kernel_resources(int* out) {
   return (int)cudaSuccess;
 }
 
-// One Jacobi iteration of a substep, one launch. State planes are (3, W*H*D)
-// float32; w and inv_cnt are (W*H*D,); lambda planes are (5, cells). x_cur
-// is null exactly in a substep's first iteration, lam_in null in the first
-// iteration and set in every later one of a substep with more than one;
-// lam_out is set in every iteration but the last of such a substep; v_out
-// is set in the last iteration only. Every output is distinct from every
-// input. `params` points to N_PARAMS host floats. Returns a CUDA error
-// code, 0 when the launch was queued.
-int pbd_tet_substep(const void* x_in, const void* v_in, const void* x_cur,
-                    const void* w, const void* inv_cnt, const void* lam_in,
-                    void* lam_out, void* x_out, void* v_out,
-                    const void* params, int W, int H, int D, void* stream) {
-  if (!dims_ok(W, H, D) || x_out == nullptr ||
+// One Jacobi iteration of a substep of n_batch rollouts, one launch. State
+// planes are (n_batch, 3, W*H*D) float32; w is (W*H*D,) shared by the
+// rollouts (w_bstride 0) or (n_batch, W*H*D) (w_bstride W*H*D); inv_cnt is
+// (W*H*D,); lambda planes are (n_batch, 5, cells). x_cur is null exactly in
+// a substep's first iteration, lam_in null in the first iteration and set
+// in every later one of a substep with more than one; lam_out is set in
+// every iteration but the last of such a substep; v_out is set in the last
+// iteration only. Every output is distinct from every input. `params`
+// points to N_PARAMS host floats. Returns a CUDA error code, 0 when the
+// launch was queued.
+int pbd_tet_substep_batched(const void* x_in, const void* v_in,
+                            const void* x_cur, const void* w,
+                            const void* inv_cnt, const void* lam_in,
+                            void* lam_out, void* x_out, void* v_out,
+                            const void* params, int n_batch, int w_bstride,
+                            int W, int H, int D, void* stream) {
+  if (!dims_ok(W, H, D) || x_out == nullptr || n_batch < 1 ||
+      n_batch > 65535 || (w_bstride != 0 && w_bstride != W * H * D) ||
       (x_cur == nullptr && lam_in != nullptr) || x_out == x_in ||
       x_out == x_cur || (lam_out != nullptr && lam_out == lam_in))
     return (int)cudaErrorInvalidValue;
@@ -571,12 +592,23 @@ int pbd_tet_substep(const void* x_in, const void* v_in, const void* x_cur,
   if (e != cudaSuccess) return (int)e;
   TetParams P;
   std::memcpy(&P, params, sizeof(P));
-  tet_substep_kernel<<<n_blocks(W, H, D), Tile::threads, Tile::smem,
+  const dim3 grid(n_blocks(W, H, D), n_batch);
+  tet_substep_kernel<<<grid, Tile::threads, Tile::smem,
                        (cudaStream_t)stream>>>(
       (const float*)x_in, (const float*)v_in, (const float*)x_cur,
       (const float*)w, (const float*)inv_cnt, (const float*)lam_in,
-      (float*)lam_out, (float*)x_out, (float*)v_out, P, W, H, D);
+      (float*)lam_out, (float*)x_out, (float*)v_out, P, W, H, D, w_bstride);
   return (int)cudaGetLastError();
+}
+
+// The same for one rollout: planes (3, W*H*D), lambda planes (5, cells).
+int pbd_tet_substep(const void* x_in, const void* v_in, const void* x_cur,
+                    const void* w, const void* inv_cnt, const void* lam_in,
+                    void* lam_out, void* x_out, void* v_out,
+                    const void* params, int W, int H, int D, void* stream) {
+  return pbd_tet_substep_batched(x_in, v_in, x_cur, w, inv_cnt, lam_in,
+                                 lam_out, x_out, v_out, params, 1, 0, W, H,
+                                 D, stream);
 }
 
 const char* pbd_tet_error_string(int err) {

@@ -3,15 +3,16 @@ builders.py`` (``SimulationModel``'s ``add*`` surface,
 ``Simulation/SimulationModel.h:186-249``): triangle and tet models, the
 per-constraint adders, cloth, bending and solid constraints on the
 structured grid solvers or on the unstructured particle batches, rigid
-bodies with the 14 joint adders, and the collision objects frozen into a
-``CollisionPipeline`` by ``build_collision_pipeline(device=)``.
+bodies with the 14 joint adders, Cosserat rods (line models, on the rod
+lattice when the rods are identical), ghost-point rods, direct stiff-rod
+chains and trees, generic particle and rigid constraints, and the
+collision objects frozen into a ``CollisionPipeline`` by
+``build_collision_pipeline(device=)``.
 
-A :class:`SceneBuilder` accumulates particles, bodies and constraint specs
-on the host in numpy, then ``build(device=)`` freezes them into a
-``(SimState, ConstraintSet)`` pair of tensors. Masses of 0 pin particles
-and make bodies static. Branches that later slices port (rods,
-ghost-point rods, generic constraints) raise ``NotImplementedError``
-naming the slice, rather than dropping their input.
+A :class:`SceneBuilder` accumulates particles, orientations, bodies and
+constraint specs on the host in numpy, then ``build(device=)`` freezes
+them into a ``(SimState, ConstraintSet)`` pair of tensors. Masses of 0 pin
+particles and orientations and make bodies static.
 """
 from __future__ import annotations
 
@@ -23,33 +24,22 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..solver.constraints import (ConstraintSet, DihedralBatch,
-                                  DistanceBatch, FEMTetraBatch,
-                                  FEMTriangleBatch, IsometricBendingBatch,
-                                  ShapeMatchingBatch, StrainTetraBatch,
-                                  StrainTriangleBatch, VolumeBatch)
+from ..solver.constraints import (
+    BendTwistBatch, ConstraintSet, DarbouxVectorBatch, DihedralBatch,
+    DistanceBatch, FEMTetraBatch, FEMTriangleBatch, GenericConstraintBatch,
+    GenericRigidBatch, GhostEdgeDistanceBatch, IsometricBendingBatch,
+    PerpendicularBisectorBatch, ShapeMatchingBatch, StrainTetraBatch,
+    StrainTriangleBatch, StretchShearBatch, VolumeBatch)
+from ..solver.direct_rods import DirectRodBatch, DirectRodTreeBatch
 from ..solver.grid_cloth import GridClothBatch
+from ..solver.grid_rods import RodLatticeBatch
 from ..solver.grid_tet import GridTetBatch
 from ..solver.joints import make_joint_batch
-from ..solver.state import ParticleState, RigidState, SimState
+from ..solver.state import (OrientationState, ParticleState, RigidState,
+                            SimState)
 from ..utils import npquat
 from ..utils.massprops import mass_properties, principal_frame
 from .mesh import TetMesh, TriangleMesh
-
-#: The JAX builder's methods that later slices port, by slice: each
-#: raises NotImplementedError naming its slice rather than drop its input.
-_UNPORTED = {
-    "7 (rods and generic constraints)": (
-        "add_quaternions", "set_quaternion_mass", "add_ghost_rod_model",
-        "add_ghost_rod_constraints", "add_line_model", "add_rod_constraints",
-        "add_stretch_shear_constraint", "add_bend_twist_constraint",
-        "add_direct_rod_chain", "add_direct_rod_tree",
-        "add_generic_constraints", "add_generic_rigid_constraints",
-        "add_perpendicular_bisector_constraint",
-        "add_ghost_point_edge_distance_constraint",
-        "add_darboux_vector_constraint"),
-}
-
 
 def regular_triangle_grid(width: int, height: int, translation=(0, 0, 0),
                           rotation: Optional[np.ndarray] = None,
@@ -145,8 +135,32 @@ class TetModelHandle:
     grid: Optional[Tuple[int, int, int]] = None
 
 
+@dataclass
+class LineModelHandle:
+    offset: int          # particle offset
+    offset_q: int        # orientation offset
+    n_points: int
+    n_quaternions: int
+
+
+@dataclass
+class GhostRodHandle:
+    offset: int          # centreline particle offset
+    ghost_offset: int    # ghost particle offset (in the same global array)
+    n_points: int
+
+
 def _bc(v, n):
     return np.broadcast_to(np.asarray(v, np.float32), (n,)).copy()
+
+
+def _rod_material(nc, radius, seg_len, youngs, torsion) -> dict:
+    """A stiff rod's per-constraint material parameters, float64."""
+    def per(v):
+        return np.broadcast_to(np.asarray(v, np.float64), (nc,)).copy()
+
+    return dict(radius=per(radius), seg_len=per(seg_len),
+                youngs=per(youngs), torsion=per(torsion))
 
 
 def _chunk2(i, j):
@@ -209,6 +223,20 @@ class SceneBuilder:
     _rb_colliders: list = field(default_factory=list)
     _pg_colliders: list = field(default_factory=list)
     _tet_colliders: list = field(default_factory=list)
+    # orientations (the rods' quaternions) and the slice-7 families
+    _q: List[np.ndarray] = field(default_factory=list)
+    _mass_q: List[np.ndarray] = field(default_factory=list)
+    _n_q: int = 0
+    _mass_q_overrides: dict = field(default_factory=dict)
+    _stretch_shear: list = field(default_factory=list)  # (idx_p, idx_q, ks3)
+    _bend_twist: list = field(default_factory=list)     # (idx_q, ks3)
+    _perp_bisector: list = field(default_factory=list)  # (idx3, k)
+    _ghost_edge: list = field(default_factory=list)     # (idx3, k)
+    _darboux: list = field(default_factory=list)        # (idx5, ks3, midlen)
+    _generics: list = field(default_factory=list)       # (fn, idx, k, params)
+    _rigid_generics: list = field(default_factory=list)  # (fn, bodies, k)
+    _direct_rods: list = field(default_factory=list)    # chain specs
+    _direct_rod_trees: list = field(default_factory=list)  # tree specs
 
     # ---- particles -------------------------------------------------------
 
@@ -226,6 +254,17 @@ class SceneBuilder:
 
     def set_mass(self, i: int, mass: float):
         self._mass_overrides[int(i)] = float(mass)
+
+    def add_quaternions(self, q, mass=1.0) -> int:
+        q = np.atleast_2d(np.asarray(q, np.float32))
+        offset = self._n_q
+        self._q.append(q)
+        self._mass_q.append(_bc(mass, q.shape[0]))
+        self._n_q += q.shape[0]
+        return offset
+
+    def set_quaternion_mass(self, i: int, mass: float):
+        self._mass_q_overrides[int(i)] = float(mass)
 
     # ---- models ----------------------------------------------------------
 
@@ -261,6 +300,79 @@ class SceneBuilder:
         points = np.asarray(points, np.float32)
         offset = self.add_particles(points, mass)
         return TetModelHandle(offset, TetMesh(len(points), tets))
+
+    def add_ghost_rod_model(self, points, ghost_points=None, mass=1.0,
+                            ghost_mass=1.0) -> GhostRodHandle:
+        """Ghost-point elastic rod (Umetani 2014; ``builders.py:285-312``):
+        ``n`` centreline particles and ``n − 1`` edge ghosts in the global
+        particle array. Without ``ghost_points`` the ghosts sit at the edge
+        midpoints offset by 0.25 perpendicular to the edge
+        (``PositionBasedElasticRodsDemo.cpp:160-166``)."""
+        pts = np.asarray(points, np.float64)
+        n = len(pts)
+        if ghost_points is None:
+            mids = 0.5 * (pts[:-1] + pts[1:])
+            d = pts[1:] - pts[:-1]
+            d = d / np.maximum(np.linalg.norm(d, axis=1, keepdims=True),
+                               1e-12)
+            up = np.broadcast_to(np.array([0.0, 1.0, 0.0]), d.shape)
+            alt = np.broadcast_to(np.array([1.0, 0.0, 0.0]), d.shape)
+            perp = np.cross(d, up)
+            bad = np.linalg.norm(perp, axis=1) < 1e-6
+            perp[bad] = np.cross(d[bad], alt[bad])
+            perp = perp / np.maximum(
+                np.linalg.norm(perp, axis=1, keepdims=True), 1e-12)
+            ghost_points = mids + 0.25 * perp
+        offset = self.add_particles(pts, mass)
+        ghost_offset = self.add_particles(np.asarray(ghost_points,
+                                                     np.float64), ghost_mass)
+        return GhostRodHandle(offset, ghost_offset, n)
+
+    def add_ghost_rod_constraints(self, h: GhostRodHandle,
+                                  stretching_stiffness=1.0,
+                                  bending_twisting=(0.5, 0.5, 0.5)):
+        """The ghost-rod demo's constraints (``builders.py:314-333``): per
+        edge a distance, a perpendicular bisector and a ghost-edge
+        distance; per interior element a Darboux-vector bend/twist
+        (mid-edge length 1.0, as the demo passes)."""
+        o, g, n = h.offset, h.ghost_offset, h.n_points
+        for i in range(n - 1):
+            self.add_distance_constraint(o + i, o + i + 1,
+                                         stretching_stiffness)
+            self.add_perpendicular_bisector_constraint(o + i, o + i + 1,
+                                                       g + i)
+            self.add_ghost_point_edge_distance_constraint(o + i, o + i + 1,
+                                                          g + i)
+            if i < n - 2:
+                self.add_darboux_vector_constraint(
+                    o + i, o + i + 1, o + i + 2, g + i, g + i + 1,
+                    bending_twisting=bending_twisting)
+
+    def add_line_model(self, points, quaternions=None, mass=1.0,
+                       mass_q=1.0) -> LineModelHandle:
+        """Rod of ``n`` particles joined by ``n − 1`` orientation
+        quaternions (``SimulationModel::addLineModel``,
+        ``SimulationModel.cpp:1007-1031``; ``builders.py:335-362``). Without
+        ``quaternions`` the frames put d3 along each segment."""
+        points = np.asarray(points, np.float32)
+        n = len(points)
+        offset = self.add_particles(points, mass)
+        if quaternions is None:
+            d = points[1:] - points[:-1]
+            d = d / np.maximum(np.linalg.norm(d, axis=-1, keepdims=True),
+                               1e-12)
+            e3 = np.array([0.0, 0.0, 1.0])
+            v = np.cross(np.broadcast_to(e3, d.shape), d)
+            c = d[:, 2]
+            quaternions = np.concatenate([(1.0 + c)[:, None], v], axis=1)
+            # antipodal segments (d ≈ −e3): rotate about x by π
+            flip = c < -1.0 + 1e-9
+            quaternions[flip] = np.array([0.0, 1.0, 0.0, 0.0])
+            quaternions = quaternions / np.linalg.norm(
+                quaternions, axis=-1, keepdims=True)
+        quaternions = np.asarray(quaternions, np.float32).reshape(-1, 4)
+        offset_q = self.add_quaternions(quaternions, mass_q)
+        return LineModelHandle(offset, offset_q, n, len(quaternions))
 
     # ---- per-constraint adders (SimulationModel.h:186-249) ---------------
     # Scalar and bulk (array) forms share the same chunk accumulators.
@@ -671,6 +783,78 @@ class SceneBuilder:
             (list(map(int, particle_indices)), float(stiffness),
              None if num_clusters is None else list(num_clusters)))
 
+    def add_stretch_shear_constraint(self, i, j, qi,
+                                     stiffness=(1.0, 1.0, 1.0)):
+        ks = np.broadcast_to(np.asarray(stiffness, np.float32), (1, 3)).copy()
+        self._stretch_shear.append(
+            (_chunk2(i, j), np.atleast_1d(np.asarray(qi, np.int32)), ks))
+
+    def add_bend_twist_constraint(self, qi, qj, stiffness=(0.5, 0.5, 0.5)):
+        ks = np.broadcast_to(np.asarray(stiffness, np.float32), (1, 3)).copy()
+        self._bend_twist.append((_chunk2(qi, qj), ks))
+
+    def add_direct_rod_chain(self, bodies, positions, average_radius,
+                             average_segment_length, youngs_modulus,
+                             torsion_modulus):
+        """One stiff-rod chain for the direct solver
+        (``DirectPositionBasedSolverForStiffRods``; ``builders.py:
+        827-847``): ``bodies (S,)`` segment bodies in chain order,
+        ``positions (S-1, 3)`` world constraint positions."""
+        bodies = np.asarray(bodies, np.int32)
+        nc = len(bodies) - 1
+        self._direct_rods.append(dict(
+            bodies=bodies, positions=np.asarray(positions, np.float64),
+            **_rod_material(nc, average_radius, average_segment_length,
+                            youngs_modulus, torsion_modulus)))
+
+    def add_direct_rod_tree(self, bodies, edges, positions, average_radius,
+                            average_segment_length, youngs_modulus,
+                            torsion_modulus):
+        """One branched stiff-rod segment tree for the direct solver
+        (``builders.py:849-875``): ``bodies (S,)``, ``edges (C, 2)`` local
+        segment pairs, ``positions (C, 3)`` world constraint positions."""
+        bodies = np.asarray(bodies, np.int32).reshape(-1)
+        edges = np.asarray(edges, np.int32).reshape(-1, 2)
+        nc = len(edges)
+        self._direct_rod_trees.append(dict(
+            bodies=bodies, edges=edges,
+            positions=np.asarray(positions, np.float64).reshape(nc, 3),
+            **_rod_material(nc, average_radius, average_segment_length,
+                            youngs_modulus, torsion_modulus)))
+
+    def add_generic_constraints(self, fn, indices, stiffness=1.0,
+                                params=None):
+        """User-defined particle constraints (``builders.py:877-885``):
+        ``fn(pts (k, 3)[, params (p,)]) -> (dim,)``, a torch function,
+        applied to every row of ``indices (C, k)``."""
+        self._generics.append((fn, np.asarray(indices, np.int32),
+                               stiffness, params))
+
+    def add_generic_rigid_constraints(self, fn, bodies, stiffness=1.0):
+        """User-defined rigid-body constraints (``builders.py:887-894``):
+        ``fn(x (k, 3), q (k, 4)) -> (dim,)``, a torch function, per row of
+        ``bodies (C, k)``."""
+        self._rigid_generics.append((fn, np.asarray(bodies, np.int32),
+                                     stiffness))
+
+    def add_perpendicular_bisector_constraint(self, p0, p1, ghost,
+                                              stiffness=1.0):
+        idx = np.array([[p0, p1, ghost]], np.int32)
+        self._perp_bisector.append((idx, _bc(stiffness, 1)))
+
+    def add_ghost_point_edge_distance_constraint(self, p0, p1, ghost,
+                                                 stiffness=1.0):
+        idx = np.array([[p0, p1, ghost]], np.int32)
+        self._ghost_edge.append((idx, _bc(stiffness, 1)))
+
+    def add_darboux_vector_constraint(self, p0, p1, p2, ghost0, ghost1,
+                                      bending_twisting=(0.5, 0.5, 0.5),
+                                      mid_edge_length=1.0):
+        idx = np.array([[p0, p1, p2, ghost0, ghost1]], np.int32)
+        ks = np.broadcast_to(np.asarray(bending_twisting, np.float32),
+                             (1, 3)).copy()
+        self._darboux.append((idx, ks, _bc(mid_edge_length, 1)))
+
     # ---- high-level builders (SimulationModel.cpp:1125-1320) -------------
 
     def _grid_spec(self, tm: TriModelHandle) -> Optional[dict]:
@@ -784,6 +968,70 @@ class SceneBuilder:
         else:
             raise NotImplementedError(f"solid method {method} not yet "
                                       "available")
+
+    def add_rod_constraints(self, lm: LineModelHandle,
+                            stretch_stiffness=(1.0, 1.0, 1.0),
+                            bend_twist_stiffness=(0.5, 0.5, 0.5)):
+        """Stretch-shear per segment and bend-twist per frame pair, as
+        ``CosseratRodsDemo/main.cpp:225-273`` (``builders.py:1022-1040``)."""
+        n_seg = lm.n_points - 1
+        seg = np.arange(n_seg, dtype=np.int32)
+        idx_p = np.stack([lm.offset + seg, lm.offset + seg + 1], axis=1)
+        idx_q = lm.offset_q + seg
+        ks = np.broadcast_to(np.asarray(stretch_stiffness, np.float32),
+                             (n_seg, 3)).copy()
+        self._stretch_shear.append((idx_p, idx_q, ks))
+        n_bt = lm.n_quaternions - 1
+        if n_bt > 0:
+            bt = np.arange(n_bt, dtype=np.int32)
+            idx_bt = np.stack([lm.offset_q + bt, lm.offset_q + bt + 1],
+                              axis=1)
+            ksb = np.broadcast_to(np.asarray(bend_twist_stiffness,
+                                             np.float32), (n_bt, 3)).copy()
+            self._bend_twist.append((idx_bt, ksb))
+
+    def _try_rod_lattice(self, x, q0, dev):
+        """The rod lattice (``solver/grid_rods.py``) of identical rods
+        added one after another — same segment count, uniform rest length,
+        isotropic uniform stretch stiffness, uniform bend-twist stiffness,
+        consecutive particles and quaternions — else None, and the rods
+        take the unstructured batches (``builders.py:1042-1087``)."""
+        ss = self._stretch_shear
+        bt = self._bend_twist
+        n_seg = len(ss[0][0])
+        n_p = n_seg + 1
+        if any(len(c[0]) != n_seg for c in ss):
+            return None
+        if len(bt) != len(ss) or any(len(c[0]) != n_seg - 1 for c in bt):
+            return None
+        ks = ss[0][2]
+        if not (np.all(ks == ks[0, 0]) and
+                all(np.array_equal(c[2], ks) for c in ss)):
+            return None
+        ksb = bt[0][1]
+        if not all(np.array_equal(c[1], ksb) for c in bt):
+            return None
+        op = int(ss[0][0][0, 0])
+        oq = int(ss[0][1][0])
+        for r, (ip, iq, _) in enumerate(ss):
+            want_p = op + r * n_p + np.arange(n_seg)
+            if not (np.array_equal(ip[:, 0], want_p)
+                    and np.array_equal(ip[:, 1], want_p + 1)
+                    and np.array_equal(iq, oq + r * n_seg
+                                       + np.arange(n_seg))):
+                return None
+        for r, (ib, _) in enumerate(bt):
+            want_q = oq + r * n_seg + np.arange(n_seg - 1)
+            if not (np.array_equal(ib[:, 0], want_q)
+                    and np.array_equal(ib[:, 1], want_q + 1)):
+                return None
+        idx_p = np.concatenate([c[0] for c in ss])
+        rest = np.linalg.norm(x[idx_p[:, 0]] - x[idx_p[:, 1]], axis=-1)
+        if not np.allclose(rest, rest[0], rtol=1e-5):
+            return None
+        return RodLatticeBatch.create(
+            len(ss), n_p, op, oq, q0, float(rest[0]), float(ks[0, 0]),
+            np.asarray(ksb[0], np.float32), device=dev)
 
     # ---- freeze ----------------------------------------------------------
 
@@ -972,12 +1220,102 @@ class SceneBuilder:
                 xpbd_bending=bend is not None and bend[0] == 3,
                 device=dev))
         rigid = self._build_rigid(dev)
+        orientations, q0 = self._build_orientations(dev)
+        kw.update(self._rod_batches(x, q0, dev))
+        kw.update(self._rigid_rod_batches(dev))
         cset = ConstraintSet(grid_cloths=tuple(gcs), n_particles=len(x),
                              grid_tets=tuple(gts),
                              n_rigid=None if rigid is None else rigid.n,
                              joints=self._build_joints(x, dev), **kw)
-        return (SimState.create(particles, rigid=rigid),
-                cset.with_jacobi_counts(len(x)))
+        return (SimState.create(particles, orientations=orientations,
+                                rigid=rigid),
+                cset.with_jacobi_counts(len(x), self._n_q))
+
+    def _build_orientations(self, dev):
+        """The orientation state and its initial quaternions (numpy), or
+        ``(None, None)`` (``builders.py:1188-1197``)."""
+        if not self._q:
+            return None, None
+        q0 = np.concatenate(self._q, axis=0)
+        mq = np.concatenate(self._mass_q)
+        for i, v in self._mass_q_overrides.items():
+            mq[i] = v
+        return OrientationState.create(q0, mq, device=dev), q0
+
+    def _rod_batches(self, x, q0, dev) -> dict:
+        """The ghost-rod, generic and Cosserat batches as ``ConstraintSet``
+        fields (``builders.py:1317-1385``): identical rods, when there are
+        two or more and the structured path is on, take the rod lattice."""
+        kw = {}
+
+        def cat(chunks, i):
+            return np.concatenate([c[i] for c in chunks])
+
+        if self._generics:
+            kw["generics"] = tuple(
+                GenericConstraintBatch.create(fn, idx, k, params=pr,
+                                              device=dev)
+                for fn, idx, k, pr in self._generics)
+        if self._perp_bisector:
+            kw["perpendicular_bisector"] = PerpendicularBisectorBatch.create(
+                cat(self._perp_bisector, 0), cat(self._perp_bisector, 1),
+                device=dev)
+        if self._ghost_edge:
+            kw["ghost_edge"] = GhostEdgeDistanceBatch.create(
+                cat(self._ghost_edge, 0), x, cat(self._ghost_edge, 1),
+                device=dev)
+        if self._darboux:
+            kw["darboux_vector"] = DarbouxVectorBatch.create(
+                cat(self._darboux, 0), x, cat(self._darboux, 1),
+                cat(self._darboux, 2), device=dev)
+        lattice = None
+        if self.use_structured_grid and len(self._stretch_shear) > 1:
+            lattice = self._try_rod_lattice(x, q0, dev)
+        if lattice is not None:
+            kw["rod_lattices"] = (lattice,)
+            return kw
+        if self._stretch_shear:
+            idx_p = cat(self._stretch_shear, 0)
+            rest = np.linalg.norm(x[idx_p[:, 0]] - x[idx_p[:, 1]], axis=-1)
+            kw["stretch_shear"] = StretchShearBatch.create(
+                idx_p, cat(self._stretch_shear, 1), rest,
+                cat(self._stretch_shear, 2), device=dev)
+        if self._bend_twist:
+            kw["bend_twist"] = BendTwistBatch.create(
+                cat(self._bend_twist, 0), q0, cat(self._bend_twist, 1),
+                device=dev)
+        return kw
+
+    def _rigid_rod_batches(self, dev) -> dict:
+        """The stiff rods — chains of equal segment count in one batch,
+        each tree in its own (``builders.py:1315-1344``) — and the
+        generic rigid batches."""
+        kw = {}
+        rods_ = []
+        if self._direct_rods or self._direct_rod_trees:
+            rx, rq = np.stack(self._rb_x), np.stack(self._rb_q)
+        by_len: dict = {}
+        for spec in self._direct_rods:
+            by_len.setdefault(len(spec["bodies"]), []).append(spec)
+        for _, specs in sorted(by_len.items()):
+            rods_.append(DirectRodBatch.create(
+                *(np.stack([sp[k] for sp in specs])
+                  for k in ("bodies", "positions")), rx, rq,
+                *(np.stack([sp[k] for sp in specs])
+                  for k in ("radius", "seg_len", "youngs", "torsion")),
+                device=dev))
+        for sp in self._direct_rod_trees:
+            rods_.append(DirectRodTreeBatch.create(
+                sp["bodies"], sp["edges"], sp["positions"], rx, rq,
+                sp["radius"], sp["seg_len"], sp["youngs"], sp["torsion"],
+                device=dev))
+        if rods_:
+            kw["direct_rods"] = tuple(rods_)
+        if self._rigid_generics:
+            kw["rigid_generics"] = tuple(
+                GenericRigidBatch.create(fn, bodies, k, device=dev)
+                for fn, bodies, k in self._rigid_generics)
+        return kw
 
 
 def _sequences(js) -> dict:
@@ -1005,16 +1343,3 @@ def _sequences(js) -> dict:
         seq_values=np.stack([np.pad(v, (0, smax - len(v)), mode="edge")
                              for v in vs]),
         seq_repeat=np.array([bool(j.get("repeat", False)) for j in js]))
-
-
-def _unported(name: str, where: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"SceneBuilder.{name} comes with slice {where} of the port")
-    method.__name__ = name
-    return method
-
-
-for _where, _names in _UNPORTED.items():
-    for _name in _names:
-        setattr(SceneBuilder, _name, _unported(_name, _where))

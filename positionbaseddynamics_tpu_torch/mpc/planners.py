@@ -72,9 +72,10 @@ _RIGID_ROLLOUT_FIELDS = ("x", "v", "q", "omega", "old_x", "last_x", "old_q",
 
 def _expand_state(state: SimState, k: int) -> SimState:
     """``state`` of one scene as K identical rollouts: the particles' ``x``,
-    ``v``, ``old_x`` and ``last_x`` and the rigid bodies' per-rollout
-    fields become real ``(K, ...)`` storage, written once here, since the
-    kernel route reads contiguous planes; ``x0``, ``inv_mass`` and the
+    ``v``, ``old_x`` and ``last_x``, the orientations' ``q``, ``omega``,
+    ``old_q`` and ``last_q`` and the rigid bodies' per-rollout fields
+    become real ``(K, ...)`` storage, written once here, since the kernel
+    route reads contiguous planes; ``x0``, the inverse masses and the
     bodies' ``inertia0`` and ``q0`` stay shared."""
     p = state.particles
 
@@ -88,7 +89,13 @@ def _expand_state(state: SimState, k: int) -> SimState:
     if rigid is not None:
         rigid = dataclasses.replace(rigid, **{
             f: lead(getattr(rigid, f)) for f in _RIGID_ROLLOUT_FIELDS})
-    return dataclasses.replace(state, particles=particles, rigid=rigid)
+    ori = state.orientations
+    if ori is not None:
+        ori = dataclasses.replace(ori, **{
+            f: lead(getattr(ori, f)) for f in ("q", "omega", "old_q",
+                                               "last_q")})
+    return dataclasses.replace(state, particles=particles, rigid=rigid,
+                               orientations=ori)
 
 
 def make_sequence_cost(cset: ConstraintSet, cfg: StepConfig, control_model,

@@ -11,13 +11,15 @@ corrections are divided by the number of constraints at each particle
 ``gauss_seidel`` mode the greedy colours (``solver/coloring.py``) are
 solved one after another, each colour free of shared particles.
 
-Ported: the nine particle batches (``:280-816``), ``scatter_add``,
+Ported: the nine particle batches (``:280-816``), the two Cosserat rod
+batches and the three ghost-point rod batches (``:820-1038``), the generic
+particle and rigid batches (``:1041-1131``), ``scatter_add``,
 ``PARTICLE_BATCH_ORDER`` and ``ConstraintSet`` with the structured grid
-cloths and tet grids. JAX's build-time scatter plan (``make_scatter_plan``)
-was a workaround for the TPU's scatter and has no counterpart. The rigid
-joints are ``solver/joints.py``'s ``JointBatch`` (slice 6a), held in
-``ConstraintSet.joints``; the rod, ghost-rod and generic batches, the
-stiff rods and ``GenericRigidBatch`` come with slice 7.
+cloths, tet grids and rod lattices. JAX's build-time scatter plan
+(``make_scatter_plan``) was a workaround for the TPU's scatter and has no
+counterpart. The rigid joints are ``solver/joints.py``'s ``JointBatch``,
+held in ``ConstraintSet.joints``, and the stiff rods
+``solver/direct_rods.py``'s batches, in ``ConstraintSet.direct_rods``.
 
 XPBD multipliers λ live in a per-batch tensor created at the start of
 every projection, the reference's reset at iteration 0
@@ -33,8 +35,9 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..ops import pbd, xpbd
+from ..ops import generic, ghost_rods, pbd, quaternion as quat, rods, xpbd
 from ..ops.mathutils import EPS
+from ..utils import npquat
 from .coloring import greedy_color
 
 Tensor = torch.Tensor
@@ -670,8 +673,356 @@ class ShapeMatchingBatch(_ParticleBatch):
         return corr * self.inv_nc[..., None], lam
 
 
+def rest_darboux_np(qa: np.ndarray, qb: np.ndarray) -> np.ndarray:
+    """Rest Darboux quaternions ``q̄a ⊗ qb`` in float64 with the
+    double-cover pick of the reference's init (``Constraints.cpp:
+    2408-2413``): ``Ω₀`` is negated where ``‖Ω₀ − 1‖² > ‖Ω₀ + 1‖²``."""
+    rest = npquat.multiply(npquat.conjugate(np.asarray(qa, np.float64)),
+                           np.asarray(qb, np.float64))
+    one = np.array([1.0, 0.0, 0.0, 0.0])
+    flip = (np.sum((rest - one) ** 2, axis=-1)
+            > np.sum((rest + one) ** 2, axis=-1))
+    return np.where(flip[..., None], -rest, rest)
+
+
+# ---------------------------------------------------------------------------
+# Cosserat rod batches (positions and orientation quaternions)
+# ---------------------------------------------------------------------------
+
+
+class _RodBatch(_ParticleBatch):
+    """What the two Cosserat batches share with the particle batches:
+    ``to``, ``take`` and the colour subsets, over their own index
+    fields."""
+
+    @property
+    def device(self) -> torch.device:
+        return self.idx_q.device
+
+    @property
+    def n_rows(self) -> int:
+        return self.idx_q.shape[0]
+
+    def color_batches(self):
+        """The sub-batch of each colour, in colour order, made once on the
+        host and kept on the batch (``gauss_seidel`` solves them one after
+        another; ``step.py:199-220``)."""
+        cached = self.__dict__.get("_color_batches")
+        if cached is None:
+            cached = [sub for _, sub in self.color_subsets()]
+            object.__setattr__(self, "_color_batches", cached)
+        return cached
+
+
+@dataclass(frozen=True)
+class StretchShearBatch(_RodBatch):
+    """Cosserat stretch-shear constraints, the batched
+    ``StretchShearConstraint`` (``Constraints.h:566-583``;
+    ``constraints.py:820-860``): particle pair ``idx_p`` and orientation
+    ``idx_q``, coloured over the combined particle and quaternion
+    incidence (quaternion ids shifted by 2**20, as JAX)."""
+
+    idx_p: Tensor        # (C, 2)
+    idx_q: Tensor        # (C,)
+    rest_length: Tensor  # (C,)
+    stretch_ks: Tensor   # (C, 3) per-axis stiffness in the material frame
+    color: Tensor
+    num_colors: int = _static()
+
+    k = 2
+
+    @staticmethod
+    def create(idx_p, idx_q, rest_length, stretch_ks,
+               device=None) -> "StretchShearBatch":
+        dev = resolve_device(device)
+        idx_p = np.asarray(idx_p, np.int32).reshape(-1, 2)
+        idx_q = np.asarray(idx_q, np.int32).reshape(-1)
+        c = idx_p.shape[0]
+        color, num_colors = _colors(
+            np.concatenate([idx_p, idx_q[:, None] + 2**20], axis=1), dev)
+        return StretchShearBatch(
+            idx_p=torch.tensor(idx_p, dtype=torch.int64, device=dev),
+            idx_q=torch.tensor(idx_q, dtype=torch.int64, device=dev),
+            rest_length=_f32(rest_length, (c,), dev),
+            stretch_ks=_f32(stretch_ks, (c, 3), dev),
+            color=color, num_colors=num_colors)
+
+    def solve(self, x, inv_mass, q, inv_mass_q):
+        """Returns ``(corr (..., C, 2, 3), corrq (..., C, 1, 4))``."""
+        flat = self.idx_p.reshape(-1)
+        p = x.index_select(-2, flat).unflatten(-2, (-1, 2))
+        w = inv_mass.index_select(-1, flat).unflatten(-1, (-1, 2))
+        qg = q.index_select(-2, self.idx_q)
+        wq = inv_mass_q.index_select(-1, self.idx_q)
+        c0, c1, cq = rods.solve_stretch_shear(
+            p[..., 0, :], w[..., 0], p[..., 1, :], w[..., 1], qg, wq,
+            self.stretch_ks, self.rest_length)
+        return torch.stack([c0, c1], dim=-2), cq.unsqueeze(-2)
+
+
+@dataclass(frozen=True)
+class BendTwistBatch(_RodBatch):
+    """Cosserat bend-twist constraints on neighbouring frames, the batched
+    ``BendTwistConstraint`` (``Constraints.h:584-600``;
+    ``constraints.py:863-904``); the rest Darboux quaternions and their
+    double-cover sign are computed in float64 on the host."""
+
+    idx_q: Tensor         # (C, 2)
+    rest_darboux: Tensor  # (C, 4)
+    bend_ks: Tensor       # (C, 3) (bending x, bending y, twisting)
+    color: Tensor
+    num_colors: int = _static()
+
+    k = 2
+
+    @staticmethod
+    def create(idx_q, q0, bend_ks, device=None) -> "BendTwistBatch":
+        dev = resolve_device(device)
+        idx_q = np.asarray(idx_q, np.int32).reshape(-1, 2)
+        c = idx_q.shape[0]
+        color, num_colors = _colors(idx_q, dev)
+        qs = np.asarray(q0, np.float64)[idx_q]
+        rest = rest_darboux_np(qs[:, 0], qs[:, 1])
+        return BendTwistBatch(
+            idx_q=torch.tensor(idx_q, dtype=torch.int64, device=dev),
+            rest_darboux=_f32(rest, (c, 4), dev),
+            bend_ks=_f32(bend_ks, (c, 3), dev), color=color,
+            num_colors=num_colors)
+
+    def solve(self, q, inv_mass_q):
+        """Returns ``corrq (..., C, 2, 4)``."""
+        flat = self.idx_q.reshape(-1)
+        qs = q.index_select(-2, flat).unflatten(-2, (-1, 2))
+        wq = inv_mass_q.index_select(-1, flat).unflatten(-1, (-1, 2))
+        c0, c1 = rods.solve_bend_twist(qs[..., 0, :], wq[..., 0],
+                                       qs[..., 1, :], wq[..., 1],
+                                       self.bend_ks, self.rest_darboux)
+        return torch.stack([c0, c1], dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# Ghost-point rod batches (particle batches)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PerpendicularBisectorBatch(_ParticleBatch):
+    """Each ghost point kept on its edge's perpendicular bisector
+    (``PerpendiculaBisectorConstraint``; ``constraints.py:911-942``);
+    ``idx`` = (edge p0, edge p1, ghost)."""
+
+    idx: Tensor         # (C, 3)
+    stiffness: Tensor   # (C,)
+    color: Tensor
+    num_colors: int = _static()
+
+    k = 3
+    has_lambda = False
+
+    @staticmethod
+    def create(idx, stiffness=1.0, device=None
+               ) -> "PerpendicularBisectorBatch":
+        dev = resolve_device(device)
+        idx, t_idx = _index(idx, 3, dev)
+        color, num_colors = _colors(idx, dev)
+        return PerpendicularBisectorBatch(
+            idx=t_idx, stiffness=_f32(stiffness, (len(idx),), dev),
+            color=color, num_colors=num_colors)
+
+    def solve(self, x, inv_mass, lam, dt):
+        c = ghost_rods.solve_perpendicular_bisector(
+            *self._columns(x, inv_mass), self.stiffness)
+        return torch.stack(c, dim=-2), lam
+
+
+@dataclass(frozen=True)
+class GhostEdgeDistanceBatch(_ParticleBatch):
+    """Ghost point to edge midpoint distance
+    (``GhostPointEdgeDistanceConstraint``; ``constraints.py:945-981``)."""
+
+    idx: Tensor         # (C, 3)
+    rest: Tensor        # (C,)
+    stiffness: Tensor   # (C,)
+    color: Tensor
+    num_colors: int = _static()
+
+    k = 3
+    has_lambda = False
+
+    @staticmethod
+    def create(idx, x0, stiffness=1.0, device=None
+               ) -> "GhostEdgeDistanceBatch":
+        dev = resolve_device(device)
+        idx, t_idx = _index(idx, 3, dev)
+        color, num_colors = _colors(idx, dev)
+        x0 = np.asarray(x0, np.float64)
+        pm = 0.5 * (x0[idx[:, 0]] + x0[idx[:, 1]])
+        rest = np.linalg.norm(x0[idx[:, 2]] - pm, axis=-1)
+        return GhostEdgeDistanceBatch(
+            idx=t_idx, rest=_f32(rest, (len(idx),), dev),
+            stiffness=_f32(stiffness, (len(idx),), dev),
+            color=color, num_colors=num_colors)
+
+    def solve(self, x, inv_mass, lam, dt):
+        c = ghost_rods.solve_ghost_edge_distance(
+            *self._columns(x, inv_mass), self.stiffness, self.rest)
+        return torch.stack(c, dim=-2), lam
+
+
+@dataclass(frozen=True)
+class DarbouxVectorBatch(_ParticleBatch):
+    """Ghost-rod bend/twist elements (``DarbouxVectorConstraint``;
+    ``constraints.py:984-1038``); ``idx`` = (p0, p1, p2, ghost0, ghost1);
+    the rest Darboux vectors from the rest positions in float32, as JAX
+    computes them."""
+
+    idx: Tensor           # (C, 5)
+    ks: Tensor            # (C, 3)
+    rest_darboux: Tensor  # (C, 3)
+    mid_len: Tensor       # (C,)
+    color: Tensor
+    num_colors: int = _static()
+
+    k = 5
+    has_lambda = False
+
+    @staticmethod
+    def create(idx, x0, bending_twisting=(0.5, 0.5, 0.5),
+               mid_edge_length=1.0, device=None) -> "DarbouxVectorBatch":
+        dev = resolve_device(device)
+        idx, t_idx = _index(idx, 5, dev)
+        c = idx.shape[0]
+        color, num_colors = _colors(idx, dev)
+        ml = torch.tensor(np.broadcast_to(np.float32(mid_edge_length),
+                                          (c,)).copy())
+        x0t = torch.tensor(np.asarray(x0, np.float32))
+        rest = ghost_rods.element_darboux(
+            *(x0t[idx[:, i]] for i in range(5)), ml)
+        return DarbouxVectorBatch(
+            idx=t_idx, ks=_f32(bending_twisting, (c, 3), dev),
+            rest_darboux=rest.to(dev), mid_len=ml.to(dev), color=color,
+            num_colors=num_colors)
+
+    def solve(self, x, inv_mass, lam, dt):
+        corrs = ghost_rods.solve_darboux_vector(
+            *self._columns(x, inv_mass), self.ks, self.mid_len,
+            self.rest_darboux)
+        return torch.stack(corrs, dim=-2), lam
+
+
+# ---------------------------------------------------------------------------
+# Generic (user-defined) constraints
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class GenericConstraintBatch(_ParticleBatch):
+    """User-defined particle constraints (``PositionBasedGenericConstraints.
+    h:31-121``; ``constraints.py:1041-1093``): ``fn(pts (k, 3)[, params_row
+    (p,)]) -> (dim,)``, a torch function of one constraint, its Jacobian
+    from ``torch.func.jacfwd`` (``ops/generic.py``)."""
+
+    idx: Tensor         # (C, k)
+    stiffness: Tensor   # (C,)
+    color: Tensor
+    params: Optional[Tensor] = None   # (C, p), the reference's userData
+    fn: object = _static(None)
+    num_colors: int = _static(1)
+
+    has_lambda = False
+
+    @staticmethod
+    def create(fn, idx, stiffness=1.0, params=None, device=None
+               ) -> "GenericConstraintBatch":
+        dev = resolve_device(device)
+        idx = np.asarray(idx, np.int32)
+        if idx.ndim == 1:
+            idx = idx[None, :]
+        color, num_colors = _colors(idx, dev)
+        return GenericConstraintBatch(
+            idx=torch.tensor(idx, dtype=torch.int64, device=dev),
+            stiffness=_f32(stiffness, (len(idx),), dev), color=color,
+            params=(None if params is None else torch.tensor(
+                np.atleast_2d(np.asarray(params, np.float32)), device=dev)),
+            fn=fn, num_colors=num_colors)
+
+    @property
+    def k(self) -> int:
+        return self.idx.shape[1]
+
+    def _tensor_fields(self):
+        return [f for f in super()._tensor_fields()
+                if getattr(self, f) is not None]
+
+    def solve(self, x, inv_mass, lam, dt):
+        """Returns ``(corr (..., C, k, 3), lam)``."""
+        p, w = self.gather(x, inv_mass)
+        fn = self.fn
+        if self.params is None:
+            corr = generic.rowwise(
+                lambda pts, ws, s: generic.solve_generic_particle_constraint(
+                    fn, pts, ws, s), (p, w, self.stiffness), (2, 1, 0))
+        else:
+            corr = generic.rowwise(
+                lambda pts, ws, s, pr: generic.
+                solve_generic_particle_constraint(
+                    lambda pp: fn(pp, pr), pts, ws, s),
+                (p, w, self.stiffness, self.params), (2, 1, 0, 1))
+        return corr, lam
+
+
+@dataclass(frozen=True)
+class GenericRigidBatch(_ParticleBatch):
+    """User-defined rigid-body constraints
+    (``PositionBasedGenericConstraints.h:218-280``; ``constraints.py:
+    1096-1131``): ``fn(x (k, 3), q (k, 4)) -> (dim,)``, a torch function,
+    rotations corrected through the quaternion G-matrix
+    parametrisation."""
+
+    bodies: Tensor      # (C, k)
+    stiffness: Tensor   # (C,)
+    color: Tensor
+    fn: object = _static()
+    num_colors: int = _static()
+
+    @staticmethod
+    def create(fn, bodies, stiffness=1.0, device=None) -> "GenericRigidBatch":
+        dev = resolve_device(device)
+        bodies = np.asarray(bodies, np.int32)
+        if bodies.ndim == 1:
+            bodies = bodies[None, :]
+        color, num_colors = _colors(bodies, dev)
+        return GenericRigidBatch(
+            bodies=torch.tensor(bodies, dtype=torch.int64, device=dev),
+            stiffness=_f32(stiffness, (len(bodies),), dev), color=color,
+            fn=fn, num_colors=num_colors)
+
+    @property
+    def device(self) -> torch.device:
+        return self.bodies.device
+
+    @property
+    def n_rows(self) -> int:
+        return self.bodies.shape[0]
+
+    def solve(self, rx, rq, inv_mass, inv_iw):
+        """Returns ``(corr_x (..., C, k, 3), corr_q (..., C, k, 4))``."""
+        flat = self.bodies.reshape(-1)
+        shape = tuple(self.bodies.shape)
+        x = rx.index_select(-2, flat).unflatten(-2, shape)
+        q = rq.index_select(-2, flat).unflatten(-2, shape)
+        w = inv_mass.index_select(-1, flat).unflatten(-1, shape)
+        iw = inv_iw.index_select(-3, flat).unflatten(-3, shape)
+        fn = self.fn
+        corr_x, ot = generic.rowwise(
+            lambda xx, qq, ww, ii, s: generic.solve_generic_rigid_constraint(
+                fn, xx, qq, ww, ii, s), (x, q, w, iw, self.stiffness),
+            (2, 2, 1, 3, 0))
+        return corr_x, 0.5 * quat.multiply(quat.from_vec(ot), q)
+
+
 #: The solve order of the particle families in each iteration
-#: (``constraints.py:1134-1139``); the last three come with slice 7.
+#: (``constraints.py:1134-1139``).
 PARTICLE_BATCH_ORDER = (
     "distance", "fem_triangle", "strain_triangle", "fem_tetra",
     "strain_tetra", "volume", "shape_matching", "dihedral",
@@ -683,20 +1034,22 @@ PARTICLE_BATCH_ORDER = (
 @dataclass(frozen=True)
 class ConstraintSet:
     """All constraint batches of a scene, solved in a fixed order each
-    iteration: the structured grid cloths and tet grids
-    (``solver/grid_cloth.py``, ``solver/grid_tet.py``), then the particle
-    families in :data:`PARTICLE_BATCH_ORDER`, then ``extra_batches`` (the
-    second batch of a family whose constraints mix XPBD and classic, or
-    strain flags, named ``extra{i}``), then the rigid-body ``joints``
-    (``solver/joints.py``, one ``JointBatch`` a kind; ``constraints.py:
-    1174``). ``direct_rods`` and ``rigid_generics`` (the stiff rods and the
-    user-defined rigid constraints) come with slice 7: a set that holds
-    either raises. ``n_rigid`` is the scene's rigid-body count (set by the
-    builder; a scene with rigid bodies takes the ``torch_rigid`` route
-    even without joints). ``n_particles`` is the scene's
-    particle count (set by the builder); ``jacobi_inv_counts`` holds the
-    build-time 1/#constraints column of each family
-    (:meth:`with_jacobi_counts`)."""
+    iteration (``constraints.py:1142-1224``): the structured grid cloths
+    and tet grids (``solver/grid_cloth.py``, ``solver/grid_tet.py``), then
+    the particle families in :data:`PARTICLE_BATCH_ORDER`, the user's
+    ``generics`` (``generic{i}``) and ``extra_batches`` (the second batch
+    of a family whose constraints mix XPBD and classic, or strain flags,
+    ``extra{i}``), then the rods (the uniform-rod ``rod_lattices`` of
+    ``solver/grid_rods.py``, ``stretch_shear``, ``bend_twist``), then the
+    rigid-body ``joints`` (``solver/joints.py``, one ``JointBatch`` a
+    kind), the stiff rods ``direct_rods`` (``solver/direct_rods.py``) and
+    the user's ``rigid_generics``. ``n_rigid`` is the scene's rigid-body
+    count (set by the builder; a scene with rigid bodies takes the
+    ``torch_rigid`` route even without joints); ``n_particles`` and
+    ``n_orientations`` the particle and orientation counts;
+    ``jacobi_inv_counts`` holds the build-time 1/#constraints column of
+    each family, keyed by its name (``"_q"`` for the quaternions of a rod
+    family; :meth:`with_jacobi_counts`)."""
 
     grid_cloths: Tuple = ()
     n_particles: Optional[int] = None
@@ -711,44 +1064,67 @@ class ConstraintSet:
     shape_matching: Optional[ShapeMatchingBatch] = None
     dihedral: Optional[DihedralBatch] = None
     isometric_bending: Optional[IsometricBendingBatch] = None
+    perpendicular_bisector: Optional[PerpendicularBisectorBatch] = None
+    ghost_edge: Optional[GhostEdgeDistanceBatch] = None
+    darboux_vector: Optional[DarbouxVectorBatch] = None
+    generics: Tuple = ()
     extra_batches: Tuple = ()
     jacobi_inv_counts: dict = field(default_factory=dict)
     joints: Tuple = ()
     direct_rods: Tuple = ()
     rigid_generics: Tuple = ()
-
-    def __post_init__(self):
-        for name in ("direct_rods", "rigid_generics"):
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"ConstraintSet.{name} comes with slice 7 (rods and "
-                    "generic constraints) of the port")
+    stretch_shear: Optional[StretchShearBatch] = None
+    bend_twist: Optional[BendTwistBatch] = None
+    rod_lattices: Tuple = ()
+    n_orientations: Optional[int] = None
 
     def particle_batches(self):
         """``[(name, batch)]`` in solve order (``constraints.py:
         1206-1214``)."""
-        named = [(name, getattr(self, name, None))
+        named = [(name, getattr(self, name))
                  for name in PARTICLE_BATCH_ORDER]
         named = [(name, b) for name, b in named if b is not None]
+        named += [(f"generic{i}", b) for i, b in enumerate(self.generics)]
         named += [(f"extra{i}", b) for i, b in enumerate(self.extra_batches)]
         return named
 
-    def with_jacobi_counts(self, n_particles: int) -> "ConstraintSet":
+    @property
+    def has_rods(self) -> bool:
+        """Whether the set holds a family of the orientation particles."""
+        return (self.stretch_shear is not None or self.bend_twist is not None
+                or bool(self.rod_lattices))
+
+    def with_jacobi_counts(self, n_particles: int,
+                           n_orientations: int = 0) -> "ConstraintSet":
         """The averaged-Jacobi denominators 1/count of every family that
-        is not self-averaged, computed once at build time
-        (``constraints.py:1184-1204``); also checks that every index lies
-        in ``[0, n_particles)``."""
+        is not self-averaged, and of the rod families' particles and
+        quaternions, computed once at build time (``constraints.py:
+        1184-1204``); also checks that every index lies in range."""
         inv = {}
+
+        def add(key, n, idx, what):
+            idx = idx.cpu().numpy()
+            if idx.size and (idx.min() < 0 or idx.max() >= n):
+                raise ValueError(f"{key}: {what} indices outside [0, {n})")
+            inv[key] = torch.tensor((1.0 / _counts(n, idx))[:, None],
+                                    device=self.device)
+
         for name, b in self.particle_batches():
-            idx = b.idx.cpu().numpy()
-            if idx.size and (idx.min() < 0 or idx.max() >= n_particles):
-                raise ValueError(f"{name}: particle indices outside "
-                                 f"[0, {n_particles})")
+            add(name, n_particles, b.idx, "particle")
             if b.self_averaged:
-                continue
-            inv[name] = torch.tensor(
-                (1.0 / _counts(n_particles, idx))[:, None], device=b.device)
-        return dataclasses.replace(self, jacobi_inv_counts=inv)
+                del inv[name]
+        if self.stretch_shear is not None:
+            add("stretch_shear", n_particles, self.stretch_shear.idx_p,
+                "particle")
+            add("stretch_shear_q", n_orientations,
+                self.stretch_shear.idx_q, "orientation")
+        if self.bend_twist is not None:
+            add("bend_twist_q", n_orientations, self.bend_twist.idx_q,
+                "orientation")
+        return dataclasses.replace(self, jacobi_inv_counts=inv,
+                                   n_orientations=(n_orientations
+                                                   if self.has_rods
+                                                   else self.n_orientations))
 
     def init_lambdas(self):
         lams = {name: b.init_lambda() for name, b in self.particle_batches()}
@@ -758,23 +1134,30 @@ class ConstraintSet:
             lams[f"grid_tet{i}"] = gt.init_lambda()
         return lams
 
+    def _batches(self):
+        rods_ = tuple(b for b in (self.stretch_shear, self.bend_twist)
+                      if b is not None)
+        return (self.grid_cloths + self.grid_tets
+                + tuple(b for _, b in self.particle_batches())
+                + self.joints + rods_ + self.rod_lattices + self.direct_rods
+                + self.rigid_generics)
+
     @property
     def device(self) -> Optional[torch.device]:
-        batches = (self.grid_cloths + self.grid_tets
-                   + tuple(b for _, b in self.particle_batches())
-                   + self.joints)
+        batches = self._batches()
         return batches[0].device if batches else None
 
     def to(self, device) -> "ConstraintSet":
         """The same set with every tensor on ``device``."""
         moved = {name: getattr(self, name).to(device)
-                 for name in PARTICLE_BATCH_ORDER
-                 if getattr(self, name, None) is not None}
+                 for name in PARTICLE_BATCH_ORDER + ("stretch_shear",
+                                                     "bend_twist")
+                 if getattr(self, name) is not None}
+        tuples = {name: tuple(b.to(device) for b in getattr(self, name))
+                  for name in ("grid_cloths", "grid_tets", "generics",
+                               "extra_batches", "joints", "direct_rods",
+                               "rigid_generics", "rod_lattices")}
         return dataclasses.replace(
-            self, grid_cloths=tuple(gc.to(device) for gc in self.grid_cloths),
-            grid_tets=tuple(gt.to(device) for gt in self.grid_tets),
-            extra_batches=tuple(b.to(device) for b in self.extra_batches),
-            joints=tuple(j.to(device) for j in self.joints),
-            jacobi_inv_counts={k: v.to(device) for k, v in
-                               self.jacobi_inv_counts.items()},
-            **moved)
+            self, jacobi_inv_counts={k: v.to(device) for k, v in
+                                     self.jacobi_inv_counts.items()},
+            **tuples, **moved)

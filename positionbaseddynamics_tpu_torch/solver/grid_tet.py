@@ -18,8 +18,10 @@ package's operation by operation: every sum is added left to right, as
 the JAX code's Python ``sum`` adds, and the square root is correctly
 rounded on the CPU (``grid_cloth._sqrt``).
 
-Positions are one scene's ``(N, 3)``, as in the JAX package, whose grid
-path takes no rollout axis.
+Positions are one scene's ``(N, 3)`` or ``K`` rollouts' ``(K, N, 3)``
+(any leading axes, with inverse masses ``(N,)`` shared or ``(K, N)``),
+as JAX's planner ``vmap``s the grid path over its samples
+(``mpc/planners.py:90, :105``); λ is ``(..., 5, cells)``.
 """
 from __future__ import annotations
 
@@ -238,12 +240,12 @@ class GridTetBatch:
             cr = torch.linalg.cross(p_vecs[1] - p_vecs[0],
                                     p_vecs[2] - p_vecs[0], dim=-1)
             e3 = p_vecs[3] - p_vecs[0]
-            volume = _lsum(cr[:, k] * e3[:, k] for k in range(3)) / 6.0
+            volume = _lsum(cr[..., k] * e3[..., k] for k in range(3)) / 6.0
             u_inv, sig_inv, _f = green_strain_energy_inversion(
                 *p_vecs, irm_m, vol, mu, lame)
             inv = volume <= 0.0
             u_prime = torch.where(inv, u_inv, u_prime)
-            sigma = [[torch.where(inv, sig_inv[:, a, b], sigma[a][b])
+            sigma = [[torch.where(inv, sig_inv[..., a, b], sigma[a][b])
                       for b in range(3)] for a in range(3)]
 
         # H = V₀ σ D_m⁻ᵀ; columns are ∇₀..∇₂, ∇₃ = −Σ (computeGradCGreen)
@@ -270,30 +272,33 @@ class GridTetBatch:
     # -- the grid block and its per-family views -----------------------------
 
     def _block(self, x: Tensor, inv_mass: Tensor):
-        if x.dim() != 2 or inv_mass.dim() != 1:
-            raise NotImplementedError(
-                "the grid-tet solver takes one scene's (N, 3) positions, as "
-                "the JAX package's does; got a rollout axis")
+        """The grid's positions ``(..., W, H, D, 3)`` and inverse masses
+        ``(..., W, H, D)`` of ``x (..., N, 3)`` and ``inv_mass (..., N)``."""
         w, h, d, o = self.width, self.height, self.depth, self.offset
         n_blk = w * h * d
-        return (x[o:o + n_blk].reshape(w, h, d, 3),
-                inv_mass[o:o + n_blk].reshape(w, h, d))
+        return (x[..., o:o + n_blk, :].reshape(*x.shape[:-2], w, h, d, 3),
+                inv_mass[..., o:o + n_blk].reshape(
+                    *inv_mass.shape[:-1], w, h, d))
 
     def _unblock(self, x: Tensor, g: Tensor) -> Tensor:
         o = self.offset
-        flat = g.reshape(-1, 3)
-        if o == 0 and flat.shape[0] == x.shape[0]:
+        flat = g.reshape(*g.shape[:-4], -1, 3)
+        if o == 0 and flat.shape[-2] == x.shape[-2] \
+                and flat.shape == x.shape:
             return flat
-        x = x.clone()
-        x[o:o + flat.shape[0]] = flat
+        x = x.expand(*flat.shape[:-2], *x.shape[-2:]).clone()
+        x[..., o:o + flat.shape[-2], :] = flat
         return x
 
-    def _corners(self, grid):
-        """The 8 corner slices of a ``(W, H, D, ...)`` grid, each flattened
-        to cells: ``[(C, ...)] × 8``."""
+    def _corners(self, grid, vec: bool):
+        """The 8 corner slices of a ``(..., W, H, D)`` grid (``vec``: with
+        a trailing 3), each flattened to cells: ``[(..., C[, 3])] × 8``."""
         wc, hc, dc = self.width - 1, self.height - 1, self.depth - 1
-        return [grid[a:a + wc, b:b + hc, c:c + dc].reshape(
-            wc * hc * dc, *grid.shape[3:]) for a, b, c in _CORNERS]
+        if vec:
+            grid = grid.movedim(-1, 0)
+        out = [grid[..., a:a + wc, b:b + hc, c:c + dc].flatten(-3)
+               for a, b, c in _CORNERS]
+        return [o.movedim(0, -1) for o in out] if vec else out
 
     def _family_rest(self, t):
         """Per-cell inverse rest matrix (3×3 list of (C,)) and rest volume
@@ -308,8 +313,8 @@ class GridTetBatch:
     def _family_points(self, corners_x, corners_w, t):
         co, ce = _TETS_ODD[t], _TETS_EVEN[t]
         odd = self.odd
-        pts = [[torch.where(odd, corners_x[co[k]][:, a],
-                            corners_x[ce[k]][:, a]) for a in range(3)]
+        pts = [[torch.where(odd, corners_x[co[k]][..., a],
+                            corners_x[ce[k]][..., a]) for a in range(3)]
                for k in range(4)]
         ws = [torch.where(odd, corners_w[co[k]], corners_w[ce[k]])
               for k in range(4)]
@@ -317,12 +322,14 @@ class GridTetBatch:
 
     def _add_corners(self, dx, planes):
         """``dx[corner slice] += planes[corner]`` for corners 0..7, in
-        order. ``planes[ci]`` is ``(C, 3)`` or None."""
+        order. ``dx`` is ``(..., W, H, D, 3)``, ``planes[ci]`` ``(..., C,
+        3)`` or None."""
         wc, hc, dc = self.width - 1, self.height - 1, self.depth - 1
         for ci, (a, b, c) in enumerate(_CORNERS):
             if planes[ci] is not None:
-                dx[a:a + wc, b:b + hc, c:c + dc].add_(
-                    planes[ci].reshape(wc, hc, dc, 3))
+                pl = planes[ci]
+                dx[..., a:a + wc, b:b + hc, c:c + dc, :].add_(
+                    pl.reshape(*pl.shape[:-2], wc, hc, dc, 3))
         return dx
 
     # -- projections ---------------------------------------------------------
@@ -342,13 +349,14 @@ class GridTetBatch:
             ((ii % 2 == a) & (jj % 2 == b) & (kk % 2 == c)).reshape(-1),
             dtype=torch.float32, device=self.device)
             for a in (0, 1) for b in (0, 1) for c in (0, 1)]
-        corners_w = self._corners(wg)
-        new_lams = list(lams)
+        corners_w = self._corners(wg, False)
+        new_lams = [lams[..., t, :] for t in range(5)]
         for t in range(5):
             co, ce = _TETS_ODD[t], _TETS_EVEN[t]
             irm9, vol = self._family_rest(t)
             for cm in colors:
-                pts, ws = self._family_points(self._corners(g), corners_w, t)
+                pts, ws = self._family_points(self._corners(g, True),
+                                              corners_w, t)
                 corrs, nl = self._solve_family(pts, ws, irm9, vol, dt,
                                                new_lams[t])
                 new_lams[t] = new_lams[t] + (nl - new_lams[t]) * cm
@@ -361,7 +369,7 @@ class GridTetBatch:
                             dx, [plane if ci == corner else None
                                  for ci in range(8)])
                 g = g + dx            # disjoint within a colour
-        return self._unblock(x, g), torch.stack(new_lams)
+        return self._unblock(x, g), torch.stack(new_lams, dim=-2)
 
     def project(self, x: Tensor, inv_mass: Tensor, lams: Tensor, dt,
                 omega: float = 1.0) -> Tuple[Tensor, Tensor]:
@@ -370,8 +378,8 @@ class GridTetBatch:
         ``omega`` (``grid_tet.py:333-385``). Per corner the families add
         in ascending order, then the corners 0..7 in order."""
         g, wg = self._block(x, inv_mass)
-        corners_x = self._corners(g)
-        corners_w = self._corners(wg)
+        corners_x = self._corners(g, True)
+        corners_w = self._corners(wg, False)
         oddf = self.odd.to(torch.float32)
         evenf = 1.0 - oddf
 
@@ -381,7 +389,8 @@ class GridTetBatch:
             co, ce = _TETS_ODD[t], _TETS_EVEN[t]
             pts, ws = self._family_points(corners_x, corners_w, t)
             irm9, vol = self._family_rest(t)
-            corrs, nl = self._solve_family(pts, ws, irm9, vol, dt, lams[t])
+            corrs, nl = self._solve_family(pts, ws, irm9, vol, dt,
+                                           lams[..., t, :])
             new_lams.append(nl)
             for k in range(4):
                 # parity-route the correction back to the two corners
@@ -393,7 +402,7 @@ class GridTetBatch:
                                [torch.stack(acc[ci], dim=-1)
                                 for ci in range(8)])
         g = g + omega * self.inv_cnt * dx
-        return self._unblock(x, g), torch.stack(new_lams)
+        return self._unblock(x, g), torch.stack(new_lams, dim=-2)
 
     def to(self, device) -> "GridTetBatch":
         """The same batch with every tensor on ``device``."""

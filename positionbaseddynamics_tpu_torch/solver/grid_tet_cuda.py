@@ -13,6 +13,10 @@ damping. At more than one iteration λ travels between the launches in two
 ``(5, cells)`` planes, read from one and written to the other. The state
 travels as component planes ``(3, W·H·D)``: :func:`make_tet_step`
 converts ``(x, v)`` to planes once per call and back once at the end.
+``K`` rollouts of one grid travel as ``(K, 3, W·H·D)`` planes (λ as
+``(K, 5, cells)``) and take one launch per iteration, the rollout a
+dimension of the launch grid, as JAX's planner ``vmap``s the grid over
+its samples.
 
 Beside the kernel sits its plain PyTorch version,
 :func:`tet_substep_reference`, composed of the ported integration
@@ -91,13 +95,20 @@ def kernel_params(batch: GridTetBatch, *, h: float,
 
 
 def to_planes(a: Tensor) -> Tensor:
-    """``(N, 3)`` → contiguous component planes ``(3, N)``."""
-    return a.reshape(-1, 3).t().contiguous()
+    """``(N, 3)`` → contiguous component planes ``(3, N)``; ``(..., N,
+    3)`` with rollout axes → ``(K, 3, N)``, ``K`` their product."""
+    if a.dim() == 2:
+        return a.t().contiguous()
+    return a.reshape(-1, *a.shape[-2:]).transpose(-1, -2).contiguous()
 
 
-def from_planes(p: Tensor) -> Tensor:
-    """Component planes ``(3, N)`` → ``(N, 3)``."""
-    return p.t()
+def from_planes(p: Tensor, lead=None) -> Tensor:
+    """Component planes ``(3, N)`` → ``(N, 3)``; ``(K, 3, N)`` →
+    ``lead + (N, 3)`` (``lead`` the rollout axes, default ``(K,)``)."""
+    if p.dim() == 2:
+        return p.t()
+    out = p.transpose(-1, -2)
+    return out if lead is None else out.reshape(*lead, *out.shape[-2:])
 
 
 def _bind(lib):
@@ -109,6 +120,12 @@ def _bind(lib):
     # W, H, D, stream
     fn.argtypes = [vp] * 10 + [ci, ci, ci, vp]
     fn.restype = ci
+    if hasattr(lib, "pbd_tet_substep_batched"):
+        # (absent from a source older than the rollout axis, which the
+        # scripts' --source may load)
+        # ... params, n_batch, w_bstride, W, H, D, stream
+        lib.pbd_tet_substep_batched.argtypes = [vp] * 10 + [ci] * 5 + [vp]
+        lib.pbd_tet_substep_batched.restype = ci
     lib.pbd_tet_error_string.argtypes = [ci]
     lib.pbd_tet_error_string.restype = ctypes.c_char_p
     lib.pbd_tet_param_count.argtypes = []
@@ -158,9 +175,10 @@ def lambda_plan(max_iterations: int):
 def tet_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
                      params: np.ndarray, dims, max_iterations: int = 1):
     """Run one substep through the kernel, one launch per iteration.
-    ``xp``, ``vp``: ``(3, N)`` float32 planes on one CUDA device,
-    ``N = W·H·D`` for ``dims = (W, H, D)``; ``w``: inverse masses
-    ``(N,)``; ``ic``: per-vertex Jacobi weights ``(N,)``; ``params`` from
+    ``xp``, ``vp``: ``(3, N)`` float32 planes on one CUDA device, or ``(K,
+    3, N)`` for ``K`` rollouts, ``N = W·H·D`` for ``dims = (W, H, D)``;
+    ``w``: inverse masses ``(N,)`` shared by the rollouts, or ``(K, N)``;
+    ``ic``: per-vertex Jacobi weights ``(N,)``; ``params`` from
     :func:`kernel_params`. Returns new ``(xp, vp)`` buffers; the inputs
     are left as they were. Counts its launches in
     ``tet_substep_cuda.launches``."""
@@ -171,13 +189,18 @@ def tet_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
     if min(wd, hd, dd) < 2:
         raise ValueError(f"grid {dims}: each side needs 2 vertices or more")
     n = wd * hd * dd
-    for name, t, shape in (("x", xp, (3, n)), ("v", vp, (3, n)),
-                           ("w", w, (n,)), ("inv_cnt", ic, (n,))):
+    k = 1 if xp.dim() == 2 else xp.shape[0]
+    lead = () if xp.dim() == 2 else (k,)
+    w_shapes = ((n,),) if xp.dim() == 2 else ((n,), (k, n))
+    for name, t, shapes in (("x", xp, (lead + (3, n),)),
+                            ("v", vp, (lead + (3, n),)),
+                            ("w", w, w_shapes), ("inv_cnt", ic, ((n,),))):
         if t.device != xp.device or t.dtype != torch.float32:
             raise ValueError(f"{name}: expected float32 on {xp.device}, got "
                              f"{t.dtype} on {t.device}")
-        if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name}: expected a contiguous {shape}, got "
+        if tuple(t.shape) not in shapes or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous "
+                             f"{' or '.join(map(str, shapes))}, got "
                              f"{tuple(t.shape)}")
     params = np.ascontiguousarray(params, np.float32)
     if params.shape != (N_PARAMS,):
@@ -185,13 +208,15 @@ def tet_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
     if max_iterations < 1:
         raise ValueError(f"max_iterations={max_iterations}: at least 1")
     lib = _build.load("grid_tet_step")
-    fn = _bind(lib)
+    _bind(lib)
+    fn = lib.pbd_tet_substep_batched
+    w_bstride = n if w.dim() == 2 else 0
     n_cells = (wd - 1) * (hd - 1) * (dd - 1)
     plan = lambda_plan(max_iterations)
     x_cur = vo = None
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
-        lam = [xp.new_empty((5, n_cells))
+        lam = [xp.new_empty(lead + (5, n_cells))
                for _ in range(min(2, max_iterations - 1))]
         for it, (read, write) in enumerate(plan):
             xo = torch.empty_like(xp)
@@ -201,8 +226,8 @@ def tet_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
                      w.data_ptr(), ic.data_ptr(),
                      None if read is None else lam[read].data_ptr(),
                      None if write is None else lam[write].data_ptr(),
-                     xo.data_ptr(), _ptr(vo), params.ctypes.data,
-                     wd, hd, dd, stream)
+                     xo.data_ptr(), _ptr(vo), params.ctypes.data, k,
+                     w_bstride, wd, hd, dd, stream)
             _check(lib, err, "tet kernel launch failed")
             tet_substep_cuda.launches += 1
             x_cur = xo

@@ -1,11 +1,11 @@
 """Simulation state as plain dataclasses of tensors.
 
-Port of ``positionbaseddynamics_tpu/solver/state.py``: particles and
-rigid bodies (``OrientationState``, the rods' orientation particles, comes
-with slice 7 and stays None). Every field has its own tensor: ``create``
-never aliases one buffer into several fields. All leaves may carry a
-leading batch shape: one scene is ``(N, 3)``, a rollout batch ``(B, N,
-3)``; the inverse masses and the body-frame inertia stay shared.
+Port of ``positionbaseddynamics_tpu/solver/state.py``: particles, the
+rods' orientation particles and rigid bodies. Every field has its own
+tensor: ``create`` never aliases one buffer into several fields. All
+leaves may carry a leading batch shape: one scene is ``(N, 3)``, a rollout
+batch ``(B, N, 3)``; the inverse masses and the body-frame inertia stay
+shared.
 """
 from __future__ import annotations
 
@@ -56,6 +56,41 @@ class ParticleState:
         """The same state with every tensor on ``device``."""
         return ParticleState(**{f.name: getattr(self, f.name).to(device)
                                 for f in dataclasses.fields(self)})
+
+
+@dataclass(frozen=True)
+class OrientationState:
+    """Quaternions of the Cosserat rods, mirroring ``OrientationData``
+    (``ParticleData.h:316-331``; ``state.py:66-91``), layout ``[w, x, y,
+    z]``: ``q``, ``omega``, ``old_q``, ``last_q`` ``(..., M, 4)`` / ``(...,
+    M, 3)``, ``q0`` and ``inv_mass (M,)`` shared by the rollouts."""
+
+    q: Tensor         # (..., M, 4)
+    omega: Tensor     # (..., M, 3) angular velocities
+    old_q: Tensor     # (..., M, 4)
+    last_q: Tensor    # (..., M, 4)
+    q0: Tensor        # (..., M, 4)
+    inv_mass: Tensor  # (..., M)
+
+    @staticmethod
+    def create(q, masses, device=None) -> "OrientationState":
+        dev = resolve_device(device)
+        q = torch.as_tensor(q, dtype=torch.float32, device=dev)
+        masses = torch.as_tensor(masses, dtype=torch.float32, device=dev)
+        return OrientationState(
+            q=q.clone(), omega=torch.zeros(q.shape[:-1] + (3,),
+                                           dtype=torch.float32, device=dev),
+            old_q=q.clone(), last_q=q.clone(), q0=q.clone(),
+            inv_mass=_inv_mass(masses))
+
+    @property
+    def n(self) -> int:
+        return self.q.shape[-2]
+
+    def to(self, device) -> "OrientationState":
+        """The same state with every tensor on ``device``."""
+        return OrientationState(**{f.name: getattr(self, f.name).to(device)
+                                   for f in dataclasses.fields(self)})
 
 
 @dataclass(frozen=True)
@@ -122,11 +157,11 @@ class RigidState:
 
 @dataclass(frozen=True)
 class SimState:
-    """Full simulation state. ``orientations`` stays None until the rod
-    slice (7) ports it."""
+    """Full simulation state: particles, the rods' orientations and the
+    rigid bodies (either of the last two may be None)."""
 
     particles: ParticleState
-    orientations: Optional[object]
+    orientations: Optional[OrientationState]
     rigid: Optional[RigidState]
     time: Tensor                      # scalar
     overflow: Optional[Tensor] = None  # capacity-overflow counter
@@ -134,16 +169,14 @@ class SimState:
     @staticmethod
     def create(particles: ParticleState, orientations=None,
                rigid=None) -> "SimState":
-        if orientations is not None:
-            raise NotImplementedError(
-                "orientation particles come with the rod slice (7) of the "
-                "port")
         dev = particles.x.device
-        if rigid is not None and rigid.x.device != dev:
-            raise ValueError(f"rigid bodies on {rigid.x.device}, particles "
-                             f"on {dev}")
+        for name, part in (("rigid bodies", rigid and rigid.x),
+                           ("orientations", orientations and orientations.q)):
+            if part is not None and part.device != dev:
+                raise ValueError(f"{name} on {part.device}, particles on "
+                                 f"{dev}")
         return SimState(
-            particles=particles, orientations=None, rigid=rigid,
+            particles=particles, orientations=orientations, rigid=rigid,
             time=torch.zeros((), dtype=torch.float32, device=dev),
             overflow=torch.zeros((), dtype=torch.float32, device=dev))
 
@@ -151,6 +184,8 @@ class SimState:
         """The same state with every tensor on ``device``."""
         return dataclasses.replace(
             self, particles=self.particles.to(device),
+            orientations=(None if self.orientations is None
+                          else self.orientations.to(device)),
             rigid=None if self.rigid is None else self.rigid.to(device),
             time=self.time.to(device),
             overflow=None if self.overflow is None
@@ -163,6 +198,11 @@ class SimState:
         p = ParticleState(x=p.x0.clone(), v=torch.zeros_like(p.v),
                           old_x=p.x0.clone(), last_x=p.x0.clone(),
                           x0=p.x0, inv_mass=p.inv_mass)
+        o = self.orientations
+        if o is not None:
+            o = dataclasses.replace(
+                o, q=o.q0.clone(), omega=torch.zeros_like(o.omega),
+                old_q=o.q0.clone(), last_q=o.q0.clone())
         r = self.rigid
         if r is not None:
             z = torch.zeros_like(r.v)
@@ -172,6 +212,7 @@ class SimState:
                 last_q=r.q0.clone(), ext_force=z.clone(),
                 ext_torque=z.clone())
         return dataclasses.replace(
-            self, particles=p, rigid=r, time=torch.zeros_like(self.time),
+            self, particles=p, orientations=o, rigid=r,
+            time=torch.zeros_like(self.time),
             overflow=(None if self.overflow is None
                       else torch.zeros_like(self.overflow)))

@@ -10,35 +10,44 @@ With a collision pipeline (``collision/``), the particle–tet contacts are
 detected once a step before the substeps and position-solved after the
 particle families in every projection iteration, and the velocity-level
 projection detects the rigid–rigid and particle–rigid contacts and solves
-them after the motors (``step.py:283-365, 455-590``). Orientation
-particles (slice 7) come with a later slice and raise.
+them after the motors (``step.py:283-365, 455-590``). The rods'
+orientation particles are integrated with the particles, projected by the
+rod families after the particle families, and their angular velocities
+updated with the velocities.
 
-Four routes run the substeps, chosen once from the scene and the
+Five routes run the substeps, chosen once from the scene and the
 configuration:
 
 * ``"cuda_kernel"``: the fused kernel of the scene's one grid, on a CUDA
   device, in Jacobi mode with ``jacobi_omega = 1`` and the first-order
   velocity update, when that grid covers every particle and the scene has
-  no particle batch, no rigid body and no collision pipeline (JAX also
-  steps collision scenes outside its kernels) — either one grid cloth
-  with uniform XPBD parameters
-  (``grid_cloth_cuda.py``, one launch per substep) or one tet grid
+  no particle batch, no rod, no rigid body and no collision pipeline (JAX
+  also steps collision scenes outside its kernels) — either one grid
+  cloth with uniform XPBD parameters (``grid_cloth_cuda.py``, one launch
+  per substep) or one tet grid
   without ``inversion_handling`` (``grid_tet_cuda.py``, one launch per
   iteration of each substep);
 * ``"torch_unstructured"``: a scene with any particle batch
   (``solver/constraints.py``): per family a gather, the batched op of
   ``ops/`` and an ``index_add_`` scatter, after the grid families, as the
   JAX package computes it in XLA (``step.py:153-176``);
+* ``"torch_rods"``: a scene with orientation particles (Cosserat rods):
+  the orientation integration, and after the particle families the rod
+  lattice (``solver/grid_rods.py``) or the stretch-shear and bend-twist
+  batches (``step.py:179-226``), in plain PyTorch as JAX computes them in
+  XLA;
 * ``"torch_rigid"``: a scene with rigid bodies or joints: the rigid
-  integration, and after the particle families each joint batch
+  integration, and after the particle and rod families each joint batch
   (``solver/joints.py``) gathered, solved in one batched 6×6 system a
   joint and scattered with ``index_add_``, colour by colour in
-  ``joint_solver_mode="gauss_seidel"`` (``step.py:229-280``), as the JAX
-  package computes it in XLA; its grid families take the stencil ops;
+  ``joint_solver_mode="gauss_seidel"`` (``step.py:229-280``), then the
+  direct stiff rods (``solver/direct_rods.py``) and the user's rigid
+  constraints (``step.py:332-354``), as the JAX package computes them in
+  XLA; its grid families take the stencil ops;
 * ``"torch_stencil"``: the PyTorch stencil ops of ``grid_cloth.py`` and
   ``grid_tet.py`` for every other configuration.
 
-The last three run on any device.
+The last four run on any device.
 """
 from __future__ import annotations
 
@@ -51,6 +60,7 @@ import torch
 
 from .._device import resolve_device
 from ..ops import integration, quaternion as quat
+from ..ops.rigidbody import rotation_correction
 from . import grid_cloth_cuda as gcc
 from . import grid_tet_cuda as gtc
 from .constraints import ConstraintSet, _index_add
@@ -62,6 +72,7 @@ PATH_KERNEL = "cuda_kernel"
 PATH_STENCIL = "torch_stencil"
 PATH_UNSTRUCTURED = "torch_unstructured"
 PATH_RIGID = "torch_rigid"
+PATH_RODS = "torch_rods"
 
 
 @dataclass(frozen=True)
@@ -237,21 +248,98 @@ def _project_joints(rx, rq, rigid: RigidState, px, p_inv_mass,
     return rx, rq, px
 
 
+def _project_rod_batches(x, inv_mass, q, inv_mass_q, cset: ConstraintSet,
+                         cfg: StepConfig):
+    """Stretch-shear (positions and quaternions) then bend-twist
+    (quaternions), the quaternions renormalised after each
+    (``step.py:179-226``): the lattice's plane stencils (Jacobi only; it
+    refuses ``gauss_seidel`` with JAX's message), then the unstructured
+    batches, averaged by the build-time counts in Jacobi, colour by
+    colour in Gauss-Seidel."""
+    if cset.rod_lattices and cfg.solver_mode == "gauss_seidel":
+        raise ValueError(
+            "rod-lattice fast path has no gauss_seidel mode; rebuild the "
+            "scene with SceneBuilder.build(use_structured_grid=False) "
+            "for color-sequential rod parity")
+    for rl in cset.rod_lattices:
+        x, q = rl.project(x, inv_mass, q, inv_mass_q, cfg.jacobi_omega)
+    n, m = x.shape[-2], q.shape[-2]
+    gs = cfg.solver_mode == "gauss_seidel"
+    ss = cset.stretch_shear
+    if ss is not None:
+        for sub in (ss.color_batches() if gs else (ss,)):
+            corr_p, corr_q = sub.solve(x, inv_mass, q, inv_mass_q)
+            dx = _index_add(n, sub.idx_p.reshape(-1), _rows(corr_p))
+            dq = _index_add(m, sub.idx_q, _rows(corr_q))
+            if not gs:
+                dx = cfg.jacobi_omega * _inv_counts(
+                    cset, "stretch_shear", n, ss.idx_p) * dx
+                dq = cfg.jacobi_omega * _inv_counts(
+                    cset, "stretch_shear_q", m, ss.idx_q) * dq
+            x = x + dx
+            q = quat.normalize(q + dq)
+    bt = cset.bend_twist
+    if bt is not None:
+        for sub in (bt.color_batches() if gs else (bt,)):
+            dq = _index_add(m, sub.idx_q.reshape(-1),
+                            _rows(sub.solve(q, inv_mass_q)))
+            if not gs:
+                dq = cfg.jacobi_omega * _inv_counts(
+                    cset, "bend_twist_q", m, bt.idx_q) * dq
+            q = quat.normalize(q + dq)
+    return x, q
+
+
+def _project_direct_rods(rx, rq, rigid: RigidState, cset: ConstraintSet,
+                         lams, dt):
+    """One exact solve of each stiff-rod batch (``step.py:332-346``), the
+    masked world inverse inertia following the current rotations; the
+    corrections added into the bodies and the rotations renormalised."""
+    inv_diag = _masked_inv_diag(rigid.inertia0, rigid.inv_mass)
+    for k, db in enumerate(cset.direct_rods):
+        iw = _world_inverse(rq, inv_diag)
+        corr_x, ot, lams[f"direct_rod{k}"] = db.solve(
+            rx, rq, rigid.inv_mass, iw, lams[f"direct_rod{k}"], dt)
+        flat = db.bodies.reshape(-1)
+        lead = rx.shape[:-2]
+        rx = rx.index_add(-2, flat, corr_x.reshape(*lead, -1, 3))
+        dq = rotation_correction(ot.reshape(*lead, -1, 3),
+                                 rq.index_select(-2, flat))
+        rq = quat.normalize(rq.index_add(-2, flat, dq))
+    return rx, rq
+
+
+def _project_rigid_generics(rx, rq, rigid: RigidState, cset: ConstraintSet):
+    """The user's rigid-body constraints, each batch solved at once and its
+    corrections summed into the bodies (``step.py:347-354``)."""
+    inv_diag = _masked_inv_diag(rigid.inertia0, rigid.inv_mass)
+    for gb in cset.rigid_generics:
+        iw = _world_inverse(rq, inv_diag)
+        corr_x, corr_q = gb.solve(rx, rq, rigid.inv_mass, iw)
+        flat = gb.bodies.reshape(-1)
+        rx = rx.index_add(-2, flat, _rows(corr_x))
+        rq = quat.normalize(rq.index_add(-2, flat, _rows(corr_q)))
+    return rx, rq
+
+
 def project_positions(x: Tensor, inv_mass: Tensor, cset: ConstraintSet, dt,
                       cfg: StepConfig, passes=None,
                       rigid: Optional[RigidState] = None, time=None,
-                      solid_contacts=None):
+                      solid_contacts=None, q: Optional[Tensor] = None,
+                      inv_mass_q: Optional[Tensor] = None):
     """Position-constraint projection (``step.py:283-364``): λ starts at
     zero and accumulates across the ``max_iterations`` passes; each pass
     runs the grid families (``gauss_seidel``: the lattice-coloured sweeps
-    of ``project_gs``), then the particle families, then the joints on
-    ``rigid``'s integrated bodies at the step's start ``time`` (motor
-    targets), then the particle–tet ``solid_contacts``
+    of ``project_gs``), then the particle families, then the rods on the
+    orientations ``q``, then the joints on ``rigid``'s integrated bodies at
+    the step's start ``time`` (motor targets), the stiff rods and the
+    user's rigid constraints, then the particle–tet ``solid_contacts``
     (``TimeStepController.cpp:288-291``). ``passes`` are
-    :func:`batch_passes`' (computed here when None). Returns ``(x,
-    rigid_x, rigid_q, solid_lam)``: the rigid entries None without rigid
-    bodies, ``solid_lam`` the last pass's particle–tet λ (None without
-    solid contacts), which the friction pass reads."""
+    :func:`batch_passes`' (computed here when None). Returns ``(x, q,
+    rigid_x, rigid_q, solid_lam)``: ``q`` None without orientations, the
+    rigid entries None without rigid bodies, ``solid_lam`` the last
+    pass's particle–tet λ (None without solid contacts), which the
+    friction pass reads."""
     from ..collision.solid import solve_solid_contacts_position
 
     solid_lam = None
@@ -263,6 +351,8 @@ def project_positions(x: Tensor, inv_mass: Tensor, cset: ConstraintSet, dt,
         rx, rq = rigid.x, rigid.q
         for k, jb in enumerate(cset.joints):
             lams[f"joint{k}"] = jb.init_lambda()
+        for k, db in enumerate(cset.direct_rods):
+            lams[f"direct_rod{k}"] = db.init_lambda()
     gs = cfg.solver_mode == "gauss_seidel"
     grids = ([(f"grid_cloth{i}", b) for i, b in enumerate(cset.grid_cloths)]
              + [(f"grid_tet{i}", b) for i, b in enumerate(cset.grid_tets)])
@@ -276,14 +366,21 @@ def project_positions(x: Tensor, inv_mass: Tensor, cset: ConstraintSet, dt,
         for bp in passes:
             x, lams[bp.name] = _project_particle_batch(
                 x, inv_mass, bp, lams[bp.name], dt)
+        if q is not None:
+            x, q = _project_rod_batches(x, inv_mass, q, inv_mass_q, cset,
+                                        cfg)
         if rigid is not None and cset.joints:
             rx, rq, x = _project_joints(rx, rq, rigid, x, inv_mass, cset,
                                         lams, time, dt, cfg)
+        if rigid is not None and cset.direct_rods:
+            rx, rq = _project_direct_rods(rx, rq, rigid, cset, lams, dt)
+        if rigid is not None and cset.rigid_generics:
+            rx, rq = _project_rigid_generics(rx, rq, rigid, cset)
         if solid_contacts is not None:
             dx, solid_lam = solve_solid_contacts_position(solid_contacts, x,
                                                           inv_mass)
             x = x + dx
-    return x, rx, rq, solid_lam
+    return x, q, rx, rq, solid_lam
 
 
 @functools.lru_cache(maxsize=None)
@@ -295,14 +392,19 @@ def _gravity(g: tuple, device: torch.device) -> Tensor:
 
 def _substep(state: SimState, cset: ConstraintSet, h, cfg: StepConfig,
              passes=None, solid_contacts=None):
-    """One substep (``step.py:366-449``): particles and rigid bodies
-    integrated, projected, their velocities updated. Returns ``(state,
-    solid_lam)``."""
+    """One substep (``step.py:366-452``): particles, orientations and
+    rigid bodies integrated, projected, their velocities updated. Returns
+    ``(state, solid_lam)``."""
     p = state.particles
     gravity = _gravity(tuple(cfg.gravity), p.x.device)
     last_x, old_x = p.old_x, p.x
     x, v = integration.semi_implicit_euler(
         h, p.inv_mass, p.x, p.v, gravity.expand_as(p.x))
+    o = state.orientations
+    oq = None
+    if o is not None:
+        oq, oomega = integration.semi_implicit_euler_rotation_isotropic(
+            h, o.inv_mass, o.q, o.omega)
     r = state.rigid
     if r is not None:
         accel = (gravity.expand_as(r.x)
@@ -314,9 +416,10 @@ def _substep(state: SimState, cset: ConstraintSet, h, cfg: StepConfig,
         rq, romega = integration.semi_implicit_euler_rotation(
             h, r.inv_mass, iw, inv_iw, r.q, r.omega, r.ext_torque)
         r = dataclasses.replace(r, x=rx, q=rq, v=rv, omega=romega)
-    x, rx, rq, solid_lam = project_positions(
+    x, oq, rx, rq, solid_lam = project_positions(
         x, p.inv_mass, cset, h, cfg, passes, rigid=r, time=state.time,
-        solid_contacts=solid_contacts)
+        solid_contacts=solid_contacts, q=oq,
+        inv_mass_q=None if o is None else o.inv_mass)
     if cfg.velocity_update_method == 1:
         v = integration.velocity_update_second_order(
             h, p.inv_mass, x, old_x, last_x, v)
@@ -326,6 +429,16 @@ def _substep(state: SimState, cset: ConstraintSet, h, cfg: StepConfig,
     if cfg.damping:
         v = v * (1.0 - cfg.damping)
     particles = dataclasses.replace(p, x=x, v=v, old_x=old_x, last_x=last_x)
+    orientations = o
+    if o is not None:
+        if cfg.velocity_update_method == 1:
+            oomega = integration.angular_velocity_update_second_order(
+                h, o.inv_mass, oq, o.q, o.old_q, oomega)
+        else:
+            oomega = integration.angular_velocity_update_first_order(
+                h, o.inv_mass, oq, o.q, oomega)
+        orientations = dataclasses.replace(o, q=oq, omega=oomega,
+                                           old_q=o.q, last_q=o.old_q)
     rigid = r
     if r is not None:
         s0 = state.rigid
@@ -342,7 +455,8 @@ def _substep(state: SimState, cset: ConstraintSet, h, cfg: StepConfig,
         rigid = dataclasses.replace(
             r, x=rx, q=rq, v=rv, omega=romega, old_x=s0.x, last_x=s0.old_x,
             old_q=s0.q, last_q=s0.old_q)
-    return (dataclasses.replace(state, particles=particles, rigid=rigid),
+    return (dataclasses.replace(state, particles=particles,
+                                orientations=orientations, rigid=rigid),
             solid_lam)
 
 
@@ -483,14 +597,13 @@ def _tet_plan(gt, cfg: StepConfig) -> KernelPlan:
     ic = gt.inv_cnt.reshape(-1).contiguous()
 
     def run(p, n):
-        if p.x.dim() != 2:
-            raise NotImplementedError(
-                "the grid-tet solver takes one scene's (N, 3) state, as the "
-                "JAX package's does; got a rollout axis")
-        out = gtc.run_substeps(gtc.to_planes(p.x), gtc.to_planes(p.v),
-                               p.inv_mass.contiguous(), ic, params, dims,
-                               cfg.max_iterations, n)
-        return tuple(None if a is None else gtc.from_planes(a) for a in out)
+        lead = p.x.shape[:-2]
+        w = p.inv_mass.reshape(-1, p.inv_mass.shape[-1])
+        w = w[0] if w.shape[0] == 1 else w.contiguous()
+        out = gtc.run_substeps(gtc.to_planes(p.x), gtc.to_planes(p.v), w,
+                               ic, params, dims, cfg.max_iterations, n)
+        return tuple(None if a is None else gtc.from_planes(a, lead)
+                     for a in out)
 
     return KernelPlan("tet", run)
 
@@ -503,7 +616,8 @@ def kernel_plan(cset: ConstraintSet, cfg: StepConfig
     their grid only."""
     dev = cset.device
     if (dev is None or dev.type != "cuda" or cset.particle_batches()
-            or cset.joints or cset.n_rigid):
+            or cset.joints or cset.n_rigid or cset.has_rods
+            or cset.direct_rods or cset.rigid_generics):
         return None
     if not (cfg.solver_mode == "jacobi" and cfg.jacobi_omega == 1.0
             and cfg.velocity_update_method == 0):
@@ -549,16 +663,15 @@ def step(state: SimState, cset: ConstraintSet, cfg: StepConfig,
     particle–tet contacts before the substeps (their overflow into
     ``state.overflow``) and the other contacts in the velocity-level
     projection."""
-    if state.orientations is not None:
-        raise NotImplementedError(
-            "orientation particles come with the rod slice (7) of the port")
     if plan is not None:
-        if state.rigid is not None or _has_pipeline(pipeline):
+        if (state.rigid is not None or state.orientations is not None
+                or _has_pipeline(pipeline)):
             raise ValueError(
                 "the kernel route steps particles only; a state with rigid "
-                "bodies or a collision pipeline needs the PyTorch route "
-                "(a constraint set that records its bodies, n_rigid, as "
-                "SceneBuilder and convert.scene_from_numpy set it)")
+                "bodies, orientations or a collision pipeline needs the "
+                "PyTorch route (a constraint set that records its bodies, "
+                "n_rigid, and its rods, as SceneBuilder and "
+                "convert.scene_from_numpy set them)")
         state = _kernel_substeps(state, plan, cfg)
         return dataclasses.replace(state, time=state.time + cfg.dt)
     if passes is None:
@@ -592,6 +705,8 @@ def _route(cset: ConstraintSet, cfg: StepConfig, n: int, pipeline=None):
     passes = batch_passes(cset, cfg, n)
     if cset.joints or cset.n_rigid:
         return None, passes, PATH_RIGID
+    if cset.has_rods:
+        return None, passes, PATH_RODS
     return None, passes, PATH_UNSTRUCTURED if passes else PATH_STENCIL
 
 
@@ -600,9 +715,9 @@ def make_step_fn(cset: ConstraintSet, cfg: StepConfig, device=None,
     """``state → state`` closure over a fixed scene on ``device`` (None
     means CUDA), with its collision ``pipeline`` when given (moved to
     ``device``). ``fn.path`` names the route its steps take,
-    ``"cuda_kernel"``, ``"torch_rigid"``, ``"torch_unstructured"`` or
-    ``"torch_stencil"``; a scene with a pipeline never takes the kernel
-    route."""
+    ``"cuda_kernel"``, ``"torch_rigid"``, ``"torch_rods"``,
+    ``"torch_unstructured"`` or ``"torch_stencil"``; a scene with a
+    pipeline never takes the kernel route."""
     dev = resolve_device(device)
     if cset.device is not None and cset.device != dev:
         cset = cset.to(dev)

@@ -40,8 +40,12 @@ def _one_torch_thread():
     (["--fluid", "--fluid-dims", "6", "8", "6"], "pbf_dam_0k_steps_per_s",
      ("capacity_overflow", "n_fluid", "n_boundary")),
     (["--pile-big", "--pile-bodies", "4"], "rigid_pile_4body_steps_per_s",
-     ("capacity_overflow",))],
-    ids=["default", "batch", "mpc", "mpc_big", "bar", "fluid", "pile_big"])
+     ("capacity_overflow",)),
+    (["--rods", "--rod-batch", "8"], "cosserat_rods_x8_steps_per_s",
+     ("aggregate_rod_steps_per_s",)),
+    (["--tree", "--rod-batch", "8"], "stiff_rod_tree_7c_steps_per_s", ())],
+    ids=["default", "batch", "mpc", "mpc_big", "bar", "fluid", "pile_big",
+         "rods", "tree"])
 def test_mode_prints_one_line_with_the_bench_metric(capsys, mode, metric,
                                                     extra):
     assert bench_torch.main(SMALL + mode) == 0
@@ -58,9 +62,15 @@ def test_mode_prints_one_line_with_the_bench_metric(capsys, mode, metric,
     for k in ("unit", "path", "device", "card") + extra:
         assert k in rec, k
     assert rec["device"] == "cpu" and rec["card"] is None
-    # bench.py names --pile-big's path by its broad phase
+    # bench.py names --pile-big's path by its broad phase, --rods' by the
+    # lattice and --tree's by the scheduled elimination
     assert rec["path"].startswith("torch_") or (
-        rec["path"] == "batched_broadphase" and "pile" in metric)
+        rec["path"] == "batched_broadphase" and "pile" in metric) or (
+        rec["path"] == "rod_lattice" and "rods" in metric) or (
+        rec["path"] == "tree_scheduled" and "tree" in metric)
+    if "rods" in metric:
+        assert rec["aggregate_rod_steps_per_s"] == pytest.approx(
+            rec["value"] * 8, rel=1e-2)
     if "capacity_overflow" in extra:
         assert rec["capacity_overflow"] == 0.0
 
@@ -79,7 +89,7 @@ def test_without_cuda_it_exits_non_zero_and_prints_nothing():
 
 @pytest.mark.parametrize("flag,names", [
     ("--check", "no kernel"), ("--pile", "PileScene.json"),
-    ("--scene", "slice 8"), ("--rods", "slice 7"), ("--tree", "slice 7"),
+    ("--scene", "slice 8"),
     ("--armadillo-batch", "ArmadilloCollisionScene.json"),
     ("--mpc-contact", "slice 8")])
 def test_check_on_cpu_and_unported_modes_exit_2(capsys, flag, names):

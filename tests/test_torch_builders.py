@@ -186,23 +186,20 @@ def test_build_without_cuda_and_device_raises(monkeypatch):
 
 
 def test_every_jax_builder_method_exists_and_the_unported_raise():
-    """The port's builder has each public method of JAX's; those of later
-    slices raise NotImplementedError naming their slice (6a, 6b or 7)."""
-    import inspect
-
-    from positionbaseddynamics_tpu_torch.models.builders import _UNPORTED
+    """The port's builder has each public method of JAX's, and none of
+    them raises for want of a slice: the slice-7 adders, the last that
+    did, now build (``test_slice7_adders_build_as_jax``)."""
+    import positionbaseddynamics_tpu_torch.models.builders as tb
 
     jnames = {n for n, v in vars(JBuilder).items()
               if not n.startswith("_") and callable(v)}
     missing = [n for n in sorted(jnames) if not hasattr(TBuilder, n)]
     assert not missing, missing
-    unported = [n for names in _UNPORTED.values() for n in names]
-    assert set(unported) <= jnames
-    b = TBuilder()
-    for name in unported:
-        with pytest.raises(NotImplementedError, match=r"slice (6a|6b|7)"):
-            getattr(b, name)(*[0] * len(inspect.signature(
-                getattr(JBuilder, name)).parameters))
+    assert not hasattr(tb, "_UNPORTED")
+    for name in ("add_quaternions", "add_line_model", "add_rod_constraints",
+                 "add_ghost_rod_model", "add_direct_rod_chain",
+                 "add_generic_constraints", "add_generic_rigid_constraints"):
+        assert getattr(TBuilder, name).__qualname__ == f"SceneBuilder.{name}"
 
 
 def _rigid_zoo(builder, **build_kw):
@@ -304,8 +301,133 @@ def test_rigid_body_from_mesh_keeps_its_mesh_frame_as_jax():
 
 
 def test_generic_rigid_constraints_raise_naming_slice_7():
-    with pytest.raises(NotImplementedError, match=r"slice 7"):
-        TBuilder().add_generic_rigid_constraints(lambda x, q: x, [(0, 1)])
+    """Slice 7 ported: the generic rigid adder builds JAX's
+    ``GenericRigidBatch`` (bodies, stiffness, colours), the constraint a
+    torch function."""
+    import torch_rod_scenes as rscenes
+
+    ts, tc = rscenes.pendulum("torch")
+    js, jc = rscenes.pendulum("jax")
+    _assert_slice7_equal((ts, tc), (js, jc))
+    assert len(tc.rigid_generics) == 1
+
+
+def _fields_equal(tb, jb, name, skip=("fn", "levels"), rtol_fields=()):
+    import dataclasses
+
+    for f in dataclasses.fields(jb):
+        if f.name in skip:
+            continue
+        jv, tv = getattr(jb, f.name), getattr(tb, f.name)
+        if isinstance(jv, dict):
+            assert sorted(tv) == sorted(jv), (name, f.name)
+            for k in jv:
+                np.testing.assert_array_equal(_np(tv[k]), _np(jv[k]),
+                                              err_msg=f"{name}.{f.name}.{k}")
+        elif f.metadata.get("static") or jv is None:
+            assert tv == jv, (name, f.name)
+        elif f.name in rtol_fields:
+            np.testing.assert_allclose(_np(tv), _np(jv), atol=1e-6,
+                                       err_msg=f"{name}.{f.name}")
+        else:
+            np.testing.assert_array_equal(_np(tv), _np(jv),
+                                          err_msg=f"{name}.{f.name}")
+
+
+def _assert_slice7_equal(t_built, j_built):
+    """Two packages' builds of a slice-7 scene: equal particles,
+    orientations and bodies, the particle batches (ghost-rod and generic
+    included, the constraint functions apart), the Cosserat batches, the
+    lattices, the stiff rods with their schedules, the generic rigid
+    batches and the Jacobi counts — exactly, but the ghost rod's rest
+    Darboux vectors, which both compute in float32 (1e-6)."""
+    (ts, tc), (js, jc) = t_built, j_built
+    for part in ("particles", "orientations", "rigid"):
+        tp, jp = getattr(ts, part), getattr(js, part)
+        assert (tp is None) == (jp is None), part
+        if jp is not None:
+            _fields_equal(tp, jp, part)
+    assert [n for n, _ in tc.particle_batches()] == \
+        [n for n, _ in jc.particle_batches()]
+    for (name, tb), (_, jb) in zip(tc.particle_batches(),
+                                   jc.particle_batches()):
+        assert type(tb).__name__ == type(jb).__name__, name
+        _fields_equal(tb, jb, name, rtol_fields=("rest_darboux",))
+    for name in ("stretch_shear", "bend_twist"):
+        tb, jb = getattr(tc, name), getattr(jc, name)
+        assert (tb is None) == (jb is None), name
+        if jb is not None:
+            _fields_equal(tb, jb, name)
+    for field in ("rod_lattices", "direct_rods", "rigid_generics"):
+        tt, jt = getattr(tc, field), getattr(jc, field)
+        assert len(tt) == len(jt), field
+        for tb, jb in zip(tt, jt):
+            assert type(tb).__name__ == type(jb).__name__, field
+            _fields_equal(tb, jb, field)
+    assert sorted(tc.jacobi_inv_counts) == sorted(jc.jacobi_inv_counts)
+    for key, v in jc.jacobi_inv_counts.items():
+        np.testing.assert_array_equal(_np(tc.jacobi_inv_counts[key]),
+                                      _np(v), err_msg=key)
+
+
+def _rod_adders(builder, **kw):
+    """The per-constraint rod adders: quaternions added and one pinned,
+    stretch-shear and bend-twist constraints one at a time, a ghost-point
+    edge with its three constraints by hand, and a generic constraint
+    without parameters."""
+    import torch_rod_scenes as rscenes
+
+    pkg = "jax" if builder is JBuilder else "torch"
+    b = builder()
+    pts = np.stack([np.linspace(0.0, 1.0, 5), np.zeros(5), np.zeros(5)], 1)
+    o = b.add_particles(pts, mass=1.0)
+    b.set_mass(o, 0.0)
+    q = np.tile([np.cos(0.1), 0.0, np.sin(0.1), 0.0], (4, 1))
+    oq = b.add_quaternions(q, mass=2.0)
+    b.set_quaternion_mass(oq, 0.0)
+    for i in range(4):
+        b.add_stretch_shear_constraint(o + i, o + i + 1, oq + i,
+                                       stiffness=(1.0, 0.5, 0.8))
+    for i in range(3):
+        b.add_bend_twist_constraint(oq + i, oq + i + 1, stiffness=0.3)
+    g = b.add_particles([[0.5, 0.3, 0.0], [0.7, 0.25, 0.1]])
+    b.add_perpendicular_bisector_constraint(o + 1, o + 2, g, stiffness=0.7)
+    b.add_ghost_point_edge_distance_constraint(o + 1, o + 2, g)
+    b.add_darboux_vector_constraint(o + 1, o + 2, o + 3, g, g + 1,
+                                    bending_twisting=(0.2, 0.3, 0.4),
+                                    mid_edge_length=0.9)
+    b.add_generic_constraints(rscenes.bend_fn(pkg), [[o, o + 1, o + 2, g]],
+                              stiffness=0.4)
+    return b.build(**kw)
+
+
+@pytest.mark.parametrize("scene", [
+    "helix", "rods", "rods_unstructured", "ghost_rod", "stiff_chain",
+    "y_tree", "random_tree", "generic_cloth", "pendulum", "adders"])
+def test_slice7_adders_build_as_jax(scene):
+    """Every slice-7 adder (line models and rod constraints on the batches
+    and on the lattice, ghost-point rods, stiff-rod chains and trees,
+    generic particle and rigid constraints, and the per-constraint
+    adders) builds JAX's batches field by field; then
+    ``convert.scene_from_numpy`` carries the JAX build across to the same
+    state and set."""
+    import torch_rod_scenes as rscenes
+
+    if scene == "adders":
+        t_built = _rod_adders(TBuilder, device="cpu")
+        j_built = _rod_adders(JBuilder)
+        fns = [rscenes.bend_fn("torch")]
+    else:
+        kw = {"structured": False} if scene == "rods_unstructured" else {}
+        make = getattr(rscenes, scene.replace("_unstructured", ""))
+        t_built, j_built = make("torch", **kw), make("jax", **kw)
+        fns = ([rscenes.distance_fn("torch")] if scene == "generic_cloth"
+               else [])
+    _assert_slice7_equal(t_built, j_built)
+    rfns = [rscenes.ball_fn("torch")] if scene == "pendulum" else []
+    carried = rscenes.from_jax(*j_built, generic_fns=fns, rigid_fns=rfns)
+    _assert_slice7_equal(carried, j_built)
+    assert carried[1].n_orientations == t_built[1].n_orientations
 
 
 def _collision_zoo(pkg, broad_phase):

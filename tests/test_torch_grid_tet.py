@@ -165,10 +165,43 @@ def test_inversion_handling_is_bitwise_neutral_without_inversions():
 
 
 def test_batched_positions_raise():
-    _, tb, full = _batches((5, 3, 3))
-    x = torch.from_numpy(np.stack([full, full]))
-    with pytest.raises(NotImplementedError):
-        tb.project(x, torch.ones(2, len(full)), tb.init_lambda(), 1e-3)
+    """Fault C-1 repaired: ``project`` and ``project_gs`` take leading
+    rollout axes, as JAX's planner ``vmap``s them. K = 3 jittered rollouts
+    (inverse masses shared, and per rollout) equal each rollout projected
+    alone (≤ 1e-6) and JAX's ``jax.vmap`` of the same call (≤ 1e-5)."""
+    import jax
+
+    dims = (5, 3, 3)
+    jb, tb, full = _batches(dims)
+    rng = np.random.default_rng(11)
+    x = np.stack([full + rng.normal(0.0, 2e-3, full.shape)
+                  for _ in range(3)]).astype(np.float32)
+    _, w = _inputs(full, dims, seed=12)
+    lam = np.abs(rng.normal(0.0, 1e-3, (3,) + tuple(tb.init_lambda().shape))
+                 ).astype(np.float32)
+    for ws in (w, np.stack([w, w[::-1].copy(), w])):
+        for name in ("project", "project_gs"):
+            extra = (1e-3, 0.9) if name == "project" else (1e-3,)
+            xt, lt = getattr(tb, name)(torch.from_numpy(x),
+                                       torch.from_numpy(ws),
+                                       torch.from_numpy(lam), *extra)
+            assert xt.shape == x.shape and lt.shape == lam.shape
+            for k in range(3):
+                wk = ws if ws.ndim == 1 else ws[k]
+                xa, la = getattr(tb, name)(torch.from_numpy(x[k]),
+                                           torch.from_numpy(wk),
+                                           torch.from_numpy(lam[k]), *extra)
+                assert (xt[k] - xa).abs().max().item() <= ATOL
+                assert (lt[k] - la).abs().max().item() <= ATOL
+            fn = getattr(jb, name)
+            wax = None if ws.ndim == 1 else 0
+            xj, lj = jax.vmap(lambda xx, ww, ll: fn(xx, ww, ll, *extra),
+                              in_axes=(0, wax, 0))(
+                jnp.asarray(x), jnp.asarray(ws), jnp.asarray(lam))
+            np.testing.assert_allclose(xt.numpy(), np.asarray(xj),
+                                       atol=SVD_ATOL)
+            np.testing.assert_allclose(lt.numpy(), np.asarray(lj),
+                                       atol=SVD_ATOL)
 
 
 def _mats(seed, n=64, flip=False):

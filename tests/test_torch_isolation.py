@@ -38,7 +38,9 @@ def test_port_has_the_slice_modules():
                  "collision", "collision.sdf", "collision.sampling",
                  "collision.bvh", "collision.csdf", "collision.bake",
                  "collision.detection", "collision.batched",
-                 "collision.contacts", "collision.solid"):
+                 "collision.contacts", "collision.solid", "ops.rods",
+                 "ops.ghost_rods", "ops.generic", "solver.grid_rods",
+                 "solver.direct_rods"):
         assert f"positionbaseddynamics_tpu_torch.{name}" in mods, name
 
 

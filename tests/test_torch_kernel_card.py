@@ -689,3 +689,156 @@ def test_pile_rollouts_on_card_equal_each_alone(cuda):
     for k in range(3):
         assert (batch.rigid.x[k] - alone[k].rigid.x).abs().max().item() \
             <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# B2 at a rollout axis (fault C-1)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("own_w", [False, True], ids=["shared_w", "own_w"])
+def test_tet_kernel_at_3_rollouts_on_card(cuda, own_w):
+    """B2 with the rollout a launch-grid dimension on a 13×7×5 bar, K 3
+    seeded jittered rollouts (inverse masses shared, or each rollout's
+    own): 5 steps against the plain version within 1e-5, each rollout bit
+    for bit equal to itself launched alone, and ``make_step_fn`` on the
+    batched state takes the kernel, one launch per substep."""
+    ts, tc = _bar((13, 7, 5), cuda)
+    g, p = tc.grid_tets[0], ts.particles
+    dims = (g.width, g.height, g.depth)
+    params = gtc.kernel_params(g, h=1e-3)
+    ic = g.inv_cnt.reshape(-1).contiguous()
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    free = (p.inv_mass > 0)[:, None]
+    x0 = p.x + torch.where(free, 0.01 * torch.randn(
+        (3,) + tuple(p.x.shape), generator=gen, device=cuda), 0.0)
+    w = (torch.stack([p.inv_mass, 0.5 * p.inv_mass, 2.0 * p.inv_mass])
+         if own_w else p.inv_mass).contiguous()
+
+    def steps(x, ww, n=5):
+        xp, vp = gtc.to_planes(x), gtc.to_planes(torch.zeros_like(x))
+        xp, vp, _, _ = gtc.run_substeps(xp, vp, ww, ic, params, dims, 1,
+                                        5 * n)
+        return gtc.from_planes(xp, x.shape[:-2])
+
+    x = steps(x0, w)
+    xr, vr = x0, torch.zeros_like(x0)
+    for _ in range(25):
+        xr, vr = gtc.tet_substep_reference(
+            g, xr, vr, w if own_w else p.inv_mass, h=1e-3)
+    assert (x - xr).abs().max().item() <= 1e-5
+    for k in range(3):
+        assert torch.equal(steps(x0[k], w[k] if own_w else w), x[k])
+    if not own_w:
+        import dataclasses
+
+        fn = make_step_fn(tc, StepConfig(), device=cuda)
+        batched = dataclasses.replace(ts, particles=dataclasses.replace(
+            p, x=x0, v=torch.zeros_like(x0), old_x=x0.clone(),
+            last_x=x0.clone()))
+        before = gtc.tet_substep_cuda.launches
+        out = fn(batched)
+        assert fn.path == "cuda_kernel"
+        assert gtc.tet_substep_cuda.launches - before == 5
+        ref = make_step_fn(tc.to("cpu"), StepConfig(), device="cpu")
+        cpu = ref(batched.to("cpu"))
+        assert (out.particles.x.cpu() - cpu.particles.x).abs().max() <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# An active particle–rigid contact on the card (fault C-2), and the rods
+# (slice 7: no kernel of the port on their path, plain PyTorch on the card)
+# ---------------------------------------------------------------------------
+
+
+def test_cloth_on_sphere_on_card_matches_cpu(cuda):
+    """The cloth laid flat over the sphere (``torch_collision_scenes.
+    cloth_on_sphere`` at height 0.63, its first contact at step 14): 20
+    steps on the card against the CPU within 1e-4, the same active
+    particle–rigid row count at every step, rows at the last steps."""
+    import numpy as np
+    import torch_collision_scenes as scenes
+
+    from positionbaseddynamics_tpu_torch.models import SceneBuilder as B
+
+    def build(dev):
+        flat = scenes.FLAT
+        b = B()
+        tm = b.add_regular_triangle_model(12, 12, translation=(-1.0, 0.63,
+                                                               -1.0),
+                                          rotation=flat, scale=(2.0, 2.0))
+        b.add_cloth_constraints(tm, method=4, distance_stiffness=1e5)
+        b.add_bending_constraints(tm, method=3, stiffness=0.05)
+        sph = b.add_rigid_body((0.0, 0.0, 0.0), mass=0.0)
+        b.add_collision_sphere(sph, 0.6, restitution=0.0, friction=0.2,
+                               verts=np.zeros((1, 3), np.float32))
+        b.set_particle_collider(tm, restitution=0.0, friction=0.2)
+        state, cset = b.build(device=dev)
+        return state, cset, b.build_collision_pipeline(tolerance=0.02,
+                                                       device=dev)
+
+    ts, tc, tp = build(cuda)
+    cs, cc, cp = build(torch.device("cpu"))
+    fn = make_step_fn(tc, StepConfig(), device=cuda, pipeline=tp)
+    ref = make_step_fn(cc, StepConfig(), device="cpu", pipeline=cp)
+    rows = []
+    for _ in range(20):
+        na = int(tp.detect_particles(ts.particles.x, ts.particles.v,
+                                     ts.particles.inv_mass, ts.rigid)
+                 .mask.sum().item())
+        nb = int(cp.detect_particles(cs.particles.x, cs.particles.v,
+                                     cs.particles.inv_mass, cs.rigid)
+                 .mask.sum().item())
+        assert na == nb
+        rows.append(na)
+        ts, cs = fn(ts), ref(cs)
+    assert rows[-1] > 0, rows
+    assert (ts.particles.x.cpu() - cs.particles.x).abs().max().item() <= 1e-4
+    assert ts.overflow.item() == 0.0
+
+
+def test_rod_rollout_on_card_matches_cpu(cuda):
+    """4 lattice rods of ``bench.py --rods``' shape: 10 steps on the card
+    against the CPU within 1e-4, a step that never syncs the host."""
+    import bench_torch
+
+    ts, tc = bench_torch.rod_scene(4, cuda)
+    cs, cc = bench_torch.rod_scene(4, torch.device("cpu"))
+    fn = make_step_fn(tc, StepConfig(), device=cuda)
+    ref = make_step_fn(cc, StepConfig(), device="cpu")
+    assert fn.path == "torch_rods" and tc.rod_lattices
+    for _ in range(10):
+        ts, cs = fn(ts), ref(cs)
+    assert (ts.particles.x.cpu() - cs.particles.x).abs().max() <= 1e-4
+    assert (ts.orientations.q.cpu() - cs.orientations.q).abs().max() <= 1e-4
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ts = fn(ts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(ts.particles.x).all()
+
+
+def test_tree_rollout_on_card_matches_cpu(cuda):
+    """A 31-segment random stiff-rod tree on the scheduled elimination: 10
+    steps on the card against the CPU within 1e-4, a step that never
+    syncs the host."""
+    import bench_torch
+
+    ts, tc = bench_torch.tree_scene(31, cuda)
+    cs, cc = bench_torch.tree_scene(31, torch.device("cpu"))
+    assert tc.direct_rods[0].uses_tree
+    fn = make_step_fn(tc, StepConfig(), device=cuda)
+    ref = make_step_fn(cc, StepConfig(), device="cpu")
+    for _ in range(10):
+        ts, cs = fn(ts), ref(cs)
+    assert (ts.rigid.x.cpu() - cs.rigid.x).abs().max() <= 1e-4
+    assert (ts.rigid.q.cpu() - cs.rigid.q).abs().max() <= 1e-4
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ts = fn(ts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(ts.rigid.x).all()

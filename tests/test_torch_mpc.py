@@ -211,6 +211,81 @@ def test_sequence_cost_matches_jax(k):
                   - ts.particles.x.numpy()[0]).max() > 1e-3
 
 
+def _seq_cost_against_jax(js, jc, ts, tc, control, k, seed, cfg_kw,
+                          field):
+    """``make_sequence_cost`` over K rollouts from one scene, with
+    ``control`` (``(j, t)``), the control effort and the driven
+    particle's distance to a target 0.2 right and 0.1 up of it, against
+    JAX's ``jax.vmap``-ped cost on the same controls: costs 1e-5 relative,
+    ``field`` (``"x"`` or ``"q"``) 1e-5. Returns the port's final
+    state."""
+    idx = control[1].indices[0]
+    target = np.asarray(js.particles.x)[idx] + np.float32([0.2, 0.1, 0.0])
+    terms = {name: dict(running_cost=m.control_effort(1e-3),
+                        terminal_cost=m.particle_target([idx], target))
+             for name, m in (("j", jmpc), ("t", tmpc))}
+    jseq = jmpc.make_sequence_cost(jc, JConfig(**cfg_kw), control[0],
+                                   **terms["j"])
+    tseq = tmpc.make_sequence_cost(tc, TConfig(**cfg_kw), control[1],
+                                   device="cpu", **terms["t"])
+    u = np.random.default_rng(seed).normal(
+        0.0, 0.5, (k, T, control[1].u_dim)).astype(np.float32)
+
+    def pick(s):
+        return s.particles.x if field == "x" else s.orientations.q
+
+    cj, fj = jax.jit(jax.vmap(lambda uu: (lambda c, s: (c, pick(s)))(
+        *jseq(js, uu))))(jnp.asarray(u))
+    ct, st = tseq(ts, torch.from_numpy(u))
+    assert ct.shape == (k,)
+    assert _rel(ct.numpy(), cj) <= 1e-5
+    assert np.abs(pick(st).numpy() - np.asarray(fj)).max() <= 1e-5
+    assert np.abs(st.particles.x.numpy() - np.asarray(
+        jax.vmap(lambda uu: jseq(js, uu)[1].particles.x)(jnp.asarray(u)))
+        ).max() <= 1e-5
+    return tseq, st
+
+
+def test_sequence_cost_over_a_structured_bar_matches_jax():
+    """Fault C-1 repaired: ``make_sequence_cost`` on a 6×3×3 structured tet
+    bar (the grid-tet stencil path, K = 4 rollouts on a leading axis),
+    against JAX's ``vmap``-ped cost, the corner particle driven by a
+    ``PinVelocityControl``."""
+    def bar(builder, **kw):
+        b = builder()
+        tm = b.add_regular_tet_model(6, 3, 3, scale=(1.5, 0.5, 0.5))
+        for j in range(9):
+            b.set_mass(tm.offset + j, 0.0)
+        b.add_solid_constraints(tm, method=3, stiffness=1e4,
+                                poisson_ratio=0.3)
+        return b.build(**kw)
+
+    js, jc = bar(JBuilder)
+    ts, tc = bar(TBuilder, device="cpu")
+    assert jc.grid_tets and tc.grid_tets
+    tip = 6 * 9 - 1
+    ctl = (jmpc.PinVelocityControl(indices=(tip,), max_speed=2.0),
+           tmpc.PinVelocityControl(indices=(tip,), max_speed=2.0))
+    tseq, _ = _seq_cost_against_jax(js, jc, ts, tc, ctl, 4, 21, {}, "x")
+    assert tseq.path == "torch_stencil"
+
+
+def test_sequence_cost_over_rods_matches_jax():
+    """``make_sequence_cost`` over K = 4 rollouts of 3 lattice rods, one
+    rod's free end driven by a ``PinVelocityControl``: the orientations
+    carry the rollout axis through the substeps."""
+    import torch_rod_scenes as rscenes
+
+    js, jc = rscenes.rods("jax", n_rods=3, n=8)
+    ts, tc = rscenes.rods("torch", n_rods=3, n=8)
+    assert tc.rod_lattices
+    ctl = (jmpc.PinVelocityControl(indices=(7,), max_speed=2.0),
+           tmpc.PinVelocityControl(indices=(7,), max_speed=2.0))
+    tseq, st = _seq_cost_against_jax(js, jc, ts, tc, ctl, 4, 22, {}, "q")
+    assert tseq.path == "torch_rods"
+    assert st.orientations.q.shape == (4,) + tuple(ts.orientations.q.shape)
+
+
 def _planner_inputs():
     js, jc, ts, tc = _scenes()
     terms = _terms(np.asarray(js.particles.x))

@@ -330,10 +330,15 @@ def test_rigid_entry_points_need_cuda_or_the_cpu(monkeypatch):
 
 
 def test_unported_rigid_branches_raise_naming_their_slice():
-    """The rod branches raise naming slice 7. A collision pipeline (ported
+    """The rod branches, ported with slice 7, no longer raise: a set with
+    stiff rods and generic rigid constraints steps on the rigid route and
+    ``SimState.create`` takes orientations. A collision pipeline (ported
     with collision) that holds no pair steps the chain as no pipeline
     does, through ``make_step_fn`` and ``rollout``."""
     from positionbaseddynamics_tpu_torch.collision import CollisionPipeline
+    from positionbaseddynamics_tpu_torch.solver.state import OrientationState
+
+    import torch_rod_scenes as rscenes
 
     ts, tc = scenes.chain(TBuilder, device="cpu")
     idle = CollisionPipeline.create()
@@ -343,8 +348,16 @@ def test_unported_rigid_branches_raise_naming_their_slice():
               trollout(ts, tc, TConfig(), 1, pipeline=idle)[0]):
         assert torch.equal(s.rigid.x, plain.rigid.x)
         assert torch.equal(s.overflow, plain.overflow)
-    for field in ("direct_rods", "rigid_generics"):
-        with pytest.raises(NotImplementedError, match="slice 7"):
-            ConstraintSet(**{field: (object(),)})
-    with pytest.raises(NotImplementedError, match=r"slice \(7\)"):
-        SimState.create(ts.particles, orientations=object())
+    for scene, field in ((rscenes.stiff_chain, "direct_rods"),
+                         (rscenes.pendulum, "rigid_generics")):
+        rs, rc = scene("torch")
+        assert getattr(rc, field)
+        fn = make_step_fn(ConstraintSet(**{field: getattr(rc, field)},
+                                        n_rigid=rs.rigid.n), TConfig(),
+                          device="cpu")
+        assert fn.path == "torch_rigid"
+        assert torch.isfinite(fn(rs).rigid.x).all()
+    o = OrientationState.create(torch.tensor([[1.0, 0.0, 0.0, 0.0]]),
+                                torch.ones(1), device="cpu")
+    state = SimState.create(ts.particles, orientations=o)
+    assert state.orientations is o
