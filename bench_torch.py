@@ -13,6 +13,9 @@ one-line JSON shape with ``bench.py``'s metric names.
     python3 bench_torch.py --rods                # 1024 Cosserat rods
     python3 bench_torch.py --tree                # a 100-constraint stiff tree
     python3 bench_torch.py --check               # kernels vs plain versions
+    python3 bench_torch.py --pile [--scene F]    # a scene file, headless
+    python3 bench_torch.py --armadillo-batch     # 32 rollouts of the contact
+    python3 bench_torch.py --mpc-contact         # MPPI over the contact scene
 
 Every line carries ``metric``, ``value``, ``unit`` and ``vs_baseline``
 (the mode's steps/s per rollout, or ``--mpc-big``'s rollout-steps/s, over
@@ -22,27 +25,34 @@ fused cloth substep, one launch per substep; ``"cuda_kernel"``: the
 bar's and the dam's kernels; a ``"torch_..."`` name for the plain
 routes; ``"batched_broadphase"``: ``--pile-big``'s, ``"rod_lattice"``
 or ``"unstructured"``: ``--rods``', ``"tree_scheduled"``: ``--tree``'s,
-as ``bench.py`` names them), ``"device"`` and ``"card"``, the card's
+as ``bench.py`` names them; the route ``make_step_fn`` took for the
+scene-file modes), ``"device"`` and ``"card"``, the card's
 ``nvidia-smi
 --query-gpu=name,power.limit`` line (None on the CPU).
 
 The port runs on the card: ``--device`` defaults to ``cuda`` and the
 script exits 1 without CUDA. ``--device cpu`` runs the plain PyTorch
 versions at whatever size is given, for tests; ``--check`` has nothing to
-check there and exits 2. Modes whose slice the port lacks exit 2 and name
-it. There is no ``--fuse``: the port's cloth kernel runs one launch per
+check there and exits 2. The scene-file modes read
+``data/scenes/PileScene.json`` and ``ArmadilloCollisionScene.json`` unless
+``--scene`` names another file; the shipped files are not in the
+repository, so without ``--scene`` they exit 2 and name the missing file.
+``write_pile_scene``, ``write_contact_scene`` and ``write_cloth_scene``
+write stand-ins of the shipped scenes' structure and size, meshes
+included. There is no ``--fuse``: the port's cloth kernel runs one launch per
 substep, and fusing substeps into one launch (``bench.py``'s default) is
 queued (ROADMAP queue B, B1).
 
 The bench scenes (``cloth_scene``, ``bar_scene``, ``dam_scene``,
-``pile_scene``, the planners' cloth) and the cloth kernel's plain steps
-live here;
+``pile_scene``, the planners' cloth, the stand-in scene files) and the
+cloth kernel's plain steps live here;
 ``chip_smoke.py`` and ``scripts/`` import them from this file.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -50,17 +60,6 @@ import time
 import numpy as np
 import torch
 
-_ARMADILLO = ("scene I/O (slice 8) and the scene file "
-              "data/scenes/ArmadilloCollisionScene.json, which the "
-              "repository does not hold")
-UNPORTED = {
-    "pile": "scene I/O (slice 8) and the scene files "
-            "data/scenes/PileScene.json and data/sdf/bunny_10k.csdf, which "
-            "the repository does not hold",
-    "scene": "scene I/O (slice 8)",
-    "armadillo_batch": _ARMADILLO,
-    "mpc_contact": _ARMADILLO,
-}
 CHECK_TOL = {"cloth": 1e-5, "tet": 1e-5, "fluid": 1e-4}
 PLAIN_CHUNK = 2048      # active cells per piece of the plain fluid passes
 
@@ -246,6 +245,261 @@ def rollout_step_fn(gc, inv_mass, cfg, dev, k):
 
 
 # ---------------------------------------------------------------------------
+# stand-in scenes (the shipped scene files are not in the repository)
+# ---------------------------------------------------------------------------
+
+#: where the shipped reference scenes belong, relative to the repository
+SHIPPED_SCENES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "data", "scenes")
+PILE_SCENE = os.path.join(SHIPPED_SCENES, "PileScene.json")
+CONTACT_SCENE = os.path.join(SHIPPED_SCENES, "ArmadilloCollisionScene.json")
+SCENE_SDF_RESOLUTION = 14       # bench.py's max_sdf_resolution
+CONTACT_DIMS = (20, 8, 8)       # 1,280 vertices, 4,655 tets a stand-in model
+
+
+def _write_obj(path, verts, faces, uvs=None):
+    """An OBJ file; ``faces`` rows of 3 or 4 corners, with ``uvs`` one
+    texture coordinate a vertex (``f v/vt``)."""
+    with open(path, "w") as f:
+        f.write("# generated stand-in mesh\n")
+        for v in np.asarray(verts, np.float64).tolist():
+            f.write(f"v {v[0]!r} {v[1]!r} {v[2]!r}\n")
+        if uvs is not None:
+            for t in np.asarray(uvs, np.float64).tolist():
+                f.write(f"vt {t[0]!r} {t[1]!r}\n")
+        for row in faces:
+            f.write("f " + " ".join(
+                f"{i + 1}/{i + 1}" if uvs is not None else f"{i + 1}"
+                for i in row) + "\n")
+
+
+def _cube_mesh():
+    """The unit cube, half extent 0.5, 12 outward-wound triangles."""
+    v = np.array([[x, y, z] for x in (-0.5, 0.5) for y in (-0.5, 0.5)
+                  for z in (-0.5, 0.5)])
+    f = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5],
+                  [0, 4, 5], [0, 5, 1], [2, 3, 7], [2, 7, 6],
+                  [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]])
+    return v, f
+
+
+def _cylinder_mesh(segments=32):
+    """A closed y-axis cylinder of radius 1 and height 1 (y in ±0.5): the
+    side as quads, each cap a fan around its centre, wound outward."""
+    a = 2.0 * np.pi * np.arange(segments) / segments
+    ring = np.stack([np.cos(a), np.zeros(segments), np.sin(a)], 1)
+    v = np.concatenate([ring - [0, 0.5, 0], ring + [0, 0.5, 0],
+                        [[0, -0.5, 0], [0, 0.5, 0]]])
+    lo, hi, cb, ct = 0, segments, 2 * segments, 2 * segments + 1
+    f = []
+    for i in range(segments):
+        j = (i + 1) % segments
+        f.append([lo + i, hi + i, hi + j, lo + j])
+        f.append([cb, lo + i, lo + j])
+        f.append([ct, hi + j, hi + i])
+    return v, f
+
+
+def _icosphere(subdivisions=3):
+    """The unit icosphere: 20·4^s outward-wound faces (1,280 at s = 3)."""
+    t = (1.0 + 5.0 ** 0.5) / 2.0
+    v = [[-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0], [0, -1, t],
+         [0, 1, t], [0, -1, -t], [0, 1, -t], [t, 0, -1], [t, 0, 1],
+         [-t, 0, -1], [-t, 0, 1]]
+    v = [list(np.asarray(p, float) / np.linalg.norm(p)) for p in v]
+    f = [[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+         [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+         [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+         [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]]
+    for _ in range(subdivisions):
+        mid, nf = {}, []
+
+        def m(i, j):
+            key = (min(i, j), max(i, j))
+            if key not in mid:
+                p = np.asarray(v[i]) + np.asarray(v[j])
+                v.append(list(p / np.linalg.norm(p)))
+                mid[key] = len(v) - 1
+            return mid[key]
+
+        for a, b, c in f:
+            ab, bc, ca = m(a, b), m(b, c), m(c, a)
+            nf += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        f = nf
+    return np.asarray(v), np.asarray(f)
+
+
+def _write_tetgen(stem, dims):
+    """``stem.node`` / ``stem.ele``, 1-based with comments, of a regular
+    tet grid of ``dims`` vertices over the unit box centred at the origin
+    (5 tets a cell)."""
+    from positionbaseddynamics_tpu_torch.models.builders import (
+        regular_tet_grid)
+
+    pts, tets = regular_tet_grid(*dims)
+    with open(stem + ".node", "w") as f:
+        f.write("# generated stand-in tet model\n")
+        f.write(f"{len(pts)} 3 0 0\n")
+        for i, p in enumerate(pts.tolist()):
+            f.write(f"{i + 1} {p[0]!r} {p[1]!r} {p[2]!r}\n")
+    with open(stem + ".ele", "w") as f:
+        f.write(f"{len(tets)} 4 0\n")
+        for i, t in enumerate(tets):
+            f.write(f"{i + 1} {t[0] + 1} {t[1] + 1} {t[2] + 1} {t[3] + 1}\n")
+        f.write("# generated\n")
+    return len(pts), len(tets)
+
+
+def _scene_dirs(directory):
+    scenes = os.path.join(directory, "scenes")
+    models = os.path.join(directory, "models")
+    os.makedirs(scenes, exist_ok=True)
+    os.makedirs(models, exist_ok=True)
+    return scenes, models
+
+
+def _floor(body_id, half_y=0.5, width=20.0):
+    """A static box floor from ``cube.obj``, its top at y 0."""
+    return {"id": body_id, "geometryFile": "../models/cube.obj",
+            "translation": [0.0, -half_y, 0.0],
+            "scale": [width, 2 * half_y, width], "isDynamic": 0,
+            "density": 1000, "collisionObjectType": 2,
+            "collisionObjectScale": [width, 2 * half_y, width],
+            "restitution": 0.6, "friction": 0.2}
+
+
+def write_pile_scene(directory, grid=5, missing=6):
+    """PileScene's structure (``tests/test_scene_loader.py:33-52``) written
+    into ``directory``: ``scenes/PileScene.json`` and its generated meshes
+    under ``models/``. A static box floor, ``grid``² static cylinders
+    (``cylinder.obj``, radius 0.3, height 1.5, ``collisionObjectType`` 3),
+    two dynamic bodies from a 1,280-face icosphere (radius 0.35,
+    ``collisionObjectType`` 5, so that their SDF is baked) dropped onto
+    the cylinders, and ``missing`` bodies whose ``armadillo.obj`` is not
+    written, so that the loader skips them. ``Simulation``: time step
+    0.005, ``maxIter`` 5. Returns the JSON's path."""
+    scenes, models = _scene_dirs(directory)
+    _write_obj(os.path.join(models, "cube.obj"), *_cube_mesh())
+    _write_obj(os.path.join(models, "cylinder.obj"), *_cylinder_mesh())
+    _write_obj(os.path.join(models, "sphere.obj"), *_icosphere())
+    bodies = [_floor(0)]
+    for i in range(grid * grid):
+        gx, gz = i % grid, i // grid
+        bodies.append({
+            "id": len(bodies), "geometryFile": "../models/cylinder.obj",
+            "translation": [0.8 * (gx - (grid - 1) / 2), 0.75,
+                            0.8 * (gz - (grid - 1) / 2)],
+            "scale": [0.3, 1.5, 0.3], "isDynamic": 0, "density": 1000,
+            "collisionObjectType": 3, "collisionObjectScale": [0.3, 1.5],
+            "restitution": 0.6, "friction": 0.2})
+    for i in range(2):
+        bodies.append({
+            "id": len(bodies), "geometryFile": "../models/sphere.obj",
+            "translation": [0.4 * i - 0.2, 1.88 + 0.9 * i, 0.15 * i],
+            "rotationAxis": [0, 0, 1], "rotationAngle": 0.3 * i,
+            "scale": [0.35, 0.35, 0.35], "isDynamic": 1, "density": 500,
+            "collisionObjectType": 5,
+            "collisionObjectScale": [1.0, 1.0, 1.0],
+            "resolutionSDF": [30, 30, 30], "restitution": 0.4,
+            "friction": 0.2})
+    for i in range(missing):
+        bodies.append({
+            "id": len(bodies), "geometryFile": "../models/armadillo.obj",
+            "translation": [0.5 * i - 1.25, 4.0, 0.0], "isDynamic": 1,
+            "density": 500, "collisionObjectType": 5})
+    data = {"Name": "PileScene",
+            "Simulation": {"timeStepSize": 0.005, "maxIter": 5,
+                           "maxIterVel": 5, "velocityUpdateMethod": 0,
+                           "contactTolerance": 0.01},
+            "RigidBodies": bodies}
+    path = os.path.join(scenes, "PileScene.json")
+    with open(path, "w") as f:
+        json.dump(data, f, indent=1)
+    return path
+
+
+def write_contact_scene(directory, dims=CONTACT_DIMS, models_n=3):
+    """ArmadilloCollisionScene's structure (``bench.py:267-272``) written
+    into ``directory``: ``models_n`` tet models stacked above a static box
+    floor, each a ``dims`` regular tet grid read from generated
+    ``.node``/``.ele`` files (1,280 vertices and 4,655 tets at 20×8×8,
+    close to the armadillo's 1,180 vertices), ``collisionObjectType`` 5 on
+    each so that the solid–solid contacts are built, classic FEM tets
+    (``tetModelSimulationMethod`` 2). Returns the JSON's path."""
+    scenes, models = _scene_dirs(directory)
+    _write_obj(os.path.join(models, "cube.obj"), *_cube_mesh())
+    _write_tetgen(os.path.join(models, "bar"), dims)
+    tets = []
+    for i in range(models_n):
+        tets.append({
+            "id": i, "nodeFile": "../models/bar.node",
+            "eleFile": "../models/bar.ele",
+            "translation": [-0.5 + 0.1 * i, 0.3 + 0.55 * i, -0.2 + 0.05 * i],
+            "rotationAxis": [0, 1, 0], "rotationAngle": 0.4 * i,
+            "scale": [1.0, 0.4, 0.4], "collisionObjectType": 5,
+            "resolutionSDF": [20, 20, 20], "restitution": 0.1,
+            "friction": 0.2})
+    data = {"Name": "ArmadilloCollisionScene",
+            "Simulation": {"timeStepSize": 0.005, "subSteps": 5,
+                           "maxIter": 1, "maxIterVel": 5,
+                           "tetModelSimulationMethod": 2,
+                           "solid_stiffness": 1.0,
+                           "solid_poissonRatio": 0.3,
+                           "contactTolerance": 0.01},
+            "RigidBodies": [_floor(0)],
+            "TetModels": tets}
+    path = os.path.join(scenes, "ArmadilloCollisionScene.json")
+    with open(path, "w") as f:
+        json.dump(data, f, indent=1)
+    return path
+
+
+def write_cloth_scene(directory, n=51, xpbd=False):
+    """ClothOnBunny's structure (``tests/test_scene_loader.py:86-99``)
+    written into ``directory``: an n×n-vertex plane OBJ of quads with one
+    texture coordinate a vertex as a triangle model, its two corners of
+    the first row static, 0.3 above a static body (the 1,280-face
+    icosphere at radius 0.8) whose SDF is baked. The cloth takes the
+    loader's default methods, FEM triangles and classic isometric bending
+    at their default stiffnesses, or with ``xpbd`` XPBD distance (1e5) and
+    XPBD isometric bending (0.05), the bench cloth's methods, through the
+    ``triangleModel…`` aliases. Returns the JSON's path."""
+    scenes, models = _scene_dirs(directory)
+    u = np.linspace(0.0, 1.0, n)
+    uu, vv = np.meshgrid(u, u, indexing="ij")
+    verts = np.stack([uu.ravel() - 0.5, np.zeros(n * n),
+                      vv.ravel() - 0.5], 1)
+    idx = np.arange(n * n).reshape(n, n)
+    quads = np.stack([idx[:-1, :-1], idx[:-1, 1:], idx[1:, 1:],
+                      idx[1:, :-1]], -1).reshape(-1, 4)
+    _write_obj(os.path.join(models, "plane.obj"), verts, quads,
+               uvs=np.stack([uu.ravel(), vv.ravel()], 1))
+    _write_obj(os.path.join(models, "sphere.obj"), *_icosphere())
+    data = {"Name": "ClothOnBunny",
+            "Simulation": dict({"timeStepSize": 0.005, "maxIter": 5,
+                                "contactTolerance": 0.02}, **(
+                {"triangleModelSimulationMethod": 4,
+                 "triangleModelBendingMethod": 3,
+                 "cloth_stiffness": 1e5,
+                 "cloth_bendingStiffness": 0.05} if xpbd else {})),
+            "RigidBodies": [{
+                "id": 0, "geometryFile": "../models/sphere.obj",
+                "translation": [0.0, 0.0, 0.0], "scale": [0.8, 0.8, 0.8],
+                "isDynamic": 0, "collisionObjectType": 5,
+                "collisionObjectScale": [1.0, 1.0, 1.0],
+                "resolutionSDF": [30, 30, 30], "friction": 0.2}],
+            "TriangleModels": [{
+                "id": 0, "geometryFile": "../models/plane.obj",
+                "translation": [0.1, 0.84, 0.05], "scale": [3.0, 1.0, 3.0],
+                "staticParticles": [0, n - 1], "restitution": 0.1,
+                "friction": 0.2}]}
+    path = os.path.join(scenes, "ClothOnBunny.json")
+    with open(path, "w") as f:
+        json.dump(data, f, indent=1)
+    return path
+
+
+# ---------------------------------------------------------------------------
 # modes
 # ---------------------------------------------------------------------------
 
@@ -422,9 +676,9 @@ def tree_scene(n_seg, device, solver="tree", seed=0):
         dataclasses.replace(db, solver=solver),))
 
 
-def _bench_steps(args, dev, state, fn, finite):
-    """One probe step (its ``finite(state)`` checked), then ``--calls`` ×
-    ``--steps-per-call`` steps timed. Returns ``(steps/s, state)``."""
+def _bench_steps(steps, dev, state, fn, finite):
+    """One probe step (its ``finite(state)`` checked), then ``steps`` steps
+    timed. Returns ``(steps/s, state)``."""
     st = [fn(state)]
     _sync(dev)
     if not finite(st[0]):
@@ -433,7 +687,6 @@ def _bench_steps(args, dev, state, fn, finite):
     def call():
         st[0] = fn(st[0])
 
-    steps = args.calls * args.steps_per_call
     return steps / _timed(dev, call, steps), st[0]
 
 
@@ -446,7 +699,7 @@ def bench_rods(args, dev):
     state, cset = rod_scene(args.rod_batch, dev)
     path = "rod_lattice" if cset.rod_lattices else "unstructured"
     fn = make_step_fn(cset, StepConfig(), dev)
-    sps, _ = _bench_steps(args, dev, state, fn,
+    sps, _ = _bench_steps(args.calls * args.steps_per_call, dev, state, fn,
                           lambda s: bool(torch.isfinite(s.particles.x).all()))
     return _record(dev, f"cosserat_rods_x{args.rod_batch}_steps_per_s", sps,
                    "steps/s", path,
@@ -463,10 +716,145 @@ def bench_tree(args, dev):
     n_seg = args.rod_batch if args.rod_batch < 512 else TREE_SEGMENTS
     state, cset = tree_scene(n_seg, dev)
     fn = make_step_fn(cset, StepConfig(), dev)
-    sps, _ = _bench_steps(args, dev, state, fn,
+    sps, _ = _bench_steps(args.calls * args.steps_per_call, dev, state, fn,
                           lambda s: bool(torch.isfinite(s.rigid.x).all()))
     return _record(dev, f"stiff_rod_tree_{n_seg - 1}c_steps_per_s", sps,
                    "steps/s", "tree_scheduled")
+
+
+def load_bench_scene(path, dev):
+    """``load_scene(path)`` as ``bench.py`` loads its reference scenes: SDF
+    bakes capped at ``SCENE_SDF_RESOLUTION`` per axis, in the loader's
+    default cache."""
+    from positionbaseddynamics_tpu_torch.scene import load_scene
+
+    return load_scene(path, max_sdf_resolution=SCENE_SDF_RESOLUTION,
+                      device=dev)
+
+
+def bench_scene(path, dev, calls, steps_per_call):
+    """``--pile [--scene PATH]``: a scene file played headless
+    (``bench.py:148-177``), one probe step, then ``calls`` ×
+    ``steps_per_call`` steps; metric ``scene_{name}_steps_per_s``, the
+    name the file's."""
+    from positionbaseddynamics_tpu_torch.solver import make_step_fn
+
+    s = load_bench_scene(path, dev)
+    name = os.path.splitext(os.path.basename(path))[0]
+    fn = make_step_fn(s.cset, s.config, dev, pipeline=s.pipeline)
+    sps, st = _bench_steps(
+        calls * steps_per_call, dev, s.state, fn,
+        lambda st: s.state.rigid is None or bool(
+            torch.isfinite(st.rigid.x).all()))
+    return _record(dev, f"scene_{name}_steps_per_s", sps, "steps/s",
+                   fn.path, capacity_overflow=st.overflow.item())
+
+
+def armadillo_batch(path, dev, b, calls, steps_per_call, scene=None):
+    """``--armadillo-batch``: ``b`` rollouts of the contact scene as a
+    leading axis of one state, stepped by one ``make_step_fn`` of the
+    whole pipeline (``bench.py:229-265``), steps/s per rollout. Returns
+    ``(record, scene, step function, final batch state)``."""
+    from positionbaseddynamics_tpu_torch.mpc.planners import _expand_state
+    from positionbaseddynamics_tpu_torch.solver import make_step_fn
+
+    s = scene or load_bench_scene(path, dev)
+    fn = make_step_fn(s.cset, s.config, dev, pipeline=s.pipeline)
+    sps, batch = _bench_steps(
+        calls * steps_per_call, dev, _expand_state(s.state, b), fn,
+        lambda st: bool(torch.isfinite(st.particles.x).all()))
+    return _record(dev, f"armadillo_batch{b}_steps_per_s_per_rollout", sps,
+                   "steps/s", fn.path,
+                   aggregate_steps_per_s=round(sps * b, 1),
+                   capacity_overflow=batch.overflow.max().item()), \
+        s, fn, batch
+
+
+class ContactMpc:
+    """``bench.py --mpc-contact``'s inline MPPI (``bench.py:267-335``) over
+    a contact scene's full step ``fn``: per horizon step the particles of
+    ``model`` (a slice) take the control, clipped to ±``MAX_SPEED``, as
+    their velocity, then one step; cost ``EFFORT``·|u|² a step plus the
+    model's centroid's squared distance to its start + ``TARGET_OFFSET``.
+    The K rollouts are a leading axis of one state, each update starts
+    from ``state``; weights softmax(−cost/λ)."""
+
+    SIGMA, LAM, MAX_SPEED, EFFORT = 0.5, 0.1, 2.0, 1e-3
+    TARGET_OFFSET = (1.5, -0.5, 0.0)
+
+    def __init__(self, state, fn, model, k, horizon, dev):
+        self.state, self.fn, self.model = state, fn, model
+        self.k, self.horizon, self.dev = k, horizon, dev
+        self.target = (state.particles.x[model].mean(0)
+                       + torch.tensor(self.TARGET_OFFSET, device=dev))
+        # the largest overflow counter of any rollout so far, on the card
+        self.overflow = torch.zeros((), device=dev)
+
+    def draw(self, generator):
+        return self.SIGMA * torch.randn((self.k, self.horizon, 3),
+                                        generator=generator, device=self.dev)
+
+    def rollouts(self, u):
+        """Costs and final states of controls ``u (K, h, 3)`` (or one
+        rollout's ``(h, 3)``)."""
+        import dataclasses
+
+        from positionbaseddynamics_tpu_torch.mpc.planners import (
+            _expand_state)
+
+        st = self.state
+        if u.dim() == 3:
+            st = _expand_state(st, u.shape[0])
+        cost = torch.zeros(u.shape[:-2], device=self.dev)
+        for t in range(u.shape[-2]):
+            ut = u[..., t, :]
+            p = st.particles
+            v = p.v.clone()
+            v[..., self.model, :] = torch.clamp(
+                ut, -self.MAX_SPEED, self.MAX_SPEED)[..., None, :]
+            st = self.fn(dataclasses.replace(
+                st, particles=dataclasses.replace(p, v=v)))
+            cost = cost + self.EFFORT * torch.sum(ut * ut, dim=-1)
+        d = st.particles.x[..., self.model, :].mean(-2) - self.target
+        self.overflow = torch.maximum(self.overflow, st.overflow.max())
+        return cost + torch.sum(d * d, dim=-1), st
+
+    def update(self, nominal, eps):
+        """One update: ``(new nominal, costs (K,), final states)``."""
+        costs, st = self.rollouts(nominal + eps)
+        w = torch.softmax(-costs / self.LAM, dim=0)
+        return nominal + torch.einsum("k,khd->hd", w, eps), costs, st
+
+
+def mpc_contact(path, dev, mpc_samples, mpc_horizon, calls, scene=None):
+    """``--mpc-contact``: :class:`ContactMpc` at K = max(samples // 32, 4),
+    h = max(horizon // 2, 5), one warm-up update, then ``calls`` updates
+    timed (``bench.py:267-335``). Returns ``(record, planner)``."""
+    from positionbaseddynamics_tpu_torch.solver import make_step_fn
+
+    k = max(mpc_samples // 32, 4)
+    hz = max(mpc_horizon // 2, 5)
+    s = scene or load_bench_scene(path, dev)
+    _, h = s.tet_models[0]       # bench.py's n_model: the first model's
+    planner = ContactMpc(
+        s.state, make_step_fn(s.cset, s.config, dev, pipeline=s.pipeline),
+        slice(h.offset, h.offset + h.mesh.n_vertices), k, hz, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cur = [torch.zeros((hz, 3), dtype=torch.float32, device=dev), None]
+
+    def call():
+        cur[0], cur[1], _ = planner.update(cur[0], planner.draw(gen))
+
+    call()                                                # warm-up
+    upd = calls / _timed(dev, call, calls)
+    if not (torch.isfinite(cur[0]).all() and torch.isfinite(cur[1]).all()):
+        raise FloatingPointError("MPPI produced non-finite costs")
+    return _record(
+        dev, f"mppi_contact_scene_updates_per_s_k{k}_h{hz}", upd,
+        "planner updates/s", planner.fn.path, per_s=upd * k * hz,
+        aggregate_steps_per_s=round(upd * k * hz, 1),
+        capacity_overflow=planner.overflow.item(),
+        scene=f"{os.path.basename(path)} (full contact pipeline)"), planner
 
 
 def make_mpc(k, horizon, dev, n=32, free_weight=None):
@@ -683,21 +1071,53 @@ def parser():
     ap.add_argument("--tree", action="store_true",
                     help="the stiff-rod tree (bench.py --rods --tree)")
     ap.add_argument("--check", action="store_true")
-    for name in UNPORTED:
-        ap.add_argument("--" + name.replace("_", "-"), action="store_true",
-                        help="not ported yet: needs " + UNPORTED[name])
+    ap.add_argument("--pile", action="store_true",
+                    help="a scene file played headless (PileScene.json "
+                         "under data/scenes/ unless --scene is given)")
+    ap.add_argument("--scene", default=None,
+                    help="scene JSON for --pile, --armadillo-batch and "
+                         "--mpc-contact")
+    ap.add_argument("--armadillo-batch", action="store_true",
+                    help="--batch rollouts (32 when not > 1) of the "
+                         "contact scene (ArmadilloCollisionScene.json "
+                         "unless --scene is given)")
+    ap.add_argument("--mpc-contact", action="store_true",
+                    help="MPPI over the contact scene's full step")
     return ap
+
+
+def _scene_path(args):
+    """The scene file of a scene mode, None for the other modes."""
+    if args.pile:
+        return args.scene or PILE_SCENE
+    if args.armadillo_batch or args.mpc_contact:
+        return args.scene or CONTACT_SCENE
+    return None
+
+
+def _scene_mode(args, dev, path):
+    """The scene-file modes: ``(exit code, records)``."""
+    if args.pile:
+        return 0, [bench_scene(path, dev, args.calls, args.steps_per_call)]
+    if args.armadillo_batch:
+        b = args.batch if args.batch > 1 else 32
+        return 0, [armadillo_batch(path, dev, b, args.calls,
+                                   args.steps_per_call)[0]]
+    return 0, [mpc_contact(path, dev, args.mpc_samples, args.mpc_horizon,
+                           args.calls)[0]]
 
 
 def run(argv=None):
     """Parse ``argv`` and run the mode. Returns ``(exit code, records)``;
     a refusal is written to standard error."""
     args = parser().parse_args(argv)
-    for name, needs in UNPORTED.items():
-        if getattr(args, name):
-            print(f"bench_torch: --{name.replace('_', '-')} is not ported "
-                  f"yet; it needs {needs}", file=sys.stderr)
-            return 2, []
+    path = _scene_path(args)
+    if path is not None and not os.path.exists(path):
+        print(f"bench_torch: the scene file {path} does not exist (the "
+              "shipped reference scenes are not in the repository; "
+              "bench_torch.write_pile_scene / write_contact_scene write "
+              "stand-ins of the same structure)", file=sys.stderr)
+        return 2, []
     from positionbaseddynamics_tpu_torch._device import resolve_device
 
     dev = torch.device(args.device)
@@ -714,6 +1134,8 @@ def run(argv=None):
             return 2, []
         records = check(args, dev)
         return (0 if all(r["ok"] for r in records) else 1), records
+    if path is not None:
+        return _scene_mode(args, dev, path)
     for flag, fn in (("mpc", bench_mpc), ("mpc_big", bench_mpc_big),
                      ("tree", bench_tree), ("rods", bench_rods),
                      ("fluid", bench_fluid), ("bar", bench_bar),

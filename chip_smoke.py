@@ -152,8 +152,11 @@ it exits 1 and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import importlib.util
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -207,10 +210,28 @@ PILE_RADIUS = 0.25
 COLLISION_DEMO_CHECK = 20       # card vs CPU steps of each demo
 C1_K = max(256 // 32, 4)
 C1_HORIZON = max(10 // 2, 5)
-C1_SIGMA, C1_LAMBDA, C1_MAX_SPEED, C1_EFFORT = 0.5, 0.1, 2.0, 1e-3
-C1_TARGET_OFFSET = (1.5, -0.5, 0.0)
 C1_UPDATES = 3
 C1_SINGLES = (0, C1_K - 1)      # rollouts replayed alone
+# phase 12: scene I/O, the loaded stand-ins (bench_torch.write_*_scene)
+SCENE_CHECK_STEPS = 20          # card vs CPU steps, bar SCENE_TOL
+SCENE_TOL = 1e-4
+SCENE_STEPS = 200
+PILE_LOADED, PILE_SKIPPED, PILE_DYNAMIC = 28, 6, 2
+PILE_FLOOR_Y = 0.0              # the stand-in's floor top
+PILE_BODY_R = 0.35              # its dynamic bodies' radius
+CKPT_STEP, CKPT_MORE = 100, 10  # checkpoint at step 100, 10 steps from each
+RUN_SCENE_STEPS = 40
+ARMADILLO_B = 32                # bench.py --armadillo-batch's default B
+ARMADILLO_CALLS, ARMADILLO_STEPS_PER_CALL = 2, 5
+CONTACT_UPDATES = 3             # --mpc-contact updates after a warm-up
+KERNEL_DEMO_CHECK = 10          # steps against the plain versions
+KERNEL_DEMO_TOL = {"cloth_demo": 1e-5, "bar_demo": 1e-5, "fluid_demo": 1e-4}
+# launches a step of each demo's kernels at its defaults (5 substeps)
+KERNEL_DEMO_LAUNCHES = {
+    "cloth_demo": {"cloth_substep": 5},
+    "bar_demo": {"tet_substep": 5},
+    "fluid_demo": {"pbf_density_lambda": 5, "pbf_corrections": 5,
+                   "pbf_xsph": 1}}
 # phase 3, C-1: B2 at a rollout axis
 TET_BATCH = 4                   # B2's n_batch check on the bench bar
 TET_BATCH_JITTER = 0.01         # seeded jitter of free x, second case
@@ -313,6 +334,30 @@ PBF_PAIR_OPS = {"pbf_density_lambda": {"fluid": 44, "boundary": 44},
                 "pbf_xsph": {"fluid": 31, "boundary": 0}}
 PBF_SLOT_OPS = {"pbf_density_lambda": 15, "pbf_corrections": 6,
                 "pbf_xsph": 6}
+
+
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "torch")
+
+
+def _common():
+    """``examples/torch/_common.py``, the demos' harness."""
+    if EXAMPLES not in sys.path:
+        sys.path.insert(0, EXAMPLES)
+    import _common
+    return _common
+
+
+@functools.lru_cache(maxsize=None)
+def _example(name):
+    return _common().load_example(name)
+
+
+def demo(name, dev, *argv):
+    """``examples/torch/<name>.py``'s scene at the flags ``argv`` (its
+    defaults otherwise) built on ``dev`` by the script's own ``build``:
+    a ``_common.Demo`` (state, cset, cfg, pipeline, info)."""
+    return _common().build_demo(_example(name), argv, dev)
 
 
 def log(*args):
@@ -1776,87 +1821,6 @@ def run_unstructured(dev):
     return out
 
 
-def chain_scene(builder, dev, links=R1_LINKS):
-    """``examples/chain_demo.py`` at its default: a static anchor and
-    ``links`` bodies of mass 1, inertia (0.1, 0.2, 0.3), ball joints at the
-    midpoints."""
-    b = builder()
-    prev = b.add_rigid_body((0.0, 0.0, 0.0), mass=0.0)
-    for i in range(links):
-        body = b.add_rigid_body((1.0 + i, 0.0, 0.0), mass=1.0,
-                                inertia=(0.1, 0.2, 0.3))
-        b.add_ball_joint(prev, body, (0.5 + i, 0.0, 0.0))
-        prev = body
-    return b.build(device=dev)
-
-
-def joint_demo_scene(builder, dev):
-    """``examples/joint_demo.py``: nine static-base/dynamic-body pairs, one
-    joint kind each, the four motors with their target sequences."""
-    b = builder()
-
-    def pair(y):
-        return (b.add_rigid_body((0.0, y, 0.0), mass=0.0),
-                b.add_rigid_body((1.0, y, 0.0), mass=1.0,
-                                 inertia=(0.1, 0.15, 0.2)))
-
-    b.add_ball_joint(*pair(0.0), (0.5, 0.0, 0.0))
-    b.add_ball_on_line_joint(*pair(2.0), (0.5, 2.0, 0.0), (1.0, 0.0, 0.0))
-    b.add_hinge_joint(*pair(4.0), (0.5, 4.0, 0.0), (0.0, 0.0, 1.0))
-    b.add_universal_joint(*pair(6.0), (0.5, 6.0, 0.0), (0.0, 0.0, 1.0),
-                          (0.0, 1.0, 0.0))
-    b.add_slider_joint(*pair(8.0), (1.0, 0.0, 0.0))
-    b.add_target_angle_motor_hinge_joint(
-        *pair(10.0), (0.5, 10.0, 0.0), (0.0, 0.0, 1.0),
-        sequence=[0.0, 0.0, 1.0, 0.8, 2.0, 0.0], repeat=True)
-    b.add_target_velocity_motor_hinge_joint(
-        *pair(12.0), (0.5, 12.0, 0.0), (0.0, 0.0, 1.0), target=1.5)
-    b.add_target_position_motor_slider_joint(
-        *pair(14.0), (1.0, 0.0, 0.0), sequence=[0.0, 0.0, 1.0, 0.5, 2.0, 0.0],
-        repeat=True)
-    b.add_target_velocity_motor_slider_joint(*pair(16.0), (1.0, 0.0, 0.0),
-                                             target=0.4)
-    return b.build(device=dev)
-
-
-def sbt_scene(builder, dev, segments=10, youngs=1e6):
-    """``examples/sbt_demo.py``: a rod of 10 rigid segments (the first
-    static) joined by stretch-bending-twisting constraints."""
-    radius, seg_len = 0.1, 0.5
-    mass = 1000.0 * np.pi * radius**2 * seg_len
-    ix = 0.5 * mass * radius**2
-    iyz = mass * (3 * radius**2 + seg_len**2) / 12.0
-    b = builder()
-    for i in range(segments):
-        b.add_rigid_body(x=((i + 0.5) * seg_len, 0.0, 0.0),
-                         mass=(0.0 if i == 0 else mass),
-                         inertia=(ix, iyz, iyz))
-    for i in range(segments - 1):
-        b.add_stretch_bending_twisting_constraint(
-            i, i + 1, pos=((i + 1) * seg_len, 0.0, 0.0),
-            average_radius=radius, average_segment_length=seg_len,
-            youngs_modulus=youngs, torsion_modulus=youngs)
-    return b.build(device=dev)
-
-
-def coupling_scene(builder, dev, n=12):
-    """``examples/coupling_demo.py`` at ``n`` 12: a link ball-jointed to a
-    static anchor and a grid cloth whose first-row corners hang from it by
-    ``rb_particle_ball`` joints."""
-    b = builder()
-    anchor = b.add_rigid_body((0.0, 2.0, 0.0), mass=0.0)
-    link = b.add_rigid_body((0.8, 2.0, 0.0), mass=1.0,
-                            inertia=(0.1, 0.15, 0.2))
-    b.add_ball_joint(anchor, link, (0.4, 2.0, 0.0))
-    tm = b.add_regular_triangle_model(n, n, translation=(1.2, 2.0, -0.5),
-                                      scale=(1.0, 1.0))
-    b.add_cloth_constraints(tm, method=4, distance_stiffness=1e5)
-    b.add_bending_constraints(tm, method=3, stiffness=0.05)
-    b.add_rigid_body_particle_ball_joint(link, tm.offset)
-    b.add_rigid_body_particle_ball_joint(link, tm.offset + n - 1)
-    return b.build(device=dev)
-
-
 def rigid_planner(dev):
     """R1: MPPI over ``R1_K`` rollouts of the chain at horizon
     ``R1_HORIZON`` (``bench.py --mpc-samples/--mpc-horizon`` defaults),
@@ -1865,11 +1829,11 @@ def rigid_planner(dev):
     (JAX's ``tests/test_mpc.py:32-42``). Returns ``(state, seq_cost,
     MPPIConfig, build seconds)``."""
     from positionbaseddynamics_tpu_torch import mpc
-    from positionbaseddynamics_tpu_torch.models import SceneBuilder
     from positionbaseddynamics_tpu_torch.solver import StepConfig
 
     t0 = time.perf_counter()
-    state, cset = chain_scene(SceneBuilder, dev)
+    chain = demo("chain_demo", dev, "--links", str(R1_LINKS))
+    state, cset = chain.state, chain.cset
     tip = R1_LINKS
     seq = mpc.make_sequence_cost(
         cset, StepConfig(max_iterations=R1_ITERATIONS),
@@ -1905,20 +1869,20 @@ def run_rigid_demos(dev):
     CPU (≤ ``RIGID_DEMO_TOL``), then ``RIGID_DEMO_STEPS`` steps with every
     launch count 0: each joint's residual at the end, the anchors exact,
     everything finite."""
-    from positionbaseddynamics_tpu_torch.models import SceneBuilder
     from positionbaseddynamics_tpu_torch.solver import StepConfig, make_step_fn
 
     cfg = StepConfig(max_iterations=R1_ITERATIONS)
     h = cfg.dt / cfg.substeps
     cpu = torch.device("cpu")
     out = {}
-    for name, build in (("joint_demo", joint_demo_scene),
-                        ("sbt_demo", sbt_scene),
-                        ("coupling_demo", coupling_scene)):
-        state, cset = build(SceneBuilder, dev)
+    for name in ("joint_demo", "sbt_demo", "coupling_demo"):
+        d = demo(name, dev)
+        assert d.cfg == cfg, (name, d.cfg)
+        state, cset = d.state, d.cset
         fn = make_step_fn(cset, cfg)
         assert fn.path == "torch_rigid", fn.path
-        cs, cc = build(SceneBuilder, cpu)
+        c = demo(name, cpu)
+        cs, cc = c.state, c.cset
         cfn = make_step_fn(cc, cfg, device=cpu)
         a, b = state, cs
         for _ in range(RIGID_DEMO_CHECK):
@@ -1927,7 +1891,7 @@ def run_rigid_demos(dev):
                  max_dev(a.particles.x.cpu(), b.particles.x)
                  if b.particles.n else 0.0)
         dq = max_dev(a.rigid.q.cpu(), b.rigid.q)
-        del cs, cc, cfn, a, b
+        del c, cs, cc, cfn, a, b
         x0 = state.rigid.x.clone()
         static = state.rigid.inv_mass == 0
         torch.cuda.synchronize()
@@ -1957,7 +1921,7 @@ def run_rigid_demos(dev):
         assert dx <= RIGID_DEMO_TOL and dq <= RIGID_DEMO_TOL, (name, dx, dq)
         assert all(v == 0 for v in counts.values()), counts
         assert finite and anchors, name
-        del state, cset, fn, s
+        del d, state, cset, fn, s
     return out
 
 
@@ -2130,44 +2094,19 @@ def run_pile(dev):
         f"{len(pipe.rb_pairs)} ordered pairs")
     cs, cc, cp = bench_torch.pile_scene(PILE_BODIES, cpu)
     cfn = make_step_fn(cc, StepConfig(), cpu, pipeline=cp)
-    a, b, counts_equal, active = state, cs, True, []
-    for _ in range(PILE_CHECK_STEPS):
-        na, nb = _active(pipe, a), _active(cp, b)
-        counts_equal = counts_equal and na == nb
-        active.append(na)
-        a, b = fn(a), cfn(b)
-    dx = max(max_dev(a.rigid.x.cpu(), b.rigid.x),
-             max_dev(a.rigid.q.cpu(), b.rigid.q))
+    dx, active, counts_equal, a = _card_vs_cpu(
+        fn, cfn, state, cs, PILE_CHECK_STEPS,
+        lambda st, card: _active(pipe if card else cp, st))
     log(f"phase 10 P1 {PILE_CHECK_STEPS} steps card vs CPU: max dev {dx!r}, "
         f"active rows per step {active}, equal {counts_equal}")
     assert dx <= PILE_TOL, dx
     assert counts_equal, active
-    del cs, cc, cp, cfn, b
+    del cs, cc, cp, cfn
 
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    sync_error = None
-    try:
-        a = fn(a)
-    except RuntimeError as e:
-        sync_error = str(e)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    log(f"phase 10 P1 step under sync debug mode 'error': "
-        f"{'no host sync' if sync_error is None else sync_error}")
+    sync_error = _sync_free(fn, a, "phase 10 P1")
     assert sync_error is None, sync_error
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    s = state
-    for _ in range(PILE_STEPS):
-        s = fn(s)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated()
+    s, run_s, counts, peak = _counted_run(fn, state, PILE_STEPS)
     y = s.rigid.x[1:, 1]
     finite = bool(torch.isfinite(s.rigid.x).all()
                   and torch.isfinite(s.rigid.q).all())
@@ -2206,23 +2145,6 @@ def run_pile(dev):
             "peak_bytes": peak, "top_ops": top}
 
 
-def cloth_collision_scene(builder, dev, n=20):
-    """``examples/cloth_collision_demo.py`` at its default: an n×n XPBD
-    cloth over a static sphere of radius 0.6, tolerance 0.02."""
-    b = builder()
-    tm = b.add_regular_triangle_model(n, n, translation=(-1.0, 1.0, -1.0),
-                                      scale=(2.0, 2.0))
-    b.add_cloth_constraints(tm, method=4, distance_stiffness=1e5)
-    b.add_bending_constraints(tm, method=3, stiffness=0.05)
-    sph = b.add_rigid_body((0.0, 0.0, 0.0), mass=0.0)
-    b.add_collision_sphere(sph, 0.6, restitution=0.0, friction=0.2,
-                           verts=np.zeros((1, 3), np.float32))
-    b.set_particle_collider(tm, restitution=0.0, friction=0.2)
-    state, cset = b.build(device=dev)
-    return state, cset, b.build_collision_pipeline(tolerance=0.02,
-                                                   device=dev)
-
-
 def cloth_on_sphere_scene(builder, dev, n=SPHERE_CLOTH_N, height=0.63):
     """``tests/torch_collision_scenes.py::cloth_on_sphere``: the demo's
     cloth at n×n laid flat in the x–z plane at ``height`` over the static
@@ -2252,34 +2174,13 @@ def _active_particle_rows(pipe, state):
                .mask.sum().item())
 
 
-def rigid_collision_scene(builder, dev, bodies=5):
-    """``examples/rigid_body_collision_demo.py`` at its default: spheres of
-    radius 0.3 (64 samples, restitution 0.4) on a static (10, 1, 10)
-    box."""
-    from positionbaseddynamics_tpu_torch.collision import sampling
-
-    b = builder()
-    floor = b.add_rigid_body((0.0, -0.5, 0.0), mass=0.0)
-    b.add_collision_box(floor, (10.0, 1.0, 10.0))
-    r = 0.3
-    verts = sampling.sample_sphere(r, 64)
-    for i in range(bodies):
-        body = b.add_rigid_body((0.7 * i - 1.4, 2.0 + 0.5 * i, 0.0),
-                                mass=1.0, inertia=(0.4 * r * r,) * 3)
-        b.add_collision_sphere(body, r, restitution=0.4, friction=0.2,
-                               verts=verts)
-    state, cset = b.build(device=dev)
-    return state, cset, b.build_collision_pipeline(tolerance=0.02,
-                                                   device=dev)
-
-
-def deformable_collision_scene(builder, dev, structured=True):
-    """``examples/deformable_collision_demo.py``: a 6×2×2 XPBD FEM bar
-    dropped on a static one, both particle and tet colliders. Returns the
-    top bar's particle slice as a fourth element. ``structured=False``
-    solves the FEM tets as the particle batch, which takes a rollout
-    axis (the tet-grid solver takes one scene)."""
-    b = builder(use_structured_grid=structured)
+def unstructured_bars_scene(builder, dev):
+    """``examples/torch/deformable_collision_demo.py``'s two bars (a 6×2×2
+    XPBD FEM bar dropped on a static one, both particle and tet colliders)
+    with the FEM tets as the particle batch, which takes a rollout axis
+    (the tet-grid solver takes one scene). Returns the top bar's particle
+    slice as a fourth element."""
+    b = builder(use_structured_grid=False)
     bottom = b.add_regular_tet_model(6, 2, 2, translation=(0.0, 0.0, 0.0),
                                      scale=(1.2, 0.25, 0.4))
     for i in range(bottom.mesh.n_vertices):
@@ -2309,17 +2210,23 @@ def run_collision_demos(dev):
     from positionbaseddynamics_tpu_torch.models import SceneBuilder
     from positionbaseddynamics_tpu_torch.solver import StepConfig, make_step_fn
 
+    def build(name, device):
+        if name == "cloth_on_sphere":
+            return cloth_on_sphere_scene(SceneBuilder, device) + (None,)
+        d = demo(name, device)
+        assert d.cfg == StepConfig(), (name, d.cfg)
+        return d.state, d.cset, d.pipeline, d.info.get("top")
+
     cpu = torch.device("cpu")
     out = {}
-    for name, build, steps in (
-            ("cloth_collision_demo", cloth_collision_scene, 250),
-            ("cloth_on_sphere", cloth_on_sphere_scene, SPHERE_CLOTH_STEPS),
-            ("rigid_body_collision_demo", rigid_collision_scene, 300),
-            ("deformable_collision_demo", deformable_collision_scene, 150)):
-        built = build(SceneBuilder, dev)
+    for name, steps in (("cloth_collision_demo", 250),
+                        ("cloth_on_sphere", SPHERE_CLOTH_STEPS),
+                        ("rigid_body_collision_demo", 300),
+                        ("deformable_collision_demo", 150)):
+        built = build(name, dev)
         state, cset, pipe = built[:3]
         fn = make_step_fn(cset, StepConfig(), dev, pipeline=pipe)
-        cs, cc, cp = build(SceneBuilder, cpu)[:3]
+        cs, cc, cp = build(name, cpu)[:3]
         cfn = make_step_fn(cc, StepConfig(), cpu, pipeline=cp)
         a, b = state, cs
         rows, rows_equal = [], True
@@ -2383,68 +2290,31 @@ def run_collision_demos(dev):
     return out
 
 
-class ContactPlanner:
-    """C1: ``bench.py --mpc-contact``'s inline MPPI (``bench.py:267-335``)
-    on ``deformable_collision_demo.py``'s two bars, the top bar's
-    particles driven: per horizon step their velocity set to the control
-    clipped to ``C1_MAX_SPEED``, one sim step, ``C1_EFFORT``·|u|²; at the
-    end the top bar's centroid's squared distance to its start +
-    ``C1_TARGET_OFFSET``. The ``C1_K`` rollouts are a leading axis of one
-    state; weights softmax(−cost/λ)."""
+def contact_planner(dev):
+    """C1: ``bench_torch.ContactMpc`` (``bench.py --mpc-contact``'s inline
+    MPPI, ``bench.py:267-335``) at K ``C1_K``, horizon ``C1_HORIZON`` on
+    :func:`unstructured_bars_scene`, the top bar's particles driven."""
+    from positionbaseddynamics_tpu_torch.models import SceneBuilder
+    from positionbaseddynamics_tpu_torch.solver import StepConfig, make_step_fn
 
-    def __init__(self, dev):
-        from positionbaseddynamics_tpu_torch.models import SceneBuilder
-        from positionbaseddynamics_tpu_torch.solver import (StepConfig,
-                                                            make_step_fn)
-
-        self.dev = dev
-        self.state, cset, pipe, self.top = deformable_collision_scene(
-            SceneBuilder, dev, structured=False)
-        self.fn = make_step_fn(cset, StepConfig(), dev, pipeline=pipe)
-        self.target = (self.state.particles.x[self.top].mean(0)
-                       + torch.tensor(C1_TARGET_OFFSET, device=dev))
-
-    def rollouts(self, u):
-        """Costs ``(K,)`` and final states of controls ``u (K, h, 3)`` (or
-        one rollout's ``(h, 3)``)."""
-        from positionbaseddynamics_tpu_torch.mpc.planners import _expand_state
-
-        st = (_expand_state(self.state, u.shape[0]) if u.dim() == 3
-              else self.state)
-        cost = torch.zeros(u.shape[:-2], device=self.dev)
-        for t in range(u.shape[-2]):
-            ut = u[..., t, :]
-            p = st.particles
-            v = p.v.clone()
-            v[..., self.top, :] = torch.clamp(
-                ut, -C1_MAX_SPEED, C1_MAX_SPEED)[..., None, :]
-            st = self.fn(dataclasses.replace(
-                st, particles=dataclasses.replace(p, v=v)))
-            cost = cost + C1_EFFORT * torch.sum(ut * ut, dim=-1)
-        com = st.particles.x[..., self.top, :].mean(-2)
-        d = com - self.target
-        return cost + torch.sum(d * d, dim=-1), st
-
-    def update(self, nominal, eps):
-        costs, st = self.rollouts(nominal + eps)
-        w = torch.softmax(-costs / C1_LAMBDA, dim=0)
-        return nominal + torch.einsum("k,khd->hd", w, eps), costs, st
+    state, cset, pipe, top = unstructured_bars_scene(SceneBuilder, dev)
+    fn = make_step_fn(cset, StepConfig(), dev, pipeline=pipe)
+    return bench_torch.ContactMpc(state, fn, top, C1_K, C1_HORIZON, dev)
 
 
 def run_contact_planner(dev):
-    """Phase 10, C1 (:class:`ContactPlanner`): ``C1_UPDATES`` updates with
+    """Phase 10, C1 (:func:`contact_planner`): ``C1_UPDATES`` updates with
     every launch count 0 and the rollouts' overflow 0, rollouts
     ``C1_SINGLES`` of the last update against the same controls run alone
     (≤ ``BATCH_TOL``), updates/s (median of windows) and busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    planner = ContactPlanner(dev)
+    planner = contact_planner(dev)
     gen = torch.Generator(device=dev).manual_seed(10)
 
     def draw():
-        return C1_SIGMA * torch.randn((C1_K, C1_HORIZON, 3), generator=gen,
-                                      device=dev)
+        return planner.draw(gen)
 
     nominal = torch.zeros((C1_HORIZON, 3), device=dev)
     nominal = planner.update(nominal, draw())[0]            # warm-up
@@ -2715,115 +2585,6 @@ def run_tree(dev):
     return out
 
 
-def helix_scene(builder, dev, segments=50):
-    """``examples/cosserat_rods_demo.py`` at its default: a helix of 50 rod
-    segments, its top particle and frame pinned."""
-    n = segments + 1
-    t = np.linspace(0.0, 4.0 * np.pi, n)
-    pts = np.stack([0.3 * np.cos(t), -0.1 * t, 0.3 * np.sin(t)], 1)
-    b = builder()
-    lm = b.add_line_model(pts)
-    b.set_mass(lm.offset, 0.0)
-    b.set_quaternion_mass(lm.offset_q, 0.0)
-    b.add_rod_constraints(lm, stretch_stiffness=(1.0, 1.0, 1.0),
-                          bend_twist_stiffness=(0.5, 0.5, 0.5))
-    return b.build(device=dev)
-
-
-def ghost_rod_scene(builder, dev, points=10):
-    """``examples/elastic_rods_demo.py`` at its default: the ghost-point rod
-    of 10 points at 0.25 spacing, the first two points and the first ghost
-    pinned."""
-    pts = np.stack([0.25 * np.arange(points), np.zeros(points),
-                    np.zeros(points)], 1)
-    b = builder()
-    h = b.add_ghost_rod_model(pts)
-    b.set_mass(h.offset, 0.0)
-    b.set_mass(h.offset + 1, 0.0)
-    b.set_mass(h.ghost_offset, 0.0)
-    b.add_ghost_rod_constraints(h, stretching_stiffness=1.0,
-                                bending_twisting=(0.5, 0.5, 0.5))
-    return b.build(device=dev)
-
-
-def _segment_body():
-    radius, seg_len = 0.1, 0.5
-    mass = 1000.0 * np.pi * radius**2 * seg_len
-    ix = 0.5 * mass * radius**2
-    iyz = mass * (3 * radius**2 + seg_len**2) / 12.0
-    return radius, seg_len, mass, (ix, iyz, iyz)
-
-
-def stiff_chain_scene(builder, dev, segments=10):
-    """``examples/stiff_rods_demo.py`` at its default: a chain of 10 rigid
-    segments (the first static) for the direct solver."""
-    radius, seg_len, mass, inertia = _segment_body()
-    b = builder()
-    bodies = [b.add_rigid_body(x=((i + 0.5) * seg_len, 0.0, 0.0),
-                               mass=(0.0 if i == 0 else mass),
-                               inertia=inertia) for i in range(segments)]
-    pos = [((i + 1) * seg_len, 0.0, 0.0) for i in range(segments - 1)]
-    b.add_direct_rod_chain(bodies, np.asarray(pos), radius, seg_len, 1e6,
-                           1e6)
-    return b.build(device=dev)
-
-
-def y_tree_scene(builder, dev):
-    """``examples/stiff_rods_demo.py --tree``: the Y of two trunk segments
-    and two branches."""
-    radius, seg_len, mass, inertia = _segment_body()
-    centers = [(0.25, 0, 0), (0.75, 0, 0), (1.25, 0.08, 0),
-               (1.25, -0.08, 0)]
-    b = builder()
-    bodies = [b.add_rigid_body(x=c, mass=(0.0 if i == 0 else mass),
-                               inertia=inertia)
-              for i, c in enumerate(centers)]
-    b.add_direct_rod_tree(bodies, [(0, 1), (1, 2), (1, 3)],
-                          [(0.5, 0, 0), (1.0, 0, 0), (1.0, 0, 0)],
-                          radius, seg_len, 1e6, 1e6)
-    return b.build(device=dev)
-
-
-def generic_particle_scene(builder, dev, n=12):
-    """``examples/generic_particle_demo.py`` at its default: an n×n cloth
-    held by generic distance constraints, the JAX demo's function written
-    in torch."""
-    b = builder(use_structured_grid=False)
-    tm = b.add_regular_triangle_model(n, n)
-    b.set_mass(tm.offset, 0.0)
-    b.set_mass(tm.offset + n - 1, 0.0)
-    edges = tm.mesh.edges + tm.offset
-    x0 = np.concatenate(b._x)
-    rests = np.linalg.norm(x0[edges[:, 0]] - x0[edges[:, 1]],
-                           axis=-1)[:, None]
-
-    def distance_c(pts, params):
-        return (torch.linalg.vector_norm(pts[1] - pts[0])
-                - params[0]).reshape(1)
-
-    b.add_generic_constraints(distance_c, edges, stiffness=1.0,
-                              params=rests)
-    return b.build(device=dev)
-
-
-def generic_rigid_scene(builder, dev):
-    """``examples/generic_rigidbody_demo.py``: a pendulum whose ball joint
-    is a constraint function of the two bodies, written in torch."""
-    from positionbaseddynamics_tpu_torch.ops import quaternion as quat
-
-    def ball_c(x, q):
-        e = torch.zeros_like(x[0])
-        e0 = torch.cat([e[:1] + 1.0, e[1:]])
-        return (quat.rotate(q[0], e0) + x[0]) - (quat.rotate(q[1], -e0)
-                                                 + x[1])
-
-    b = builder()
-    b.add_rigid_body((0.0, 0.0, 0.0), mass=0.0)
-    b.add_rigid_body((2.0, 0.0, 0.0), mass=1.0, inertia=(0.4, 0.4, 0.4))
-    b.add_generic_rigid_constraints(ball_c, [[0, 1]])
-    return b.build(device=dev)
-
-
 def connector_gap(db, rx, rq) -> float:
     """Largest distance between the two connectors of a stiff-rod batch's
     constraints, the zero-stretch residual (``tests/test_stiff_rods.py``
@@ -2888,24 +2649,22 @@ def run_rod_demos(dev):
     ``ROD_DEMO_CHECK`` steps against the port on the CPU (≤ ``PILE_TOL``),
     then their full length from the start with every launch count 0 and
     the demo's own check (:func:`_rod_demo_check`)."""
-    from positionbaseddynamics_tpu_torch.models import SceneBuilder
-    from positionbaseddynamics_tpu_torch.solver import StepConfig, make_step_fn
+    from positionbaseddynamics_tpu_torch.solver import make_step_fn
 
     cpu = torch.device("cpu")
-    damped = StepConfig(damping=0.001)      # the two rod demos' stepper
     out = {}
-    for name, build, cfg, steps in (
-            ("cosserat_rods_demo", helix_scene, damped, 300),
-            ("elastic_rods_demo", ghost_rod_scene, damped, 300),
-            ("stiff_rods_demo", stiff_chain_scene, StepConfig(), 200),
-            ("stiff_rods_demo_tree", y_tree_scene, StepConfig(), 200),
-            ("generic_particle_demo", generic_particle_scene, StepConfig(),
-             200),
-            ("generic_rigidbody_demo", generic_rigid_scene, StepConfig(),
-             200)):
-        state, cset = build(SceneBuilder, dev)
+    for name, script, argv, steps in (
+            ("cosserat_rods_demo", "cosserat_rods_demo", (), 300),
+            ("elastic_rods_demo", "elastic_rods_demo", (), 300),
+            ("stiff_rods_demo", "stiff_rods_demo", (), 200),
+            ("stiff_rods_demo_tree", "stiff_rods_demo", ("--tree",), 200),
+            ("generic_particle_demo", "generic_particle_demo", (), 200),
+            ("generic_rigidbody_demo", "generic_rigidbody_demo", (), 200)):
+        d = demo(script, dev, *argv)
+        state, cset, cfg = d.state, d.cset, d.cfg
         fn = make_step_fn(cset, cfg, dev)
-        cs, cc = build(SceneBuilder, cpu)
+        c = demo(script, cpu, *argv)
+        cs, cc = c.state, c.cset
         cfn = make_step_fn(cc, cfg, cpu)
         a, b = state, cs
         for _ in range(ROD_DEMO_CHECK):
@@ -2997,6 +2756,484 @@ def run_rods(dev):
     return out
 
 
+def _card_vs_cpu(fn, cfn, a, b, steps, active):
+    """``steps`` steps of ``a`` on the card and ``b`` on the CPU, with
+    ``active(state)`` (a host read) recorded on both before each step.
+    Returns ``(largest deviation of particles, bodies and rotations, the
+    card's active counts, whether they equal the CPU's at every step, the
+    card's last state)``."""
+    counts, equal = [], True
+    for _ in range(steps):
+        na, nb = active(a, True), active(b, False)
+        equal = equal and na == nb
+        counts.append(na)
+        a, b = fn(a), cfn(b)
+    dx = max_dev(a.particles.x.cpu(), b.particles.x) if b.particles.n \
+        else 0.0
+    if b.rigid is not None:
+        dx = max(dx, max_dev(a.rigid.x.cpu(), b.rigid.x),
+                 max_dev(a.rigid.q.cpu(), b.rigid.q))
+    return dx, counts, equal, a
+
+
+def _leaves_equal(a, b) -> bool:
+    from positionbaseddynamics_tpu_torch.utils.checkpoint import _leaves
+
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def run_scene_pile(dev, directory):
+    """Phase 12, the pile stand-in (``bench_torch.write_pile_scene``):
+    loaded cold (the bakes) and again from the bake cache, the route, the
+    loaded, skipped and dynamic bodies; ``SCENE_CHECK_STEPS`` steps on the
+    card against the CPU (≤ ``SCENE_TOL``) with equal active rigid contact
+    rows at every step; one step with no host sync; ``SCENE_STEPS`` steps
+    with every launch count 0, overflow 0, finite, the dynamic bodies
+    above the floor; steps/s, busy share, device launches and µs a step,
+    peak memory, top device operations; ``PhaseTimers``; a checkpoint at
+    step ``CKPT_STEP`` loaded into the built template, ``CKPT_MORE`` steps
+    from each copy bit for bit equal (deterministic algorithms on).
+    Returns ``(record, scene path)``."""
+    from positionbaseddynamics_tpu_torch.scene import load_scene
+    from positionbaseddynamics_tpu_torch.solver import make_step_fn
+    from positionbaseddynamics_tpu_torch.utils import (PhaseTimers,
+                                                       load_state, save_state)
+
+    path = bench_torch.write_pile_scene(directory)
+    cache = os.path.join(directory, "sdf_cache")
+    res = bench_torch.SCENE_SDF_RESOLUTION
+    timings = []
+    for _ in range(2):                      # cold (bakes), then cached
+        t0 = time.perf_counter()
+        s = load_scene(path, cache_dir=cache, max_sdf_resolution=res,
+                       device=dev)
+        torch.cuda.synchronize()
+        timings.append(time.perf_counter() - t0)
+    fn = make_step_fn(s.cset, s.config, dev, pipeline=s.pipeline)
+    dynamic = int((s.state.rigid.inv_mass > 0).sum().item())
+    rec = {"scene": "stand-in of PileScene.json (bench_torch."
+                    "write_pile_scene): a box floor, 25 static cylinders, "
+                    "2 dynamic 1,280-face icospheres with baked SDFs, 6 "
+                    "bodies of a missing mesh",
+           "load_s": timings[1], "bake_s": timings[0] - timings[1],
+           "route": fn.path, "broad_phase": s.pipeline.broad_phase,
+           "loaded": len(s.rigid_ids), "skipped": len(s.skipped_bodies),
+           "dynamic": dynamic, "rb_pairs": len(s.pipeline.rb_pairs)}
+    log(f"phase 12 pile: {rec}")
+    assert (rec["loaded"], rec["skipped"], dynamic) == (
+        PILE_LOADED, PILE_SKIPPED, PILE_DYNAMIC), rec
+
+    cpu = torch.device("cpu")
+    c = load_scene(path, cache_dir=cache, max_sdf_resolution=res,
+                   device=cpu)
+    cfn = make_step_fn(c.cset, c.config, cpu, pipeline=c.pipeline)
+    dx, active, equal, last = _card_vs_cpu(
+        fn, cfn, s.state, c.state, SCENE_CHECK_STEPS,
+        lambda st, card: _active(s.pipeline if card else c.pipeline, st))
+    log(f"phase 12 pile {SCENE_CHECK_STEPS} steps card vs CPU: max dev "
+        f"{dx!r}, active rows {active}, equal {equal}")
+    assert dx <= SCENE_TOL, dx
+    assert equal, active
+    del c, cfn
+    rec.update({"card_vs_cpu_max_dev": dx, "check_steps": SCENE_CHECK_STEPS,
+                "active_rows": active, "active_counts_equal": equal})
+    err = _sync_free(fn, last, "phase 12 pile")
+    assert err is None, err
+
+    st, run_s, counts, peak = _counted_run(fn, s.state, SCENE_STEPS)
+    dyn = s.state.rigid.inv_mass > 0
+    low = st.rigid.x[dyn, 1].min().item()
+    finite = bool(torch.isfinite(st.rigid.x).all()
+                  and torch.isfinite(st.rigid.q).all())
+    overflow = st.overflow.item()
+    log(f"phase 12 pile {SCENE_STEPS} steps in {run_s!r} s, launch counts "
+        f"{counts}, finite {finite}, overflow {overflow}, lowest dynamic "
+        f"centre {low!r}, peak {peak} B")
+    assert all(v == 0 for v in counts.values()), counts
+    assert finite and overflow == 0.0
+    assert low >= PILE_FLOOR_Y + PILE_BODY_R - 0.05, low
+    rec.update({"sync_free_step": True, "steps": SCENE_STEPS,
+                "steps_s": run_s, "launches": counts, "finite": finite,
+                "overflow": overflow, "lowest_dynamic_centre": low,
+                "peak_bytes": peak})
+    rec.update(_rates(fn, st, "phase 12 pile", 1))
+
+    timers = PhaseTimers(s.cset, s.config, s.pipeline, device=dev)
+    phases = timers.measure(s.state)
+    log(f"phase 12 pile {timers.report()}")
+    assert set(phases) == {"simulation step",
+                           "position constraints projection",
+                           "collision detection"}, phases
+    assert all(v > 0 for v in phases.values()), phases
+    rec["phase_timers_s"] = phases
+
+    st = s.state
+    for _ in range(CKPT_STEP):
+        st = fn(st)
+    ckpt = os.path.join(directory, "pile_step100.npz")
+    save_state(ckpt, st)
+    loaded = load_state(ckpt, s.state)
+    same_leaves = _leaves_equal(st, loaded)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        a, b = st, loaded
+        for _ in range(CKPT_MORE):
+            a, b = fn(a), fn(b)
+        resumed = _leaves_equal(a, b)
+        resumed_dev = max(max_dev(a.rigid.x, b.rigid.x),
+                          max_dev(a.rigid.q, b.rigid.q))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"phase 12 checkpoint at step {CKPT_STEP}: leaves equal "
+        f"{same_leaves}, {CKPT_MORE} more steps from each bit for bit "
+        f"{resumed} (max dev {resumed_dev!r})")
+    assert same_leaves and resumed
+    rec["checkpoint"] = {"step": CKPT_STEP, "leaves_equal": same_leaves,
+                         "more_steps": CKPT_MORE, "resumed_equal": resumed}
+    return rec, path
+
+
+def run_scene_runner(dev, pile_path, cloth_path, directory):
+    """Phase 12, ``run_scene_torch.py`` in this process: the pile stand-in
+    with ``--export-npz`` (``particles_x``, ``rigid_x``, ``rigid_q``) and
+    the cloth stand-in with ``--export-obj`` (its OBJ frames, ``vt``
+    lines and ``f v/vt`` corners)."""
+    import contextlib
+    import io
+
+    import run_scene_torch
+
+    out = {}
+    res = str(bench_torch.SCENE_SDF_RESOLUTION)
+    for name, path in (("pile", pile_path), ("cloth", cloth_path)):
+        npz = os.path.join(directory, f"run_{name}.npz")
+        obj = os.path.join(directory, f"run_{name}_obj")
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            code = run_scene_torch.main([
+                path, "--steps", str(RUN_SCENE_STEPS), "--export-npz", npz,
+                "--export-obj", obj, "--max-sdf-resolution", res,
+                "--cache-dir", os.path.join(directory, "sdf_cache"),
+                "--device", str(dev)])
+        lines = text.getvalue().splitlines()
+        for line in lines:
+            log(f"  run_scene_torch {name}: {line}")
+        assert code == 0, (name, code)
+        with np.load(npz) as z:
+            keys = sorted(z.files)
+            finite = all(bool(np.isfinite(z[k]).all()) for k in keys)
+        frames = sorted(os.listdir(obj)) if os.path.isdir(obj) else []
+        vt = 0
+        if frames:
+            with open(os.path.join(obj, frames[0])) as f:
+                text = f.read()
+            vt = text.count("\nvt ")
+            assert "/" in text.split("\nf ", 1)[1], frames[0]
+        out[name] = {"exit": code, "npz_keys": keys, "finite": finite,
+                     "obj_frames": len(frames), "vt_lines": vt,
+                     "json": json.loads(lines[1])}
+    log(f"phase 12 run_scene_torch: {out}")
+    for rec in out.values():
+        assert rec["npz_keys"] == ["particles_x", "rigid_q", "rigid_x"], rec
+        assert rec["finite"], rec
+    assert out["cloth"]["obj_frames"] == (RUN_SCENE_STEPS - 1) // 8
+    assert out["cloth"]["vt_lines"] > 0
+    return out
+
+
+def run_scene_contact(dev, directory):
+    """Phase 12, the contact stand-in (``bench_torch.write_contact_scene``,
+    3 tet models of 1,280 vertices): ``bench_torch.armadillo_batch`` at B
+    ``ARMADILLO_B``, its rollout 0 against the scene stepped alone as many
+    times (≤ ``BATCH_TOL``); ``bench_torch.mpc_contact`` at its default K
+    and h, ``CONTACT_UPDATES`` updates after a warm-up, finite, overflow 0,
+    and the busy share of one update."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    path = bench_torch.write_contact_scene(directory)
+    t0 = time.perf_counter()
+    scene = bench_torch.load_bench_scene(path, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    out = {"scene": "stand-in of ArmadilloCollisionScene.json (bench_torch."
+                    "write_contact_scene): 3 tet models of 20x8x8 "
+                    "vertices (1,280 and 4,655 tets each) from .node/.ele "
+                    "over a static box floor, collisionObjectType 5",
+           "load_s": load_s, "particles": scene.state.particles.n,
+           "solid_pairs": len(scene.pipeline.solid_pairs)}
+    reset_counts()
+    rec, s, fn, batch = bench_torch.armadillo_batch(
+        path, dev, ARMADILLO_B, ARMADILLO_CALLS, ARMADILLO_STEPS_PER_CALL,
+        scene=scene)
+    counts = read_counts()
+    st = s.state
+    for _ in range(1 + ARMADILLO_CALLS * ARMADILLO_STEPS_PER_CALL):
+        st = fn(st)
+    single = max_dev(batch.particles.x[0], st.particles.x)
+    out["armadillo_batch"] = {**rec, "route": fn.path, "launches": counts,
+                              "rollout0_vs_alone_max_dev": single,
+                              "steps": 1 + ARMADILLO_CALLS
+                              * ARMADILLO_STEPS_PER_CALL}
+    log(f"phase 12 contact: loaded in {load_s!r} s; armadillo batch "
+        f"{out['armadillo_batch']}")
+    assert single <= BATCH_TOL, single
+    assert rec["capacity_overflow"] == 0.0, rec
+    assert all(v == 0 for v in counts.values()), counts
+
+    reset_counts()
+    rec, planner = bench_torch.mpc_contact(path, dev, 256, 10,
+                                           CONTACT_UPDATES, scene=scene)
+    counts = read_counts()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    nominal = torch.zeros((planner.horizon, 3), device=dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        nominal, costs, _ = planner.update(nominal, planner.draw(gen))
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    device = [ev for ev in prof.key_averages()
+              if getattr(ev, "device_type", None) == DeviceType.CUDA]
+    busy_us = sum(ev.self_device_time_total for ev in device)
+    finite = bool(torch.isfinite(costs).all() and torch.isfinite(
+        nominal).all())
+    out["mpc_contact"] = {
+        **rec, "launches": counts, "finite": finite,
+        "device_busy": busy_us / 1e6 / pwall, "device_us_per_update":
+        busy_us, "device_launches_per_update":
+        sum(ev.count for ev in device)}
+    log(f"phase 12 contact mpc: {out['mpc_contact']}")
+    assert finite and rec["capacity_overflow"] == 0.0, rec
+    assert all(v == 0 for v in counts.values()), counts
+    return out
+
+
+def _ulp_spread(fn, state, steps):
+    """A scene's own float32 spread on the card: ``fn`` from ``state``
+    against the same run whose free particles take one float32 step of
+    noise in x after every step, as another rounding order adds (the
+    witness of ``tests/test_torch_scene_cloth_spread.py``), once with the
+    sign alternating and once always the same; the largest particle
+    deviation over the steps and both runs."""
+    free = state.particles.inv_mass > 0
+    out = 0.0
+    for sign in ((lambda i: (-1) ** i), (lambda i: 1)):
+        a = b = state
+        for i in range(steps):
+            a, b = fn(a), fn(b)
+            p = b.particles
+            x = p.x.clone()
+            x[free] = torch.nextafter(x[free], torch.full_like(
+                x[free], sign(i) * math.inf))
+            b = dataclasses.replace(b, particles=dataclasses.replace(p, x=x))
+            out = max(out, max_dev(a.particles.x, b.particles.x))
+    return out
+
+
+def run_scene_cloth(dev, directory, xpbd=False):
+    """Phase 12, the cloth stand-in (``bench_torch.write_cloth_scene``, a
+    51×51 plane OBJ over a baked-SDF sphere), with the loader's default
+    cloth methods or with ``xpbd``: ``SCENE_CHECK_STEPS`` steps on the
+    card against the CPU with equal active particle–rigid rows at every
+    step. The bar is ``SCENE_TOL`` for the XPBD cloth; the default cloth
+    parts from itself by more than that in float32 (JAX's own spread,
+    ``tests/test_torch_scene_cloth_spread.py``), so its bar is the card's
+    own spread over the same steps (:func:`_ulp_spread`) where that is
+    larger. The default cloth then takes ``SCENE_STEPS`` steps with every
+    launch count 0, finite, the static corners exact, the overflow
+    counter recorded. Returns ``(record, scene path)``."""
+    from positionbaseddynamics_tpu_torch.solver import make_step_fn
+
+    path = bench_torch.write_cloth_scene(directory, xpbd=xpbd)
+    t0 = time.perf_counter()
+    s = bench_torch.load_bench_scene(path, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    fn = make_step_fn(s.cset, s.config, dev, pipeline=s.pipeline)
+    cpu = torch.device("cpu")
+    c = bench_torch.load_bench_scene(path, cpu)
+    cfn = make_step_fn(c.cset, c.config, cpu, pipeline=c.pipeline)
+    dx, rows, equal, _ = _card_vs_cpu(
+        fn, cfn, s.state, c.state, SCENE_CHECK_STEPS,
+        lambda st, card: _active_particle_rows(
+            s.pipeline if card else c.pipeline, st))
+    del c, cfn
+    spread = None if xpbd else _ulp_spread(fn, s.state, SCENE_CHECK_STEPS)
+    bar = SCENE_TOL if xpbd else max(SCENE_TOL, spread)
+    pins = s.state.particles.inv_mass == 0
+    rec = {"scene": "stand-in of ClothOnBunny.json (bench_torch."
+                    "write_cloth_scene): a 51x51 plane OBJ, two static "
+                    "corners, over a baked-SDF icosphere; "
+                    + ("XPBD distance and isometric bending" if xpbd else
+                       "the loader's default FEM triangles and classic "
+                       "isometric bending"),
+           "load_s": load_s, "route": fn.path,
+           "particles": s.state.particles.n, "static": int(pins.sum()),
+           "card_vs_cpu_max_dev": dx, "check_steps": SCENE_CHECK_STEPS,
+           "float32_spread": spread, "bar": bar,
+           "active_particle_rows": rows, "active_rows_equal": equal}
+    log(f"phase 12 cloth{' (XPBD)' if xpbd else ''}: {rec}")
+    assert dx <= bar and equal, (dx, bar, rows)
+    assert max(rows) > 0 and int(pins.sum()) == 2, rec
+    if xpbd:
+        return rec, path
+    st, run_s, counts, peak = _counted_run(fn, s.state, SCENE_STEPS)
+    rec.update({
+        "steps": SCENE_STEPS, "steps_s": run_s, "launches": counts,
+        "finite": bool(torch.isfinite(st.particles.x).all()),
+        "corners_exact": bool(torch.equal(st.particles.x[pins],
+                                          s.state.particles.x[pins])),
+        "overflow": st.overflow.item(), "peak_bytes": peak,
+        "final_active_rows": _active_particle_rows(s.pipeline, st)})
+    log(f"phase 12 cloth {SCENE_STEPS} steps: {rec}")
+    assert all(v == 0 for v in counts.values()), counts
+    # no overflow bar: once the cloth drapes the body more than a quarter
+    # of its particles touch it, past the particle-contact compaction's
+    # capacity (JAX's max(512, rows // 4), detection.py:537), and the
+    # counter records the rows dropped, as it does in JAX
+    assert rec["finite"] and rec["corners_exact"], rec
+    assert rec["final_active_rows"] > 0, rec
+    return rec, path
+
+
+def _test_examples():
+    """``tests/test_examples.py`` loaded by path: the JAX demos' checks."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_demo_checks", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tests", "test_examples.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _demo_frames(fn, state, steps, fluid):
+    """The demo's run from its warm-up step, ``steps`` steps, frames every 8
+    (the export of ``examples/torch/_common.py``), with every launch count
+    set to 0 just after the warm-up. Returns ``(frames, counts)``."""
+    st = fn(state)                                # the demo's warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    frames = []
+    for i in range(steps):
+        st = fn(st)
+        if i % 8 == 0:
+            frames.append((st.x if fluid else st.particles.x).cpu().numpy())
+    torch.cuda.synchronize()
+    return np.stack(frames), read_counts()
+
+
+def run_kernel_demos(dev):
+    """Phase 12, the three kernel demos, each built by its ``build(args,
+    device)``. At their defaults: the route ``cuda_kernel``;
+    ``KERNEL_DEMO_CHECK`` steps against the plain versions (≤
+    ``KERNEL_DEMO_TOL``); the demo's 200 steps from its warm-up step with
+    its kernels launched ``KERNEL_DEMO_LAUNCHES`` times a step and the
+    others never, finite. Then at ``tests/test_examples.py``'s arguments
+    the demo's own check on frames every 8 steps, on the card. (At the
+    fluid demo's defaults that check fails in JAX itself: the block's top
+    layer starts on the box's lid and is thrown out of the box, the port
+    with it, ``tests/test_torch_example_fluid_defaults.py``; at the
+    cloth's and the bar's defaults it holds, and is applied there too.)"""
+    from positionbaseddynamics_tpu_torch.fluids import model as fm
+    from positionbaseddynamics_tpu_torch.solver import make_step_fn
+    from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
+
+    checks = _test_examples()
+    test_args = {}
+    for script, argv, check in checks.DEMOS:
+        test_args.setdefault(script[:-3], (argv, check))
+    out = {}
+    for name in ("cloth_demo", "bar_demo", "fluid_demo"):
+        fluid = name == "fluid_demo"
+        argv, check = test_args[name]
+
+        def step_fn(d):
+            if fluid:
+                return fm.make_fluid_step_fn(d.cset, device=dev)
+            return make_step_fn(d.cset, d.cfg, dev)
+
+        d = demo(name, dev)
+        fn = step_fn(d)
+        if fluid:
+            a = b = d.state
+            for _ in range(KERNEL_DEMO_CHECK):
+                a, b = fn(a), fm.fluid_step_reference(b, d.cset)
+            dx = max_dev(a.x, b.x)
+        else:
+            cfg = d.cfg
+            p = d.state.particles
+            a = d.state
+            for _ in range(KERNEL_DEMO_CHECK):
+                a = fn(a)
+            n_sub, h = KERNEL_DEMO_CHECK * cfg.substeps, cfg.dt / cfg.substeps
+            if name == "cloth_demo":
+                x, _ = plain_steps(d.cset.grid_cloths[0], p.x, p.v,
+                                   p.inv_mass, n_sub, h)
+            else:
+                x, v = p.x, p.v
+                for _ in range(n_sub):
+                    x, v = gtc.tet_substep_reference(
+                        d.cset.grid_tets[0], x, v, p.inv_mass, h=h)
+            dx = max_dev(a.particles.x, x)
+        steps = 200                               # the demos' default
+        frames, counts = _demo_frames(fn, d.state, steps, fluid)
+        want = {k: v * steps for k, v in KERNEL_DEMO_LAUNCHES[name].items()}
+        finite = bool(np.isfinite(frames).all())
+        if not fluid:
+            check({"particles": frames})
+        td = demo(name, dev, *argv)
+        tfn = step_fn(td)
+        tsteps = int(argv[argv.index("--steps") + 1])
+        tframes, _ = _demo_frames(tfn, td.state, tsteps, fluid)
+        check({"particles": tframes})
+        rec = {"route": fn.path, "check_steps": KERNEL_DEMO_CHECK,
+               "max_abs_err_vs_plain": dx, "steps": steps,
+               "launches": counts, "finite": finite,
+               "default_check": None if fluid else True,
+               "test_args": argv, "test_args_route": tfn.path,
+               "demo_check": True}
+        if fluid:
+            rec["default_max_abs_xz"] = float(np.abs(frames[-1][:, [0, 2]])
+                                              .max())
+        out[name] = rec
+        log(f"phase 12 {name}: {rec}")
+        assert fn.path == tfn.path == "cuda_kernel", (name, fn.path)
+        assert dx <= KERNEL_DEMO_TOL[name], (name, dx)
+        assert counts == {k: want.get(k, 0) for k in counts}, (name, counts)
+        assert finite, name
+    return out
+
+
+def run_scenes(dev):
+    """Phase 12: slice 8 on the card. The three stand-ins written to a
+    temporary directory and loaded (:func:`run_scene_pile`,
+    :func:`run_scene_contact`, :func:`run_scene_cloth`),
+    ``run_scene_torch.py`` in this process (:func:`run_scene_runner`) and
+    the three kernel demos (:func:`run_kernel_demos`). Returns the record
+    of ``{"scenes": ...}``."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        out = {}
+        t0 = time.perf_counter()
+        out["pile"], pile_path = run_scene_pile(dev, d)
+        torch.cuda.empty_cache()
+        out["cloth"], cloth_path = run_scene_cloth(dev, d)
+        out["cloth_xpbd"], _ = run_scene_cloth(
+            dev, os.path.join(d, "xpbd"), xpbd=True)
+        out["run_scene_torch"] = run_scene_runner(dev, pile_path, cloth_path,
+                                                  d)
+        out.update(run_scene_contact(dev, d))
+        torch.cuda.empty_cache()
+        out["kernel_demos"] = run_kernel_demos(dev)
+        out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 12 took {out['phase_s']!r} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -3052,6 +3289,7 @@ def main() -> int:
     rigid = run_rigid(dev)
     collision = run_collision(dev)
     rods = run_rods(dev)
+    scenes = run_scenes(dev)
 
     kernels = [{
         "name": "cloth_substep",
@@ -3160,6 +3398,7 @@ def main() -> int:
     print(json.dumps({"rigid": rigid}))
     print(json.dumps({"collision": collision}))
     print(json.dumps({"rods": rods}))
+    print(json.dumps({"scenes": scenes}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,7 @@ Ported so far (slice 1, the 320×320 XPBD cloth step; slice 2, the
 80×36×36 XPBD FEM-tet bar; slice 3, the 100k PBF breaking dam; slice 4,
 the general unstructured solver; slice 5, the sampling planner; slice 6a,
 rigid bodies and joints; slice 6b, collision; slice 7, rods and generic
-constraints):
+constraints; slice 8, scene I/O and the app layer):
 
 * ``ops/integration.py`` — semi-implicit Euler, the rigid rotation step
   and the velocity updates;
@@ -60,6 +60,12 @@ constraints):
   passes as hand-written CUDA kernels (``cellgrid_cuda.py`` +
   ``csrc/pbf_cells.cu``), JAX's occupancy classes (``classgrid.py``,
   plain PyTorch), and ``FluidScene`` / ``make_fluid_step_fn``;
+* ``scene/`` — the reference's JSON scene format loaded and built on
+  the card (``load_scene``, ``load_scene_dict``, ``LoadedScene``);
+  ``utils/`` — the OBJ/PLY/TetGen loaders (numpy copies), checkpoints in
+  JAX's npz layout, phase timers and the log sinks; ``models/
+  skinning.py`` — vis-mesh skinning of tet models; ``models/mesh.py`` —
+  face and vertex normals;
 * ``mpc/`` — control models, cost terms, MPPI, CEM and the
   receding-horizon controller over K rollouts stepped as one batched
   state, through the cloth kernel at ``n_batch = K`` on the card, and
@@ -69,6 +75,7 @@ Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without CUDA they raise rather than run on the CPU.
 """
 
-from . import collision, convert, fluids, models, mpc, ops, solver, utils
+from . import (collision, convert, fluids, models, mpc, ops, scene, solver,
+               utils)
 
 __version__ = "0.1.0"

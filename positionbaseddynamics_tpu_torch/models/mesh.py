@@ -1,7 +1,8 @@
 """Host-side mesh topology (numpy) — a copy of the topology classes of
 ``positionbaseddynamics_tpu/models/mesh.py`` (``IndexedFaceMesh``,
 ``IndexedTetMesh``): edge, adjacency and surface extraction, run once at
-scene-build time. Edge order is face-major first-occurrence, as in the
+scene-build time, and the deformed meshes' face and vertex normals in
+torch. Edge order is face-major first-occurrence, as in the
 reference's per-face enumeration.
 """
 from __future__ import annotations
@@ -9,6 +10,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 
 def _unique_edges(halfedges: np.ndarray):
@@ -113,3 +115,46 @@ class TetMesh:
             return_counts=True)
         surface = counts[inv.reshape(-1)[first_idx]] == 1
         self.surface_faces = tris[first_idx[surface]].astype(np.int32)
+
+
+def _faces(faces, device):
+    if isinstance(faces, torch.Tensor):
+        return faces.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(faces, np.int64), device=device)
+
+
+def face_normals(x, faces):
+    """Per-face unit normals of deformed vertex positions ``x (..., N, 3)``
+    (``mesh.py:128-145``; ``IndexedFaceMesh::updateNormals``,
+    ``Utils/IndexedFaceMesh.h:96-121``): ``(..., F, 3)``. As in the
+    reference, degenerate faces (normalized cross product with squared norm
+    < 1e-6) get the UnitX fallback normal."""
+    f = _faces(faces, x.device)
+    a = x[..., f[:, 0], :]
+    n = torch.linalg.cross(x[..., f[:, 1], :] - a, x[..., f[:, 2], :] - a,
+                           dim=-1)
+    l2 = torch.sum(n * n, dim=-1, keepdim=True)
+    n = torch.where(l2 < 1e-24, torch.zeros_like(n),
+                    n / torch.sqrt(torch.clamp_min(l2, 1e-30)))
+    degenerate = torch.sum(n * n, dim=-1, keepdim=True) < 1e-6
+    unit_x = torch.zeros_like(n)
+    unit_x[..., 0] = 1.0
+    return torch.where(degenerate, unit_x, n)
+
+
+def vertex_normals(x, faces, n_vertices=None):
+    """Per-vertex unit normals ``(..., n_vertices, 3)`` (``mesh.py:
+    148-161``; ``IndexedFaceMesh::updateVertexNormals``,
+    ``Utils/IndexedFaceMesh.h:123-146``): each incident face adds its unit
+    normal regardless of area, then the sum is normalized."""
+    if n_vertices is None:
+        n_vertices = x.shape[-2]
+    f = _faces(faces, x.device)
+    fn = face_normals(x, f)
+    vn = torch.zeros(x.shape[:-2] + (n_vertices, 3), dtype=x.dtype,
+                     device=x.device)
+    for k in range(3):
+        vn = vn.index_add(-2, f[:, k], fn)
+    l2 = torch.sum(vn * vn, dim=-1, keepdim=True)
+    return torch.where(l2 < 1e-24, torch.zeros_like(vn),
+                       vn / torch.sqrt(torch.clamp_min(l2, 1e-30)))

@@ -87,15 +87,24 @@ def test_without_cuda_it_exits_non_zero_and_prints_nothing():
     assert "CUDA is not available" in out.stderr
 
 
-@pytest.mark.parametrize("flag,names", [
-    ("--check", "no kernel"), ("--pile", "PileScene.json"),
-    ("--scene", "slice 8"),
-    ("--armadillo-batch", "ArmadilloCollisionScene.json"),
-    ("--mpc-contact", "slice 8")])
-def test_check_on_cpu_and_unported_modes_exit_2(capsys, flag, names):
-    assert bench_torch.main(SMALL + [flag]) == 2
+@pytest.mark.parametrize("flags,names", [
+    (["--check"], "no kernel"), (["--pile"], "PileScene.json"),
+    (["--pile", "--scene", "absent/Scene.json"], "absent/Scene.json"),
+    (["--armadillo-batch"], "ArmadilloCollisionScene.json"),
+    (["--mpc-contact"], "ArmadilloCollisionScene.json")],
+    ids=["--check-no kernel", "--pile-PileScene.json", "--scene-slice 8",
+         "--armadillo-batch-ArmadilloCollisionScene.json",
+         "--mpc-contact-slice 8"])
+def test_check_on_cpu_and_unported_modes_exit_2(capsys, flags, names):
+    """``--check`` on the CPU, and the scene-file modes without their file
+    (the shipped scenes are not in the repository; ``--scene`` names
+    another): exit 2, naming the missing file, with or without CUDA."""
+    assert bench_torch.main(SMALL + flags) == 2
     out = capsys.readouterr()
     assert out.out == "" and names in out.err
+    assert "slice" not in out.err
+    if flags[0] != "--check":
+        assert bench_torch.main(flags) == 2       # before the device check
 
 
 def test_there_is_no_fuse_flag():
@@ -116,3 +125,81 @@ def test_mpc_big_update_at_one_rollout_leaves_the_start_state_alone():
     assert torch.equal(planner.x0, x0)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def test_scene_takes_a_path():
+    args = bench_torch.parser().parse_args(["--pile", "--scene", "a.json"])
+    assert args.pile and args.scene == "a.json"
+    args = bench_torch.parser().parse_args(["--armadillo-batch"])
+    assert args.scene is None and bench_torch._scene_path(args) == \
+        bench_torch.CONTACT_SCENE
+
+
+def test_pile_on_the_stand_in(capsys, tmp_path):
+    """``--pile --scene`` on the PileScene stand-in: its 34 bodies load as
+    28 (6 of a missing mesh skipped, 2 dynamic) and the mode prints
+    ``scene_PileScene_steps_per_s``."""
+    path = bench_torch.write_pile_scene(str(tmp_path))
+    with pytest.warns(UserWarning, match="missing geometry"):
+        assert bench_torch.main(SMALL + ["--pile", "--scene", path]) == 0
+    rec = json.loads(capsys.readouterr().out.strip())
+    assert rec["metric"] == "scene_PileScene_steps_per_s"
+    assert math.isfinite(rec["value"]) and rec["value"] > 0
+    assert rec["path"] == "torch_rigid" and rec["capacity_overflow"] == 0.0
+    with open(path) as f:
+        assert len(json.load(f)["RigidBodies"]) == 34
+    with pytest.warns(UserWarning):
+        s = bench_torch.load_bench_scene(path, torch.device("cpu"))
+    assert (len(s.rigid_ids), len(s.skipped_bodies)) == (28, 6)
+    assert int((s.state.rigid.inv_mass > 0).sum()) == 2
+
+
+@pytest.mark.parametrize("mode,metric", [
+    (["--armadillo-batch", "--batch", "3"],
+     "armadillo_batch3_steps_per_s_per_rollout"),
+    (["--mpc-contact"] + MPC, "mppi_contact_scene_updates_per_s_k4_h5")],
+    ids=["armadillo_batch", "mpc_contact"])
+def test_contact_modes_on_a_tiny_stand_in(capsys, tmp_path, mode, metric):
+    path = bench_torch.write_contact_scene(str(tmp_path), dims=(4, 2, 2))
+    assert bench_torch.main(SMALL + mode + ["--scene", path]) == 0
+    rec = json.loads(capsys.readouterr().out.strip())
+    assert rec["metric"] == metric and rec["capacity_overflow"] == 0.0
+    assert math.isfinite(rec["value"]) and rec["value"] > 0
+    assert rec["aggregate_steps_per_s"] > 0 and rec["path"] == "torch_rigid"
+
+
+def test_armadillo_batch_rollouts_equal_the_scene_alone(tmp_path):
+    """Each rollout of the batch is the scene stepped alone."""
+    path = bench_torch.write_contact_scene(str(tmp_path), dims=(4, 2, 2))
+    cpu = torch.device("cpu")
+    _, s, fn, batch = bench_torch.armadillo_batch(path, cpu, 2, 1, 3)
+    st = s.state
+    for _ in range(4):
+        st = fn(st)
+    for k in range(2):
+        assert torch.equal(batch.particles.x[k], st.particles.x)
+
+
+def test_stand_in_files_have_the_shipped_structure(tmp_path):
+    """The contact stand-in's models are 20×8×8 tet grids (1,280 vertices,
+    4,655 tets, close to the armadillo's 1,180 vertices), three of them
+    with ``collisionObjectType`` 5; the cloth's plane is 51×51 vertices of
+    quads with texture coordinates."""
+    from positionbaseddynamics_tpu_torch.utils import load_obj, load_tetgen
+
+    path = bench_torch.write_contact_scene(str(tmp_path))
+    with open(path) as f:
+        data = json.load(f)
+    assert len(data["TetModels"]) == 3
+    assert all(m["collisionObjectType"] == 5 for m in data["TetModels"])
+    models = tmp_path / "models"
+    verts, tets = load_tetgen(str(models / "bar.node"),
+                              str(models / "bar.ele"))
+    assert verts.shape == (1280, 3) and tets.shape == (4655, 4)
+    bench_torch.write_cloth_scene(str(tmp_path))
+    plane = load_obj(str(models / "plane.obj"))
+    assert plane["vertices"].shape == (51 * 51, 3)
+    assert plane["faces"].shape == (2 * 50 * 50, 3)
+    assert plane["uv_indices"].shape == (2 * 50 * 50, 3)
+    sphere = load_obj(str(models / "sphere.obj"))
+    assert sphere["faces"].shape == (1280, 3)

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of
-``positionbaseddynamics_tpu_torch`` loads neither ``jax`` nor the JAX
-package, and no source of the port (nor ``chip_smoke.py`` or
-``bench_torch.py``) imports them."""
+``positionbaseddynamics_tpu_torch``, ``run_scene_torch.py`` and the demos
+of ``examples/torch/`` loads neither ``jax`` nor the JAX package, and no
+source of the port (nor ``chip_smoke.py``, ``bench_torch.py``,
+``run_scene_torch.py`` or ``examples/torch/*.py``) imports them."""
 import ast
 import pkgutil
 import subprocess
@@ -40,7 +41,9 @@ def test_port_has_the_slice_modules():
                  "collision.detection", "collision.batched",
                  "collision.contacts", "collision.solid", "ops.rods",
                  "ops.ghost_rods", "ops.generic", "solver.grid_rods",
-                 "solver.direct_rods"):
+                 "solver.direct_rods", "scene", "scene.loader",
+                 "utils.loaders", "utils.timing", "utils.log",
+                 "utils.checkpoint", "models.skinning"):
         assert f"positionbaseddynamics_tpu_torch.{name}" in mods, name
 
 
@@ -67,8 +70,30 @@ def _imports(path):
             yield node.module or ""
 
 
+EXAMPLES = ROOT / "examples" / "torch"
+
+
+def test_importing_the_scene_runner_and_demos_loads_no_jax():
+    code = (
+        "import importlib.util, sys\n"
+        f"sys.path[:0] = [{str(ROOT)!r}, {str(EXAMPLES)!r}]\n"
+        "import run_scene_torch\n"
+        f"for p in {[str(p) for p in sorted(EXAMPLES.glob('*.py'))]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('m', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert len(list(EXAMPLES.glob("*_demo.py"))) == 15
+
+
 @pytest.mark.parametrize("path", sorted(PORT_DIR.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"],
+                         + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
+                            ROOT / "run_scene_torch.py"]
+                         + sorted(EXAMPLES.glob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_nothing_of_jax(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
