@@ -20,8 +20,10 @@ one-line JSON shape with ``bench.py``'s metric names.
 Every line carries ``metric``, ``value``, ``unit`` and ``vs_baseline``
 (the mode's steps/s per rollout, or ``--mpc-big``'s rollout-steps/s, over
 the north-star 60 steps/s, as ``bench.py`` computes it), the extra keys that
-``bench.py`` prints for the mode, ``"path"`` (``"cuda_per_substep"``: the
-fused cloth substep, one launch per substep; ``"cuda_kernel"``: the
+``bench.py`` prints for the mode, ``"path"`` (``"cuda_fused"``: the cloth
+kernel with a step's substeps fused into one launch, ``bench.py``'s
+default; ``"cuda_per_substep"``: one launch a substep, ``--no-fuse`` and
+``--mpc-big``; ``"cuda_kernel"``: the
 bar's and the dam's kernels; a ``"torch_..."`` name for the plain
 routes; ``"batched_broadphase"``: ``--pile-big``'s, ``"rod_lattice"``
 or ``"unstructured"``: ``--rods``', ``"tree_scheduled"``: ``--tree``'s,
@@ -39,9 +41,9 @@ check there and exits 2. The scene-file modes read
 repository, so without ``--scene`` they exit 2 and name the missing file.
 ``write_pile_scene``, ``write_contact_scene`` and ``write_cloth_scene``
 write stand-ins of the shipped scenes' structure and size, meshes
-included. There is no ``--fuse``: the port's cloth kernel runs one launch per
-substep, and fusing substeps into one launch (``bench.py``'s default) is
-queued (ROADMAP queue B, B1).
+included. ``--fuse`` (the default) and ``--no-fuse`` choose the cloth
+kernel's mode for the default cloth mode, ``--batch`` and ``--check``, as
+in ``bench.py``.
 
 The bench scenes (``cloth_scene``, ``bar_scene``, ``dam_scene``,
 ``pile_scene``, the planners' cloth, the stand-in scene files) and the
@@ -513,7 +515,8 @@ def bench_cloth(args, dev):
     state, cset = cloth_scene(args.width, args.height, dev)
     cfg = StepConfig()
     step = cloth_step_fn(cset.grid_cloths[0], state.particles.inv_mass, cfg,
-                         dev, n_batch=args.batch, n_steps=args.steps_per_call)
+                         dev, n_batch=args.batch, n_steps=args.steps_per_call,
+                         fuse_substeps=args.fuse)
     x, v = state.particles.x, state.particles.v
     if args.batch > 1:
         x = x.expand(args.batch, *x.shape).contiguous()
@@ -533,7 +536,8 @@ def bench_cloth(args, dev):
     return _record(
         dev, f"xpbd_cloth_{args.width * args.height // 1000}k_steps_per_s"
         + (f"_b{args.batch}" if args.batch > 1 else ""), sps, "steps/s",
-        "cuda_per_substep" if dev.type == "cuda" else "torch_plain",
+        ("cuda_fused" if args.fuse else "cuda_per_substep")
+        if dev.type == "cuda" else "torch_plain",
         **extra)
 
 
@@ -1013,7 +1017,8 @@ def check(args, dev):
     cfg = StepConfig()
     state, cset = cloth_scene(args.width, args.height, dev)
     p, gc = state.particles, cset.grid_cloths[0]
-    xk, _ = cloth_step_fn(gc, p.inv_mass, cfg, dev, n_steps=10)(p.x, p.v)
+    xk, _ = cloth_step_fn(gc, p.inv_mass, cfg, dev, n_steps=10,
+                          fuse_substeps=args.fuse)(p.x, p.v)
     x, _ = plain_steps(gc, p.x, p.v, p.inv_mass,
                                   10 * cfg.substeps, cfg.dt / cfg.substeps)
     record("cloth", xk, x)
@@ -1071,6 +1076,11 @@ def parser():
     ap.add_argument("--tree", action="store_true",
                     help="the stiff-rod tree (bench.py --rods --tree)")
     ap.add_argument("--check", action="store_true")
+    ap.add_argument("--fuse", dest="fuse", action="store_true", default=True,
+                    help="run a step's cloth substeps in one kernel launch "
+                         "(default, as bench.py)")
+    ap.add_argument("--no-fuse", dest="fuse", action="store_false",
+                    help="one cloth kernel launch a substep")
     ap.add_argument("--pile", action="store_true",
                     help="a scene file played headless (PileScene.json "
                          "under data/scenes/ unless --scene is given)")

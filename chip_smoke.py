@@ -65,8 +65,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    bar, its tip driven, through the tet kernel at ``n_batch = K`` against
    the stencil route on the CPU (costs within 1e-5 relative, the nominal
    within 1e-5);
-   then ``bench_torch.py``'s ``--mpc``, ``--check`` and default modes in
-   this process, their JSON lines printed as they come;
+   then ``bench_torch.py``'s ``--mpc``, ``--check``, default (fused
+   cloth) and ``--no-fuse`` modes in this process, their JSON lines
+   printed as they come;
 8. the unstructured route (slice 4) at full width, no kernel of the port
    on it: U1, the bench cloth, and U2, the bench bar, each built by
    ``SceneBuilder(use_structured_grid=False)`` as particle batches
@@ -88,16 +89,18 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    rollouts with no host sync, updates/s and rollout-steps/s, busy share,
    peak device memory and the top five device operations; then
    ``joint_demo.py``, ``sbt_demo.py`` and ``coupling_demo.py`` built on the
-   card, 20 steps against the CPU (≤ 1e-4) and 200 steps with every launch
-   count 0, each joint's residual at the end; printed as one
+   card, 20 steps against the CPU (≤ 1e-4) and ``RIGID_DEMO_STEPS`` (50)
+   steps with every launch count 0, each joint's residual at the end;
+   printed as one
    ``{"rigid": ...}`` line before the ``kernels`` line;
 10. collision (slice 6b), no kernel of the port on its path: P1,
     ``bench.py --pile-big`` at its default (100 spheres on a box floor,
     the batched broad phase) through ``bench_torch.pile_scene`` →
     ``make_step_fn(pipeline=)``: the build's seconds and the route, 20
     steps on the card against the CPU (≤ 1e-4) with the active contact
-    count equal at every step, one step with no host sync, 200 steps with
-    every launch count 0, overflow 0, finite, every centre at or above
+    count equal at every step, one step with no host sync, ``PILE_STEPS``
+    (50) steps with every launch count 0, overflow 0, finite, every centre
+    at or above
     the floor top + r − 0.05; steps/s, busy share, device launches and µs
     a step, peak memory and the top five device operations; then the
     three collision examples (cloth, rigid and deformable) built on the
@@ -115,21 +118,47 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     --rods`` at its default (1024 rods of 51 points on the rod lattice):
     the build's seconds and the route, 10 steps against the same rods as
     the unstructured batches on the card (≤ 2e-5 in positions and in
-    sign-folded quaternions) and against the CPU (≤ 1e-4), 200 steps with
-    every launch count 0, finite, the pinned particles exact and the pinned
+    sign-folded quaternions) and against the CPU (≤ 1e-4), ``ROD_STEPS``
+    (50) steps with every launch count 0, finite, the pinned particles
+    exact and the pinned
     frames where their first renormalisation put them, unit quaternions
     (1e-4), one step with no host sync, steps/s, rod-steps/s, busy share,
     device launches and µs a step, peak memory and the top five device
     operations; ``bench.py --rods --tree`` at its default (a random tree of
     101 stiff-rod segments, the scheduled elimination): against the dense
-    solve over 20 steps (≤ 2e-4) and against the CPU (≤ 1e-4), 200 steps,
-    the same counters; the rod examples (the Cosserat helix, the
-    ghost-point rod, the stiff-rod chain and Y-tree, the two generic
-    demos with their constraint functions written in torch here), each 20
-    steps against the CPU (≤ 1e-4) and its full length with its own
-    check; MPPI at K 64, h 5 over 16 lattice rods, one rod's free end
+    solve over 20 steps (≤ 2e-4) and against the CPU (≤ 1e-4),
+    ``ROD_STEPS`` steps, the same counters; the rod examples (the Cosserat
+    helix, the ghost-point rod, the stiff-rod chain and Y-tree, the two
+    generic demos with their constraint functions written in torch here),
+    each 20 steps against the CPU (≤ 1e-4) and its full length with its
+    own check; MPPI at K 64, h 5 over 16 lattice rods, one rod's free end
     driven, rollouts 0, 21, 42 and 63 against themselves alone (≤ 1e-6);
-    printed as one ``{"rods": ...}`` line before the ``kernels`` line.
+    printed as one ``{"rods": ...}`` line before the ``kernels`` line;
+12. scene I/O (slice 8): the three stand-in scenes written and loaded
+    (:func:`run_scenes`; the pile and the cloth over ``SCENE_STEPS`` (50)
+    counted steps), ``run_scene_torch.py`` and the kernel demos; one
+    ``{"scenes": ...}`` line;
+13. parallelism (slice 9) and B1's fused and row-window modes
+    (:func:`run_parallel`): B1 fused (a step's 5 substeps in one launch) at
+    ``n_batch`` 1, 4 and 256 over 10 steps against the per-substep kernel
+    (x 2e-6, v 2e-4, JAX's bar, and whether bit for bit) and its plain
+    version (1e-5), one launch a step, its time a launch beside 5
+    per-substep launches and its bound; 4 ranks in this process, each a
+    window of 80 + 2·18 rows of the 320×320 cloth at ``80r − 18`` stepped
+    by the fused window kernel, the kept rows stitched against the
+    unsharded fused step (1e-6) over 10 steps, each window against its
+    plain version (1e-5); ``make_cloth_step(fuse_substeps=True)`` over 200
+    steps with the launch counts set to 0 before and read after (200
+    fused launches); then at world size 1 through NCCL (an in-process
+    ``HashStore``) ``intra_cuda`` against the unsharded fused step (1e-6,
+    10 steps) and over 200 counted steps (200 window launches),
+    ``intra_grid`` against ``make_step_fn`` (2e-5, 20 steps), the rollout
+    shard at 256 rollouts against the unsharded batched step bit for bit,
+    ``intra`` on the unstructured cloth against ``make_step_fn`` (1e-5, 10
+    steps), and steps/s of each; one ``{"parallel": ...}`` line.
+
+Each phase's seconds are logged as it ends and printed as one
+``{"phase_s": ...}`` line before the ``kernels`` line.
 
 The build log's ``-Xptxas -v`` lines are printed per ``__global__`` and
 template instance (registers, shared memory, spills), and for the cloth
@@ -144,8 +173,11 @@ highest window.
 
 Prints one ``{"unstructured": {...}}`` line (phase 8), one ``{"rigid":
 {...}}`` line (phase 9), one ``{"collision": {...}}`` line (phase 10),
-one ``{"rods": {...}}`` line (phase 11), one ``{"kernels": [...]}`` JSON
-line, the card's name and power limit, and as
+one ``{"rods": {...}}`` line (phase 11), one ``{"scenes": {...}}`` line
+(phase 12), one ``{"parallel": {...}}`` line (phase 13), the
+``{"phase_s": {...}}`` line, one ``{"kernels": [...]}`` JSON line (the
+cloth kernel's per-substep, fused and row-window modes as three entries),
+the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits 1 and prints no result.
 """
@@ -178,11 +210,13 @@ STEPS_MAIN = 200
 CHECK_TOL = 1e-5                # bench.py --check bar, kernel vs plain
 BATCH_TOL = 1e-6                # a batch's rollout vs the single rollout
 WINDOW_S = 1.0                  # least length of one timed window
-N_WINDOWS = 5                   # timed windows per rate
+N_WINDOWS = 3                   # timed windows per rate
 U_TOL = 1e-4                    # BASELINE.md end-to-end bar: unstructured
 U_CHECK_STEPS = 10              # route vs the kernel route of its scene
-U_STEPS = 50                    # phase 8's counted run, steps
-U_PROFILE_STEPS = 10            # phase 8's steps under the profiler
+U_STEPS = 20                    # phase 8's counted run, steps
+# steps under the profiler: reading back a step's tens of thousands of
+# events (U2, the tree) takes the host seconds, so two steps a profile
+U_PROFILE_STEPS = 2             # phase 8's steps under the profiler
 # phase 9, R1: MPPI over the chain demo (bench.py --mpc-samples/--mpc-horizon
 # defaults), and the rigid demos
 R1_LINKS = 8                    # examples/chain_demo.py --links default
@@ -194,7 +228,7 @@ R1_UPDATES = 2                  # counted updates after one warm-up
 R1_CPU_TOL = 1e-4               # one rollout, card vs the port on the CPU
 R1_SINGLES = 4                  # rollouts replayed alone
 R1_SINGLE_TOL = 1e-6            # a rollout of K vs the same one alone
-RIGID_DEMO_STEPS = 200
+RIGID_DEMO_STEPS = 50
 RIGID_DEMO_CHECK = 20           # card vs CPU steps of each demo
 RIGID_DEMO_TOL = 1e-4
 # phase 10: collision. P1, bench.py --pile-big at its default; the three
@@ -203,8 +237,8 @@ RIGID_DEMO_TOL = 1e-4
 PILE_BODIES = 100
 PILE_CHECK_STEPS = 20           # card vs CPU steps, bar PILE_TOL
 PILE_TOL = 1e-4
-PILE_STEPS = 200
-PILE_PROFILE_STEPS = 10
+PILE_STEPS = 50
+PILE_PROFILE_STEPS = 2
 PILE_FLOOR_TOP = 0.5            # the (6, 1, 6) box at y -0.5
 PILE_RADIUS = 0.25
 COLLISION_DEMO_CHECK = 20       # card vs CPU steps of each demo
@@ -215,7 +249,7 @@ C1_SINGLES = (0, C1_K - 1)      # rollouts replayed alone
 # phase 12: scene I/O, the loaded stand-ins (bench_torch.write_*_scene)
 SCENE_CHECK_STEPS = 20          # card vs CPU steps, bar SCENE_TOL
 SCENE_TOL = 1e-4
-SCENE_STEPS = 200
+SCENE_STEPS = 50
 PILE_LOADED, PILE_SKIPPED, PILE_DYNAMIC = 28, 6, 2
 PILE_FLOOR_Y = 0.0              # the stand-in's floor top
 PILE_BODY_R = 0.35              # its dynamic bodies' radius
@@ -232,6 +266,20 @@ KERNEL_DEMO_LAUNCHES = {
     "bar_demo": {"tet_substep": 5},
     "fluid_demo": {"pbf_density_lambda": 5, "pbf_corrections": 5,
                    "pbf_xsph": 1}}
+# phase 13: parallelism (slice 9) and B1's fused and row-window modes
+PAR_STEPS = 10                  # steps of each mode's and module's check
+PAR_BATCHES = (1, 4, 256)       # n_batch of the fused checks
+PAR_TIMED = {1: 200, 4: 100, 256: 4}   # launches a timing at each n_batch
+FUSED_TOL = (2e-6, 2e-4)        # fused vs per-substep kernel, x and v: JAX's
+#                                 bar, tests/test_grid_cloth_pallas.py:80-103
+PAR_PLAIN_CHUNK = 64            # rollouts per piece of the plain replay
+WINDOW_RANKS = 4                # in-process row windows of the bench cloth
+WINDOW_TOL = 1e-6               # stitched windows vs the unsharded fused step
+INTRA_GRID_STEPS = 20
+INTRA_GRID_TOL = 2e-5           # tests/test_intra_sharding.py's bar
+INTRA_TOL = 1e-5
+DP_ROLLOUTS = 256
+PAR_MAIN_STEPS = 200            # counted steps of each phase-13 main path
 # phase 3, C-1: B2 at a rollout axis
 TET_BATCH = 4                   # B2's n_batch check on the bench bar
 TET_BATCH_JITTER = 0.01         # seeded jitter of free x, second case
@@ -246,8 +294,8 @@ SPHERE_CLOTH_N = 12
 RODS = 1024                     # bench.py --rod-batch default
 ROD_UNSTRUCTURED_TOL = 2e-5     # lattice vs the batches, tests/test_grid_rods
 ROD_CHECK_STEPS = 10            # lattice vs batches, card vs CPU
-ROD_STEPS = 200
-ROD_PROFILE_STEPS = 10
+ROD_STEPS = 50
+ROD_PROFILE_STEPS = 2
 TREE_TOL = 2e-4                 # scheduled vs dense, tests/test_stiff_rods
 TREE_CHECK_STEPS = 20
 ROD_DEMO_CHECK = 20             # card vs CPU steps of each rod demo
@@ -360,8 +408,13 @@ def demo(name, dev, *argv):
     return _common().build_demo(_example(name), argv, dev)
 
 
+_T0 = time.perf_counter()
+
+
 def log(*args):
-    print(*args, flush=True)
+    """Print a log line, stamped with the seconds since the script
+    started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s]", *args, flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -418,6 +471,8 @@ def kernel_counters():
     from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
 
     return {"cloth_substep": gcc.cloth_substep_cuda,
+            "cloth_substep_fused": gcc.cloth_fused_cuda,
+            "cloth_substep_window": gcc.cloth_window_cuda,
             "tet_substep": gtc.tet_substep_cuda,
             "pbf_density_lambda": fcc.density_lambda_cuda,
             "pbf_corrections": fcc.corrections_cuda,
@@ -1698,7 +1753,7 @@ def run_bench_modes():
 
     out = {}
     for name, argv in (("mpc", ["--mpc"]), ("check", ["--check"]),
-                       ("default", [])):
+                       ("default", []), ("no_fuse", ["--no-fuse"])):
         code, records = bench_torch.run(argv)
         for r in records:
             print(json.dumps(r), flush=True)
@@ -3234,6 +3289,336 @@ def run_scenes(dev):
     return out
 
 
+def fused_bound(nb, rows=GRID, substeps=5):
+    """The least time of one fused launch of ``substeps`` substeps of
+    ``nb`` rollouts of a ``rows``×``GRID`` cloth: its state read and
+    written once (w, icd and icb read once for all rollouts) against its
+    operations. Returns ``(ms, "bytes" or "operations")``."""
+    n_part = nb * rows * GRID
+    t_bytes = 4 * (12 * n_part + 3 * rows * GRID) / H100_BYTES_PER_S * 1e3
+    t_ops = (substeps * (FLOPS_FIXED + FLOPS_PER_ITERATION) * n_part
+             / H100_FP32_FLOPS * 1e3)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def check_fused(dev, gc, p, nb):
+    """Phase 13a: B1 fused at ``n_batch`` ``nb`` on the bench cloth over
+    ``PAR_STEPS`` steps (rollouts set apart by their start velocities):
+    one launch a step, against the per-substep kernel (``FUSED_TOL``, and
+    whether bit for bit) and against the plain version (``CHECK_TOL``);
+    then the fused launch's time beside 5 per-substep launches and its
+    bound."""
+    from positionbaseddynamics_tpu_torch.solver import grid_cloth_cuda as gcc
+
+    x = p.x.expand(nb, *p.x.shape).clone()
+    v = torch.zeros_like(x)
+    v[..., 2] = 0.05 * torch.arange(nb, device=dev)[:, None] / max(nb - 1, 1)
+    if nb == 1:
+        x, v = x[0], v[0]
+
+    def step(fuse):
+        return gcc.make_cloth_step(gc, p.inv_mass, gc.inv_cnt_dist,
+                                   gc.inv_cnt_bend, dt=0.005, substeps=5,
+                                   n_batch=nb, fuse_substeps=fuse)
+
+    fused, per = step(True), step(False)
+    before = gcc.cloth_fused_cuda.launches
+    xf, vf, xs, vs = x, v, x, v
+    for _ in range(PAR_STEPS):
+        xf, vf = fused(xf, vf)
+        xs, vs = per(xs, vs)
+    launches = gcc.cloth_fused_cuda.launches - before
+    plain_dx = 0.0
+    for lo in range(0, nb, PAR_PLAIN_CHUNK):
+        sl = slice(lo, lo + PAR_PLAIN_CHUNK)
+        xc, vc = (x, v) if nb == 1 else (x[sl], v[sl])
+        xr, _ = plain_steps(gc, xc, vc, p.inv_mass, 5 * PAR_STEPS, 0.001)
+        plain_dx = max(plain_dx, max_dev(xf if nb == 1 else xf[sl], xr))
+        del xr
+    torch.cuda.synchronize()
+    out = {"launches": launches, "vs_per_substep_max_dx": max_dev(xf, xs),
+           "vs_per_substep_max_dv": max_dev(vf, vs),
+           "bit_equal_per_substep": bool(torch.equal(xf, xs)
+                                         and torch.equal(vf, vs)),
+           "plain_max_abs_err": plain_dx,
+           "finite": bool(torch.isfinite(xf).all()
+                          and torch.isfinite(vf).all())}
+    del xs, vs, fused, per
+
+    params = gcc.kernel_params(gc, h=0.001)
+    w = p.inv_mass.reshape(GRID, GRID)
+    icd = gc.inv_cnt_dist.reshape(GRID, GRID).contiguous()
+    icb = gc.inv_cnt_bend.reshape(GRID, GRID).contiguous()
+    buf = [gcc.to_planes(x, GRID, GRID), gcc.to_planes(v, GRID, GRID)]
+
+    def fused_launch():
+        buf[:] = gcc.cloth_fused_cuda(buf[0], buf[1], w, icd, icb, params,
+                                      1, 5)
+
+    def substep_launch():
+        buf[:] = gcc.cloth_substep_cuda(buf[0], buf[1], w, icd, icb, params)
+
+    for key, fn in (("ms", fused_launch), ("substep_ms", substep_launch)):
+        kms = device_ms(fn, PAR_TIMED[nb], "cloth_substep_kernel")
+        out[key] = (cuda_time_ms(fn, PAR_TIMED[nb]) if kms is None
+                    else kms)
+        out[key + "_source"] = "cuda events" if kms is None else "profiler"
+    out["five_substeps_ms"] = 5 * out["substep_ms"]
+    if nb == 1:                 # the plain version of one fused launch
+        out["plain_ms"] = cuda_time_ms(
+            lambda: plain_steps(gc, x, v, p.inv_mass, 5, 0.001), 3)
+    out["bound_ms"], out["bound_by"] = fused_bound(nb)
+    out["substep_bound_ms"] = 5 * fused_bound(nb, substeps=1)[0]
+    log(f"phase 13 fused B1 at n_batch {nb}: {out}")
+    assert launches == PAR_STEPS, launches
+    assert out["finite"]
+    assert out["vs_per_substep_max_dx"] <= FUSED_TOL[0], out
+    assert out["vs_per_substep_max_dv"] <= FUSED_TOL[1], out
+    assert plain_dx <= CHECK_TOL, plain_dx
+    return out
+
+
+def check_windows(dev, gc, p):
+    """Phase 13b: ``WINDOW_RANKS`` ranks in this process, each a window of
+    R + 2·exch rows of the bench cloth cut at ``r·R − exch`` (zeros beyond
+    the cloth) and stepped by the fused window kernel, re-cut from the
+    stitched kept rows after every step, ``PAR_STEPS`` steps: the kept rows
+    against the unsharded fused step (``WINDOW_TOL``), each window against
+    its plain version (``CHECK_TOL``); the window launch's time beside its
+    plain version and its bound."""
+    from positionbaseddynamics_tpu_torch.parallel import intra_cuda
+    from positionbaseddynamics_tpu_torch.solver import StepConfig
+    from positionbaseddynamics_tpu_torch.solver import grid_cloth_cuda as gcc
+    from positionbaseddynamics_tpu_torch.solver.grid_window import (
+        window_substeps_reference)
+
+    r_loc = GRID // WINDOW_RANKS
+    exch = intra_cuda.exchange_rows(StepConfig())
+    rows = r_loc + 2 * exch
+    params = gcc.kernel_params(gc, h=0.001)
+    planes = [p.inv_mass.reshape(GRID, GRID, 1),
+              gc.inv_cnt_dist.reshape(GRID, GRID, 1),
+              gc.inv_cnt_bend.reshape(GRID, GRID, 1)]
+
+    def cut(a, off):
+        out = a.new_zeros((rows,) + tuple(a.shape[1:]))
+        lo, hi = max(off, 0), min(off + rows, GRID)
+        out[lo - off:hi - off] = a[lo:hi]
+        return out
+
+    full = gcc.make_cloth_step(gc, p.inv_mass, gc.inv_cnt_dist,
+                               gc.inv_cnt_bend, dt=0.005, substeps=5,
+                               fuse_substeps=True)
+    xg, vg = p.x.reshape(GRID, GRID, 3), p.v.reshape(GRID, GRID, 3)
+    xu, vu = p.x, p.v
+    plain_dx = 0.0
+    before = gcc.cloth_window_cuda.launches
+    for _ in range(PAR_STEPS):
+        kept = []
+        for r in range(WINDOW_RANKS):
+            off = r * r_loc - exch
+            w, icd, icb = (cut(a, off).contiguous() for a in planes)
+            xe, ve = cut(xg, off), cut(vg, off)
+            xk, vk = gcc.cloth_window_cuda(
+                gcc.to_planes(xe, rows, GRID), gcc.to_planes(ve, rows, GRID),
+                w[..., 0], icd[..., 0], icb[..., 0], params, 1, 5, off, GRID)
+            xk, vk = xk.permute(0, 2, 3, 1)[0], vk.permute(0, 2, 3, 1)[0]
+            xr, _ = window_substeps_reference(params, xe, ve, w, icd, icb,
+                                              row_offset=off,
+                                              global_height=GRID, n=5)
+            plain_dx = max(plain_dx, max_dev(xk, xr))
+            kept.append((xk[exch:exch + r_loc], vk[exch:exch + r_loc]))
+        xg = torch.cat([k[0] for k in kept])
+        vg = torch.cat([k[1] for k in kept])
+        xu, vu = full(xu, vu)
+    torch.cuda.synchronize()
+    out = {"ranks": WINDOW_RANKS, "rows": r_loc, "exchange_rows": exch,
+           "launches": gcc.cloth_window_cuda.launches - before,
+           "stitched_vs_unsharded_max_dx": max_dev(xg.reshape(-1, 3), xu),
+           "stitched_vs_unsharded_max_dv": max_dev(vg.reshape(-1, 3), vu),
+           "plain_max_abs_err": plain_dx}
+
+    off = r_loc - exch                  # rank 1's window, for the timings
+    w, icd, icb = (cut(a, off).contiguous() for a in planes)
+    xe, ve = cut(xg, off), cut(vg, off)
+    buf = [gcc.to_planes(xe, rows, GRID), gcc.to_planes(ve, rows, GRID)]
+
+    def window_launch():
+        buf[:] = gcc.cloth_window_cuda(buf[0], buf[1], w[..., 0],
+                                       icd[..., 0], icb[..., 0], params, 1,
+                                       5, off, GRID)
+
+    kms = device_ms(window_launch, PAR_TIMED[1], "cloth_substep_kernel")
+    out["ms"] = cuda_time_ms(window_launch, PAR_TIMED[1]) if kms is None \
+        else kms
+    out["ms_source"] = "cuda events" if kms is None else "profiler"
+    out["plain_ms"] = cuda_time_ms(
+        lambda: window_substeps_reference(params, xe, ve, w, icd, icb,
+                                          row_offset=off,
+                                          global_height=GRID, n=5), 3)
+    out["bound_ms"], out["bound_by"] = fused_bound(1, rows=rows)
+    log(f"phase 13 windows: {out}")
+    assert out["launches"] == PAR_STEPS * WINDOW_RANKS, out
+    assert out["stitched_vs_unsharded_max_dx"] <= WINDOW_TOL, out
+    assert plain_dx <= CHECK_TOL, plain_dx
+    return out
+
+
+def _rate(fn, state):
+    st = [state]
+
+    def one():
+        st[0] = fn(st[0])
+
+    return rate_windows(one, 1)
+
+
+def run_parallel_modules(dev):
+    """Phase 13c: each ``parallel/`` module at world size 1 through NCCL
+    (an in-process ``HashStore``): ``intra_cuda`` against
+    ``make_cloth_step(fuse_substeps=True)`` over ``PAR_STEPS`` steps
+    (``WINDOW_TOL``), then ``PAR_MAIN_STEPS`` counted steps (B1's window
+    launches, one a step); ``intra_grid`` against ``make_step_fn``'s
+    structured route over ``INTRA_GRID_STEPS`` (``INTRA_GRID_TOL``);
+    ``make_sharded_step_fn`` at ``DP_ROLLOUTS`` rollouts against the
+    unsharded batched step, bit for bit; ``intra`` on the unstructured
+    bench cloth against ``make_step_fn`` over ``PAR_STEPS`` (``INTRA_TOL``);
+    steps/s of each."""
+    import torch.distributed as dist
+
+    from positionbaseddynamics_tpu_torch import parallel as par
+    from positionbaseddynamics_tpu_torch.solver import StepConfig, make_step_fn
+    from positionbaseddynamics_tpu_torch.solver import grid_cloth_cuda as gcc
+
+    cfg = StepConfig()
+    out = {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        group = par.make_group(device=dev)
+        state, cset = cloth_scene(GRID, GRID, dev)
+        gc, p = cset.grid_cloths[0], state.particles
+
+        fn = par.make_cuda_intra_step_fn(gc, p.inv_mass, cfg, group)
+        ref = gcc.make_cloth_step(gc, p.inv_mass, gc.inv_cnt_dist,
+                                  gc.inv_cnt_bend, dt=cfg.dt,
+                                  substeps=cfg.substeps, fuse_substeps=True)
+        xv, xr = (p.x, p.v), (p.x, p.v)
+        for _ in range(PAR_STEPS):
+            xv, xr = fn(*xv), ref(*xr)
+        dx = max_dev(xv[0], xr[0])
+        xv, run_s, counts, _ = _counted_run(lambda a: fn(*a), xv,
+                                            PAR_MAIN_STEPS)
+        log(f"phase 13 intra_cuda: {PAR_MAIN_STEPS} steps in {run_s!r} s, "
+            f"launch counts {counts}")
+        out["intra_cuda"] = {
+            "max_abs_dx_vs_fused": dx, "bit_equal": dx == 0.0,
+            "launches": counts, "finite": bool(torch.isfinite(xv[0]).all()),
+            "steps_per_s": _rate(lambda a: fn(*a), xv)}
+        assert dx <= WINDOW_TOL, dx
+        assert counts == {k: PAR_MAIN_STEPS if k == "cloth_substep_window"
+                          else 0 for k in counts}, counts
+        assert out["intra_cuda"]["finite"]
+
+        fn = par.make_grid_intra_step_fn(gc, p.inv_mass, cfg, group)
+        step = make_step_fn(cset, cfg)
+        xv, st = (p.x, p.v), state
+        for _ in range(INTRA_GRID_STEPS):
+            xv, st = fn(*xv), step(st)
+        dx = max_dev(xv[0], st.particles.x)
+        out["intra_grid"] = {"max_abs_dx_vs_step_fn": dx,
+                             "steps": INTRA_GRID_STEPS,
+                             "steps_per_s": _rate(lambda a: fn(*a), xv)}
+        assert dx <= INTRA_GRID_TOL, dx
+
+        batch = par.replicate_scene(state, DP_ROLLOUTS)
+        v = batch.particles.v.clone()
+        v[..., 2] = 0.05 * torch.arange(DP_ROLLOUTS, device=dev)[:, None] \
+            / (DP_ROLLOUTS - 1)
+        batch = dataclasses.replace(batch, particles=dataclasses.replace(
+            batch.particles, v=v))
+        sharded = par.make_sharded_step_fn(cset, cfg, group)
+        a, b = par.shard_batch(batch, group), batch
+        for _ in range(2):
+            a, b = sharded(a), step(b)
+        a = par.gather_batch(a, group)
+        out["sharded"] = {
+            "rollouts": DP_ROLLOUTS, "route": sharded.path,
+            "bit_equal": bool(torch.equal(a.particles.x, b.particles.x)
+                              and torch.equal(a.particles.v, b.particles.v)),
+            "steps_per_s": _rate(sharded, a)}
+        out["sharded"]["rollout_steps_per_s"] = {
+            k: v * DP_ROLLOUTS for k, v in out["sharded"]["steps_per_s"]
+            .items() if k in ("median", "min", "max")}
+        assert out["sharded"]["bit_equal"], out["sharded"]
+        del a, b, batch, v
+
+        us, uc = cloth_scene(GRID, GRID, dev, structured=False)
+        fn = par.make_intra_sharded_step_fn(us, uc, cfg, group)
+        step = make_step_fn(uc, cfg)
+        a = par.shard_particles(par.pad_state_for_mesh(us, group), group)
+        b = us
+        for _ in range(PAR_STEPS):
+            a, b = fn(a), step(b)
+        dx = max_dev(a.particles.x, b.particles.x)
+        out["intra"] = {"route": step.path, "max_abs_dx_vs_step_fn": dx,
+                        "steps_per_s": _rate(fn, a)}
+        assert dx <= INTRA_TOL, dx
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 13 modules at world size 1 (NCCL): {out}")
+    return out
+
+
+def run_parallel(dev):
+    """Phase 13: slice 9 on the card. B1's fused mode at each of
+    ``PAR_BATCHES`` (:func:`check_fused`), its row-window mode on
+    ``WINDOW_RANKS`` in-process windows (:func:`check_windows`), then
+    ``make_cloth_step(fuse_substeps=True)`` over ``PAR_MAIN_STEPS`` counted
+    steps (one fused launch a step) and its steps/s, and the modules at
+    world size 1 (:func:`run_parallel_modules`). Returns the record of
+    ``{"parallel": ...}``."""
+    from positionbaseddynamics_tpu_torch.solver import grid_cloth_cuda as gcc
+
+    state, cset = cloth_scene(GRID, GRID, dev)
+    gc, p = cset.grid_cloths[0], state.particles
+    out = {"fused": {nb: check_fused(dev, gc, p, nb) for nb in PAR_BATCHES}}
+    torch.cuda.empty_cache()
+    out["windows"] = check_windows(dev, gc, p)
+    fused = gcc.make_cloth_step(gc, p.inv_mass, gc.inv_cnt_dist,
+                                gc.inv_cnt_bend, dt=0.005, substeps=5,
+                                fuse_substeps=True)
+    xv, run_s, counts, _ = _counted_run(lambda a: fused(*a), (p.x, p.v),
+                                        PAR_MAIN_STEPS)
+    log(f"phase 13 make_cloth_step(fuse_substeps=True): {PAR_MAIN_STEPS} "
+        f"steps in {run_s!r} s, launch counts {counts}")
+    assert counts == {k: PAR_MAIN_STEPS if k == "cloth_substep_fused"
+                      else 0 for k in counts}, counts
+    assert torch.isfinite(xv[0]).all()
+    many = gcc.make_cloth_step(gc, p.inv_mass, gc.inv_cnt_dist,
+                               gc.inv_cnt_bend, dt=0.005, substeps=5,
+                               n_steps=20, fuse_substeps=True)
+    rate = rate_windows(lambda: many(p.x, p.v), 20)
+    out["main_path"] = {"steps": PAR_MAIN_STEPS, "launches": counts,
+                        "steps_per_s": rate}
+    log(f"phase 13 fused main path: {out['main_path']}")
+    out["modules"] = run_parallel_modules(dev)
+    return out
+
+
+PHASE_S = {}
+
+
+def timed(name, fn, *args):
+    """``fn(*args)``, its seconds kept in ``PHASE_S[name]`` and logged."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[name] = time.perf_counter() - t0
+    log(f"phase {name} took {PHASE_S[name]!r} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -3247,9 +3632,8 @@ def main() -> int:
     log(f"device: {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; nvidia-smi: {smi}")
 
-    t0 = time.perf_counter()
-    libs = _build.build_all()
-    log(f"built {sorted(libs)} in {time.perf_counter() - t0!r} s")
+    libs = timed("2 build", _build.build_all)
+    log(f"built {sorted(libs)}")
     ptxas, lines = ptxas_report(_build.build_logs)
     for line in lines:
         log(f"  ptxas {line}")
@@ -3257,7 +3641,10 @@ def main() -> int:
     from positionbaseddynamics_tpu_torch.solver import grid_cloth_cuda as gcc
     cloth_resources = gcc.kernel_resources()
     for iters, r in cloth_resources.items():
-        log(f"  runtime cloth_substep_kernel<{iters}>: {r}")
+        log(f"  runtime cloth_substep_kernel<{iters},0>: {r}")
+    fused_resources = gcc.kernel_resources(fused=True)
+    for passes, r in fused_resources.items():
+        log(f"  runtime cloth_substep_kernel<{passes},1>: {r}")
     from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
     tet_resources = gtc.kernel_resources()
     log(f"  runtime tet_substep_kernel: {tet_resources}")
@@ -3265,31 +3652,35 @@ def main() -> int:
     for kname, r in resources.items():
         log(f"  runtime {kname}: {r}")
 
-    err, x_plain10 = check_kernel_against_plain(dev)
-    t0 = time.perf_counter()
-    bar = bar_scene(BAR, dev)
-    log(f"built the {BAR} bar in {time.perf_counter() - t0!r} s")
-    tet_err, bar_plain10, tet_record = check_tet_kernel_against_plain(dev,
-                                                                      bar)
-    tet_batch = check_tet_kernel_batched(dev, bar)
-    launches, main_rate, busy = run_main_path(dev, x_plain10)
-    tet_main = run_tet_main_path(dev, bar_plain10)
-    t = time_cloth_kernel(dev)
-    tt = time_tet_kernel(dev, bar)
+    err, x_plain10 = timed("3 cloth kernel vs plain",
+                           check_kernel_against_plain, dev)
+    bar = timed("3 bar build", bar_scene, BAR, dev)
+    tet_err, bar_plain10, tet_record = timed(
+        "3 tet kernel vs plain", check_tet_kernel_against_plain, dev, bar)
+    tet_batch = timed("3 tet n_batch", check_tet_kernel_batched, dev, bar)
+    launches, main_rate, busy = timed("4 cloth main path", run_main_path,
+                                      dev, x_plain10)
+    tet_main = timed("4 bar main path", run_tet_main_path, dev, bar_plain10)
+    t = timed("5 cloth timing", time_cloth_kernel, dev)
+    tt = timed("5 tet timing", time_tet_kernel, dev, bar)
     del bar
-    fc = check_fluid_kernels_against_plain(dev)
-    dam = run_fluid_main_path(dev)
-    ft = time_fluid_kernels(dam["scene"], dam["state"])
+    fc = timed("6a fluid kernels vs plain", check_fluid_kernels_against_plain,
+               dev)
+    dam = timed("6b fluid main path", run_fluid_main_path, dev)
+    ft = timed("6c fluid timing", time_fluid_kernels, dam["scene"],
+               dam["state"])
     del dam["scene"], dam["state"]
-    planner_check = check_planner_routes(dev)
-    bar_planner_check = check_bar_planner_routes(dev)
-    mpc_big = run_mpc_big(dev)
-    bench_lines = run_bench_modes()
-    unstructured = run_unstructured(dev)
-    rigid = run_rigid(dev)
-    collision = run_collision(dev)
-    rods = run_rods(dev)
-    scenes = run_scenes(dev)
+    planner_check = timed("7a planner routes", check_planner_routes, dev)
+    bar_planner_check = timed("7a bar planner routes",
+                              check_bar_planner_routes, dev)
+    mpc_big = timed("7b mpc-big", run_mpc_big, dev)
+    bench_lines = timed("7c bench modes", run_bench_modes)
+    unstructured = timed("8 unstructured", run_unstructured, dev)
+    rigid = timed("9 rigid", run_rigid, dev)
+    collision = timed("10 collision", run_collision, dev)
+    rods = timed("11 rods", run_rods, dev)
+    scenes = timed("12 scenes", run_scenes, dev)
+    parallel = timed("13 parallel", run_parallel, dev)
 
     kernels = [{
         "name": "cloth_substep",
@@ -3322,7 +3713,7 @@ def main() -> int:
         "planner_peak_bytes": mpc_big["peak_bytes"],
         "planner_route_check": planner_check,
         "bench_check": bench_lines["check"],
-        "ptxas": {iters: ptxas.get(f"cloth_substep_kernel<{iters}>")
+        "ptxas": {iters: ptxas.get(f"cloth_substep_kernel<{iters},0>")
                   for iters in cloth_resources},
         "runtime_resources": cloth_resources,
     }, {
@@ -3393,12 +3784,55 @@ def main() -> int:
             "ptxas": ptxas.get(kname + "_kernel"),
             "runtime_resources": resources[kname],
         })
+    fused, windows = parallel["fused"], parallel["windows"]
+    kernels += [{
+        "name": "cloth_substep_fused",
+        "route": "cuda",
+        "source": "positionbaseddynamics_tpu_torch/csrc/grid_cloth_step.cu",
+        "replaces": "positionbaseddynamics_tpu/solver/grid_cloth_pallas.py:440",
+        "launches": parallel["main_path"]["launches"]["cloth_substep_fused"],
+        "max_abs_err": max(r["plain_max_abs_err"] for r in fused.values()),
+        "ms": fused[1]["ms"],
+        "plain_ms": fused[1]["plain_ms"],
+        "bound_ms": fused[1]["bound_ms"],
+        "bound_by": fused[1]["bound_by"],
+        "library_ms": None,
+        "ms_source": fused[1]["ms_source"],
+        **{f"{k}_b{nb}": r[k] for nb, r in fused.items()
+           for k in ("ms", "five_substeps_ms", "bound_ms", "bound_by",
+                     "substep_bound_ms", "vs_per_substep_max_dx",
+                     "vs_per_substep_max_dv", "bit_equal_per_substep",
+                     "plain_max_abs_err")},
+        "main_path_steps_per_s": parallel["main_path"]["steps_per_s"],
+        "ptxas": {n: ptxas.get(f"cloth_substep_kernel<{n},1>")
+                  for n in fused_resources},
+        "runtime_resources": fused_resources,
+    }, {
+        "name": "cloth_substep_window",
+        "route": "cuda",
+        "source": "positionbaseddynamics_tpu_torch/csrc/grid_cloth_step.cu",
+        "replaces": "positionbaseddynamics_tpu/solver/grid_cloth_pallas.py:161",
+        "launches": parallel["modules"]["intra_cuda"]["launches"][
+            "cloth_substep_window"],
+        "max_abs_err": windows["plain_max_abs_err"],
+        "ms": windows["ms"],
+        "plain_ms": windows["plain_ms"],
+        "bound_ms": windows["bound_ms"],
+        "bound_by": windows["bound_by"],
+        "library_ms": None,
+        "ms_source": windows["ms_source"],
+        "stitched_vs_unsharded_max_dx":
+            windows["stitched_vs_unsharded_max_dx"],
+        "window_rows": windows["rows"] + 2 * windows["exchange_rows"],
+    }]
     assert dam["sync_error"] is None, dam["sync_error"]
     print(json.dumps({"unstructured": unstructured}))
     print(json.dumps({"rigid": rigid}))
     print(json.dumps({"collision": collision}))
     print(json.dumps({"rods": rods}))
     print(json.dumps({"scenes": scenes}))
+    print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"phase_s": PHASE_S}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

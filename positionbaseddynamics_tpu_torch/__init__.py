@@ -10,7 +10,8 @@ Ported so far (slice 1, the 320×320 XPBD cloth step; slice 2, the
 80×36×36 XPBD FEM-tet bar; slice 3, the 100k PBF breaking dam; slice 4,
 the general unstructured solver; slice 5, the sampling planner; slice 6a,
 rigid bodies and joints; slice 6b, collision; slice 7, rods and generic
-constraints; slice 8, scene I/O and the app layer):
+constraints; slice 8, scene I/O and the app layer; slice 9,
+parallelism):
 
 * ``ops/integration.py`` — semi-implicit Euler, the rigid rotation step
   and the velocity updates;
@@ -43,7 +44,8 @@ constraints; slice 8, scene I/O and the app layer):
   stencil solvers of cloths and tet bars;
 * ``solver/grid_cloth_cuda.py`` + ``csrc/grid_cloth_step.cu`` and
   ``solver/grid_tet_cuda.py`` + ``csrc/grid_tet_step.cu`` — the fused
-  cloth and tet substeps as hand-written CUDA kernels;
+  cloth and tet substeps as hand-written CUDA kernels, the cloth kernel
+  also with a step's substeps in one launch and on a window of rows;
 * ``solver/step.py`` — ``StepConfig``, ``step``, ``make_step_fn``,
   ``rollout``, each with an optional collision ``pipeline``;
 * ``collision/`` — SDF shapes and grids, the numpy build-time helpers
@@ -69,13 +71,18 @@ constraints; slice 8, scene I/O and the app layer):
 * ``mpc/`` — control models, cost terms, MPPI, CEM and the
   receding-horizon controller over K rollouts stepped as one batched
   state, through the cloth kernel at ``n_batch = K`` on the card, and
-  the rigid wrench control and target cost.
+  the rigid wrench control and target cost;
+* ``parallel/`` — rollout sharding and the generic and halo-exchange
+  intra-scene sharding over ``torch.distributed`` process groups, and the
+  cloth kernel's fused row-window mode on a rank's rows (``intra_cuda``);
+  ``solver/grid_window.py`` — the cloth stencil on a window of rows, the
+  plain version of that mode.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without CUDA they raise rather than run on the CPU.
 """
 
-from . import (collision, convert, fluids, models, mpc, ops, scene, solver,
-               utils)
+from . import (collision, convert, fluids, models, mpc, ops, parallel, scene,
+               solver, utils)
 
 __version__ = "0.1.0"

@@ -21,6 +21,8 @@ extreme, as JAX's.
 """
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Optional
 
@@ -118,7 +120,8 @@ class TetCollider:
         best = np.zeros(cells.shape[0], np.int32)
         best_err = np.full(cells.shape[0], np.inf)
         chunk = 256
-        for s in range(0, len(tets), chunk):
+
+        def chunk_best(s):
             ia = inv_a[s:s + chunk]
             x0 = rest[tets[s:s + chunk, 0]]
             bary = np.einsum("tij,gtj->gti", ia,
@@ -126,10 +129,15 @@ class TetCollider:
             err = (np.maximum(0.0, -bary).sum(-1)
                    + np.maximum(0.0, bary.sum(-1) - 1.0))
             am = err.argmin(1)
-            e = err[np.arange(len(cells)), am]
-            upd = e < best_err
-            best[upd] = (s + am[upd]).astype(np.int32)
-            best_err[upd] = e[upd]
+            return s, am, err[np.arange(len(cells)), am]
+
+        # numpy releases the GIL in these loops: the chunks run on threads,
+        # and their minima merge in chunk order, as one loop would
+        with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+            for s, am, e in pool.map(chunk_best, range(0, len(tets), chunk)):
+                upd = e < best_err
+                best[upd] = (s + am[upd]).astype(np.int32)
+                best_err[upd] = e[upd]
 
         bs = 16
         t_cent = rest[tets].mean(axis=1)

@@ -11,12 +11,24 @@ them. The state travels as component planes
 ``(B, 3, H, W)``: :func:`make_cloth_step` converts ``(x, v)`` to planes once
 per call and back once at the end.
 
-Beside the kernel sits its plain PyTorch version,
+Two modes of the TPU kernel are here too. **Fused** (``fuse_substeps``,
+:func:`cloth_fused_cuda`): one launch runs whole substeps, up to
+``FUSED_PASSES`` iterations × substeps, so a step of 5 substeps at one
+iteration is one launch. **Row window** (``height_override``,
+``global_height``, ``external_params``, :func:`cloth_window_cuda` and the
+row offset of :func:`cloth_substep_cuda`): the kernel steps a window of a
+taller grid's rows, its masks and parity from the global row, the
+inverse masses and Jacobi weights given per call; ``parallel/intra_cuda.py``
+runs a rank's rows so.
+
+Beside the kernel sit its plain PyTorch versions:
 :func:`cloth_substep_reference`, composed of the ported integration
-functions and :meth:`GridClothBatch.project`. The CPU tests run it, and
-the card's smoke run holds the kernel against it. The step function that
-:func:`make_cloth_step` returns takes the plain version for CPU tensors
-only; for CUDA tensors it launches the kernel or raises.
+functions and :meth:`GridClothBatch.project` (fused: one call a substep),
+and ``grid_window.window_substeps_reference`` for the row window. The CPU
+tests run them, and the card's smoke run holds the kernel against them.
+The step function that :func:`make_cloth_step` returns takes the plain
+versions for CPU tensors only; for CUDA tensors it launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ from .. import _build
 from .._device import resolve_device
 from ..ops import integration
 from .grid_cloth import _DIST_FAMILIES, GridClothBatch, _helper_grid
+from .grid_window import window_substeps_reference
 
 Tensor = torch.Tensor
 
@@ -39,6 +52,10 @@ N_PARAMS = 40                   # floats in the kernel's Params struct
 # and 115 registers a thread at 4. A substep with more iterations takes
 # several launches, which carry the positions and λ between them.
 FUSED_ITERATIONS = 4
+# Iterations × substeps one fused launch holds: the window's halo is 3 rows
+# a pass, so at 5 a 32×16 tile's window is 62×46 cells (148 KB of shared
+# memory); a step of more passes takes launches of fewer substeps each.
+FUSED_PASSES = 5
 _BEND_ORDER = ("bh", "bv", "bd")
 
 
@@ -148,13 +165,21 @@ def _bind(lib):
     fn.restype = ctypes.c_int
     lib.pbd_error_string.argtypes = [ctypes.c_int]
     lib.pbd_error_string.restype = ctypes.c_char_p
-    for name in ("pbd_cloth_param_count", "pbd_cloth_max_iterations"):
+    fused = lib.pbd_cloth_fused
+    fused.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong, vp, vp, vp,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int, vp]
+    fused.restype = ctypes.c_int
+    for name in ("pbd_cloth_param_count", "pbd_cloth_max_iterations",
+                 "pbd_cloth_max_passes"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
-    lib.pbd_cloth_kernel_resources.argtypes = [ctypes.c_int, vp]
-    lib.pbd_cloth_kernel_resources.restype = ctypes.c_int
+    for name in ("pbd_cloth_kernel_resources", "pbd_cloth_fused_resources"):
+        getattr(lib, name).argtypes = [ctypes.c_int, vp]
+        getattr(lib, name).restype = ctypes.c_int
     if (lib.pbd_cloth_param_count() != N_PARAMS
-            or lib.pbd_cloth_max_iterations() != FUSED_ITERATIONS):
+            or lib.pbd_cloth_max_iterations() != FUSED_ITERATIONS
+            or lib.pbd_cloth_max_passes() != FUSED_PASSES):
         raise RuntimeError("grid_cloth_step.cu and grid_cloth_cuda.py "
                            "disagree on the kernel's parameter layout or "
                            "iterations per launch")
@@ -162,27 +187,30 @@ def _bind(lib):
     return fn
 
 
-def kernel_resources() -> dict:
+def kernel_resources(fused: bool = False) -> dict:
     """The kernel's resources as the CUDA runtime reports them on the
     current card, for each iteration count one launch holds (one template
-    instance each): ``{iters: {"registers", "static_shared_bytes",
+    instance each), or with ``fused`` for each count of passes a fused
+    launch holds: ``{iters: {"registers", "static_shared_bytes",
     "dynamic_shared_bytes", "local_bytes", "blocks_per_sm",
     "threads"}}``."""
     lib = _build.load("grid_cloth_step")
     _bind(lib)
-    return {iters: resources_of(lib, iters)
-            for iters in range(1, FUSED_ITERATIONS + 1)}
+    top = FUSED_PASSES if fused else FUSED_ITERATIONS
+    return {iters: resources_of(lib, iters, fused)
+            for iters in range(1, top + 1)}
 
 
 RESOURCE_KEYS = ("registers", "static_shared_bytes", "dynamic_shared_bytes",
                  "local_bytes", "blocks_per_sm", "threads")
 
 
-def resources_of(lib, iters: int) -> dict:
+def resources_of(lib, iters: int, fused: bool = False) -> dict:
     """:func:`kernel_resources` of one iteration count, from a library
     built from ``csrc/grid_cloth_step.cu`` or from a variant of it."""
     vals = (ctypes.c_int * len(RESOURCE_KEYS))()
-    err = lib.pbd_cloth_kernel_resources(iters, vals)
+    err = (lib.pbd_cloth_fused_resources if fused
+           else lib.pbd_cloth_kernel_resources)(iters, vals)
     if err != 0:
         raise RuntimeError("cloth kernel resources: "
                            + lib.pbd_error_string(err).decode())
@@ -193,20 +221,14 @@ def _ptr(t: Optional[Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def cloth_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
-                       icb: Tensor, params: np.ndarray,
-                       max_iterations: int = 1):
-    """Run one substep through the fused kernel: one launch for up to
-    ``FUSED_ITERATIONS`` iterations, one more for each further such share.
-    ``xp``, ``vp``: ``(B, 3, H, W)`` float32 planes on one CUDA device;
-    ``w``: inverse masses ``(H, W)`` shared by the rollouts or ``(B, H,
-    W)``; ``icd``, ``icb``: ``(H, W)`` Jacobi weights; ``params`` from
-    :func:`kernel_params`. Returns new ``(xp, vp)`` buffers; the inputs are
-    left as they were. Counts its launches in
-    ``cloth_substep_cuda.launches``."""
+def _check_planes(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
+                  icb: Tensor, params: np.ndarray, what: str):
+    """The checks every launch makes. Returns ``(params as float32,
+    w_bstride)``."""
     if xp.device.type != "cuda":
-        raise ValueError("cloth_substep_cuda takes CUDA tensors; the plain "
-                         "version is cloth_substep_reference")
+        raise ValueError(f"{what} takes CUDA tensors; the plain versions "
+                         "are cloth_substep_reference and "
+                         "grid_window.window_substeps_reference")
     if xp.dim() != 4 or xp.shape[1] != 3 or vp.shape != xp.shape:
         raise ValueError(f"expected (B, 3, H, W) planes, got {tuple(xp.shape)}"
                          f" and {tuple(vp.shape)}")
@@ -231,6 +253,32 @@ def cloth_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
     params = np.ascontiguousarray(params, np.float32)
     if params.shape != (N_PARAMS,):
         raise ValueError(f"params: expected ({N_PARAMS},), got {params.shape}")
+    return params, w_bstride
+
+
+def _raise_on(lib, err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.pbd_error_string(err).decode())
+
+
+def cloth_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
+                       icb: Tensor, params: np.ndarray,
+                       max_iterations: int = 1, row_offset: int = 0,
+                       global_height: Optional[int] = None):
+    """Run one substep through the fused kernel: one launch for up to
+    ``FUSED_ITERATIONS`` iterations, one more for each further such share.
+    ``xp``, ``vp``: ``(B, 3, H, W)`` float32 planes on one CUDA device;
+    ``w``: inverse masses ``(H, W)`` shared by the rollouts or ``(B, H,
+    W)``; ``icd``, ``icb``: ``(H, W)`` Jacobi weights; ``params`` from
+    :func:`kernel_params`. The H rows are rows ``row_offset..`` of a grid
+    of ``global_height`` rows (default: the whole grid, H). Returns new
+    ``(xp, vp)`` buffers; the inputs are left as they were. Counts its
+    launches in ``cloth_substep_cuda.launches``."""
+    params, w_bstride = _check_planes(xp, vp, w, icd, icb, params,
+                                      "cloth_substep_cuda")
+    b, _, h, wd = xp.shape
+    gh = h if global_height is None else int(global_height)
     if max_iterations < 1:
         raise ValueError(f"max_iterations={max_iterations}: at least 1")
     lib = _build.load("grid_cloth_step")
@@ -250,16 +298,86 @@ def cloth_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
             err = fn(xp.data_ptr(), vp.data_ptr(), _ptr(x_cur), _ptr(lam),
                      xo.data_ptr(), _ptr(vo), _ptr(lam_out), w.data_ptr(),
                      w_bstride, icd.data_ptr(), icb.data_ptr(),
-                     params.ctypes.data, b, h, wd, k, 0, h, stream)
-            if err != 0:
-                raise RuntimeError("cloth substep kernel launch failed: "
-                                   + lib.pbd_error_string(err).decode())
+                     params.ctypes.data, b, h, wd, k, int(row_offset), gh,
+                     stream)
+            _raise_on(lib, err, "cloth substep")
             cloth_substep_cuda.launches += 1
             x_cur, lam = xo, lam_out
     return x_cur, vo
 
 
 cloth_substep_cuda.launches = 0
+
+
+def fused_split(substeps: int, max_iterations: int) -> list:
+    """The substeps of each fused launch of one step: as many whole
+    substeps as ``FUSED_PASSES`` holds at ``max_iterations``, the rest in
+    the last. Raises NotImplementedError where one substep does not fit."""
+    if not 1 <= max_iterations <= FUSED_PASSES:
+        raise NotImplementedError(
+            f"the fused cloth kernel holds at most {FUSED_PASSES} "
+            f"iterations a launch, not {max_iterations}; use "
+            "fuse_substeps=False")
+    k = FUSED_PASSES // max_iterations
+    return [min(k, substeps - s) for s in range(0, substeps, k)]
+
+
+def _fused(xp, vp, w, icd, icb, params, max_iterations, substeps,
+           row_offset, global_height, what):
+    """``substeps`` substeps in the launches of :func:`fused_split`.
+    Returns ``(xp, vp, launches)``."""
+    params, w_bstride = _check_planes(xp, vp, w, icd, icb, params, what)
+    b, _, h, wd = xp.shape
+    split = fused_split(substeps, max_iterations)
+    lib = _build.load("grid_cloth_step")
+    _bind(lib)
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream(xp.device).cuda_stream
+        for n in split:
+            xo, vo = torch.empty_like(xp), torch.empty_like(vp)
+            err = lib.pbd_cloth_fused(
+                xp.data_ptr(), vp.data_ptr(), xo.data_ptr(), vo.data_ptr(),
+                w.data_ptr(), w_bstride, icd.data_ptr(), icb.data_ptr(),
+                params.ctypes.data, b, h, wd, max_iterations, n,
+                int(row_offset), int(global_height), stream)
+            _raise_on(lib, err, what)
+            xp, vp = xo, vo
+    return xp, vp, len(split)
+
+
+def cloth_fused_cuda(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
+                     icb: Tensor, params: np.ndarray, max_iterations: int,
+                     substeps: int):
+    """Run ``substeps`` whole substeps through the fused kernel, as many a
+    launch as ``FUSED_PASSES`` holds (one launch for 5 substeps at one
+    iteration), the counterpart of ``fuse_substeps``. Arguments as
+    :func:`cloth_substep_cuda`'s. Returns new ``(xp, vp)`` buffers. Counts
+    its launches in ``cloth_fused_cuda.launches``."""
+    xp, vp, n = _fused(xp, vp, w, icd, icb, params, max_iterations,
+                       substeps, 0, xp.shape[-2], "cloth_fused_cuda")
+    cloth_fused_cuda.launches += n
+    return xp, vp
+
+
+cloth_fused_cuda.launches = 0
+
+
+def cloth_window_cuda(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
+                      icb: Tensor, params: np.ndarray, max_iterations: int,
+                      substeps: int, row_offset: int, global_height: int):
+    """:func:`cloth_fused_cuda` on a window of rows: the H rows of the
+    planes are rows ``row_offset..`` (negative above the grid) of a grid of
+    ``global_height`` rows, and rows beyond the window count as zeros of
+    zero inverse mass. Counts its launches in
+    ``cloth_window_cuda.launches``."""
+    xp, vp, n = _fused(xp, vp, w, icd, icb, params, max_iterations,
+                       substeps, row_offset, global_height,
+                       "cloth_window_cuda")
+    cloth_window_cuda.launches += n
+    return xp, vp
+
+
+cloth_window_cuda.launches = 0
 
 
 def run_substeps(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
@@ -300,22 +418,43 @@ def make_cloth_step(batch: GridClothBatch, inv_mass, inv_cnt_dist,
                     inv_cnt_bend, *, dt: float, substeps: int,
                     max_iterations: int = 1, gravity=(0.0, -9.81, 0.0),
                     damping: float = 0.0, n_batch: int = 1, n_steps: int = 1,
-                    device=None):
+                    fuse_substeps: bool = False,
+                    height_override: Optional[int] = None,
+                    global_height: Optional[int] = None,
+                    external_params: bool = False, device=None):
     """Build ``step(x, v) -> (x, v)`` that advances ``n_steps·substeps``
     substeps, the counterpart of ``make_pallas_cloth_step``. ``x``, ``v``
     are ``(N, 3)``, or ``(n_batch, N, 3)`` when ``n_batch > 1``; the
     rollouts share every parameter. The batch must cover particles
     ``[0, H·W)`` with uniform XPBD parameters, as for the TPU kernel.
 
-    On ``device`` (None means CUDA) the step launches the kernel once per
-    substep; given CPU tensors it runs :func:`cloth_substep_reference`."""
+    ``fuse_substeps`` runs a step's substeps in :func:`fused_split`'s
+    launches (one at 5 substeps of one iteration), else one launch a
+    substep (two past ``FUSED_ITERATIONS`` iterations). The row-window mode
+    (``grid_cloth_pallas.py:161, 221, 554``): the step works on
+    ``height_override`` rows, masks and parity from a grid of
+    ``global_height`` rows (default: the window's own); with
+    ``external_params`` it is ``step(x, v, w, icd, icb, row_offset)``, the
+    inverse masses and Jacobi weights given per call as ``(rows·W,)`` and
+    the window's first row as a global row, and ``inv_mass``,
+    ``inv_cnt_dist`` and ``inv_cnt_bend`` are not read.
+
+    On ``device`` (None means CUDA) the step launches the kernel; given CPU
+    tensors it runs the plain versions (:func:`cloth_substep_reference`, or
+    ``grid_window.window_substeps_reference`` in the row-window mode)."""
     dev = resolve_device(device)
-    hgt, wid = batch.height, batch.width
+    wid = batch.width
+    hgt = batch.height if height_override is None else int(height_override)
+    gh = hgt if global_height is None else int(global_height)
+    windowed = (height_override is not None or global_height is not None
+                or external_params)
     n = hgt * wid
     h = dt / substeps
     params = kernel_params(batch, h=h, gravity=gravity, damping=damping)
     if max_iterations < 1:
         raise ValueError(f"max_iterations={max_iterations}: at least 1")
+    if fuse_substeps:
+        fused_split(substeps, max_iterations)       # refuses what cannot fit
     if batch.device != dev:
         batch = batch.to(dev)
 
@@ -326,30 +465,61 @@ def make_cloth_step(batch: GridClothBatch, inv_mass, inv_cnt_dist,
                              f"{hgt}x{wid} cloth")
         return t.reshape(hgt, wid).contiguous()
 
-    w = plane(inv_mass, "inv_mass")
-    icd = plane(inv_cnt_dist, "inv_cnt_dist")
-    icb = plane(inv_cnt_bend, "inv_cnt_bend")
-    w_flat = w.reshape(n)
     shape = (n, 3) if n_batch == 1 else (n_batch, n, 3)
     n_sub = n_steps * substeps
 
-    def step(x: Tensor, v: Tensor):
+    def run(x, v, w, icd, icb, off):
         if tuple(x.shape) != shape or tuple(v.shape) != shape:
             raise ValueError(f"expected x, v of shape {shape}, got "
                              f"{tuple(x.shape)} and {tuple(v.shape)}")
         if x.device != dev or v.device != dev:
             raise ValueError(f"step was built for {dev}; got tensors on "
                              f"{x.device} and {v.device}")
+        lead = x.shape[:-2]
         if dev.type == "cuda":
-            lead = x.shape[:-2]
-            xp, vp, _, _ = run_substeps(
-                to_planes(x, hgt, wid), to_planes(v, hgt, wid), w, icd, icb,
-                params, max_iterations, n_sub)
+            xp, vp = to_planes(x, hgt, wid), to_planes(v, hgt, wid)
+            if not fuse_substeps:
+                for _ in range(n_sub):
+                    xp, vp = cloth_substep_cuda(xp, vp, w, icd, icb, params,
+                                                max_iterations, off, gh)
+            elif windowed:
+                for _ in range(n_steps):
+                    xp, vp = cloth_window_cuda(xp, vp, w, icd, icb, params,
+                                               max_iterations, substeps, off,
+                                               gh)
+            else:
+                for _ in range(n_steps):
+                    xp, vp = cloth_fused_cuda(xp, vp, w, icd, icb, params,
+                                              max_iterations, substeps)
             return from_planes(xp, lead), from_planes(vp, lead)
+        if windowed:
+            def grid(a):
+                return a.reshape(*lead, hgt, wid, 3)
+
+            x, v = window_substeps_reference(
+                params, grid(x), grid(v), w[..., None], icd[..., None],
+                icb[..., None], row_offset=int(off), global_height=gh,
+                max_iterations=max_iterations, n=n_sub)
+            return x.reshape(shape), v.reshape(shape)
+        w_flat = w.reshape(n)
         for _ in range(n_sub):
             x, v = cloth_substep_reference(
                 batch, x, v, w_flat, h=h, max_iterations=max_iterations,
                 gravity=gravity, damping=damping)
         return x, v
+
+    if external_params:
+        def step(x: Tensor, v: Tensor, w, icd, icb, row_offset: int):
+            return run(x, v, plane(w, "w"), plane(icd, "icd"),
+                       plane(icb, "icb"), row_offset)
+
+        return step
+
+    w = plane(inv_mass, "inv_mass")
+    icd = plane(inv_cnt_dist, "inv_cnt_dist")
+    icb = plane(inv_cnt_bend, "inv_cnt_bend")
+
+    def step(x: Tensor, v: Tensor):
+        return run(x, v, w, icd, icb, 0)
 
     return step

@@ -108,8 +108,14 @@ def test_check_on_cpu_and_unported_modes_exit_2(capsys, flags, names):
 
 
 def test_there_is_no_fuse_flag():
-    with pytest.raises(SystemExit):
-        bench_torch.parser().parse_args(["--fuse"])
+    """``--fuse`` is the default and ``--no-fuse`` turns it off, as in
+    ``bench.py:660-664``; on the CPU both take the plain version."""
+    assert bench_torch.parser().parse_args([]).fuse
+    assert bench_torch.parser().parse_args(["--fuse"]).fuse
+    assert not bench_torch.parser().parse_args(["--no-fuse"]).fuse
+    for flag in ("--fuse", "--no-fuse"):
+        code, (rec,) = bench_torch.run(SMALL + [flag])
+        assert code == 0 and rec["path"] == "torch_plain"
 
 
 def test_mpc_big_update_at_one_rollout_leaves_the_start_state_alone():

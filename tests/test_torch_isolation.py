@@ -43,7 +43,9 @@ def test_port_has_the_slice_modules():
                  "ops.ghost_rods", "ops.generic", "solver.grid_rods",
                  "solver.direct_rods", "scene", "scene.loader",
                  "utils.loaders", "utils.timing", "utils.log",
-                 "utils.checkpoint", "models.skinning"):
+                 "utils.checkpoint", "models.skinning", "parallel",
+                 "parallel.sharding", "parallel.intra", "parallel.intra_grid",
+                 "parallel.intra_cuda", "solver.grid_window"):
         assert f"positionbaseddynamics_tpu_torch.{name}" in mods, name
 
 
