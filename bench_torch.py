@@ -43,7 +43,29 @@ repository, so without ``--scene`` they exit 2 and name the missing file.
 write stand-ins of the shipped scenes' structure and size, meshes
 included. ``--fuse`` (the default) and ``--no-fuse`` choose the cloth
 kernel's mode for the default cloth mode, ``--batch`` and ``--check``, as
-in ``bench.py``.
+in ``bench.py``, and the tet kernel's for ``--bar`` and ``--check``
+(``"cuda_fused"``: one launch a step; ``"cuda_per_iteration"``: one
+launch an iteration of each substep).
+
+Every option of ``bench.py`` means the same here. ``--max-iterations N``
+sets the solver's iterations for the cloth, ``--batch``, the bar and
+``--check``, and the bar's metric gains ``_it{N}`` for N ≠ 1, as
+``bench.py`` names its kernel route; the port runs the tet kernel at any
+N (``bench.py`` sends N > 1 to its XLA path for a fault of its TPU kernel
+that the port's does not share: the tet kernel is held to its plain
+version at 2 iterations). ``--pallas`` (the default) takes the kernel
+routes; ``--no-pallas`` runs the cloth or the bar through the general
+stepper, ``solver.rollout(..., kernels=False)`` over ``--steps-per-call``
+steps, ``--batch`` > 1 as a leading rollout axis, the path named as
+``make_step_fn`` names it; there is no fallback from the kernel route.
+On that route ``--timers`` prints ``PhaseTimers``' report on standard
+error (batch 1) and ``--profile DIR`` writes a ``torch.profiler`` Chrome
+trace of the timed loop into DIR; the kernel route ignores both with a
+warning. ``--donate`` warns that PyTorch has no buffer donation. The
+default cloth run first prints ``bench.py``'s four secondary lines (the
+bar, the 12k dam, the 100-body pile and the contact planner, each under a
+watchdog, an error written as ``{"metric", "error"}``), the headline
+last, unless ``--no-secondary`` or ``--check`` is given.
 
 The bench scenes (``cloth_scene``, ``bar_scene``, ``dam_scene``,
 ``pile_scene``, the planners' cloth, the stand-in scene files) and the
@@ -53,8 +75,10 @@ cloth kernel's plain steps live here;
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -64,6 +88,10 @@ import torch
 
 CHECK_TOL = {"cloth": 1e-5, "tet": 1e-5, "fluid": 1e-4}
 PLAIN_CHUNK = 2048      # active cells per piece of the plain fluid passes
+SECONDARY_BUDGET_S = 700.0      # all secondary lines together (bench.py's)
+SECONDARY_EACH_S = 420          # one secondary line's watchdog
+SECONDARY_MIN_S = 30.0          # below this much budget a line is skipped
+TRACE_FILE = "bench_torch_trace.json"   # --profile's file in DIR
 
 
 def card_line(dev: torch.device):
@@ -506,14 +534,95 @@ def write_cloth_scene(directory, n=51, xpbd=False):
 # ---------------------------------------------------------------------------
 
 
+def _warn(msg):
+    print(f"warning: {msg}", file=sys.stderr)
+
+
+def _kernel_route_warnings(args):
+    """``bench.py``'s warnings for options that the kernel route ignores
+    (``bench.py:795-803``), and why ``--donate`` does nothing here."""
+    for flag in ("timers", "profile"):
+        if getattr(args, flag):
+            _warn(f"--{flag} is ignored on the kernel route (use "
+                  "--no-pallas)")
+    _donate_warning(args)
+
+
+def _donate_warning(args):
+    if args.donate:
+        _warn("--donate does nothing: PyTorch has no buffer donation; the "
+              "steps allocate their outputs from the caching allocator")
+
+
+def bench_general(args, dev, scene, metric, finite):
+    """``--no-pallas``: ``solver.rollout(..., kernels=False)`` over
+    ``--steps-per-call`` steps of ``scene`` (``(state, cset)``), the
+    rollouts a leading axis at ``--batch`` > 1; one warm-up call, then
+    ``--calls`` calls timed, under ``torch.profiler`` with ``--profile``;
+    ``--timers`` at batch 1 (``bench.py:853-914``). The path is
+    ``make_step_fn``'s name for the route."""
+    from positionbaseddynamics_tpu_torch.mpc.planners import _expand_state
+    from positionbaseddynamics_tpu_torch.solver import (StepConfig,
+                                                        make_step_fn, rollout)
+
+    _donate_warning(args)
+    state, cset = scene
+    cfg = StepConfig(max_iterations=args.max_iterations)
+    if args.batch > 1:
+        state = _expand_state(state, args.batch)
+    st = [rollout(state, cset, cfg, args.steps_per_call,
+                  kernels=False)[0]]                       # warm-up
+    _sync(dev)
+    if not finite(st[0]):
+        raise FloatingPointError("the warm-up produced non-finite values")
+
+    def call():
+        st[0] = rollout(st[0], cset, cfg, args.steps_per_call,
+                        kernels=False)[0]
+
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        with profile(activities=acts) as prof:
+            dt = _timed(dev, call, args.calls)
+        os.makedirs(args.profile, exist_ok=True)
+        trace = os.path.join(args.profile, TRACE_FILE)
+        prof.export_chrome_trace(trace)
+        print(f"bench_torch: trace of the timed loop in {trace}",
+              file=sys.stderr)
+    else:
+        dt = _timed(dev, call, args.calls)
+    sps = args.calls * args.steps_per_call / dt
+    extra = ({"aggregate_steps_per_s": round(sps * args.batch, 2)}
+             if args.batch > 1 else {})
+    path = make_step_fn(cset, cfg, dev, kernels=False).path
+    rec = _record(dev, metric + (f"_b{args.batch}" if args.batch > 1
+                                 else ""), sps, "steps/s", path, **extra)
+    if args.timers and args.batch == 1:
+        from positionbaseddynamics_tpu_torch.utils.timing import PhaseTimers
+
+        timers = PhaseTimers(cset, cfg, device=dev)
+        timers.measure(st[0], repeats=3)
+        print(timers.report(), file=sys.stderr)
+    return rec
+
+
 def bench_cloth(args, dev):
     """The default mode and ``--batch N``: ``make_cloth_step`` over
     ``--steps-per-call`` steps, one warm-up call, then ``--calls`` calls
-    (``bench.py:780-814``)."""
+    (``bench.py:780-814``); ``--no-pallas``: :func:`bench_general`."""
     from positionbaseddynamics_tpu_torch.solver import StepConfig
 
+    metric = f"xpbd_cloth_{args.width * args.height // 1000}k_steps_per_s"
+    if args.pallas is False:
+        return bench_general(
+            args, dev, cloth_scene(args.width, args.height, dev), metric,
+            lambda s: bool(torch.isfinite(s.particles.x).all()))
+    _kernel_route_warnings(args)
     state, cset = cloth_scene(args.width, args.height, dev)
-    cfg = StepConfig()
+    cfg = StepConfig(max_iterations=args.max_iterations)
     step = cloth_step_fn(cset.grid_cloths[0], state.particles.inv_mass, cfg,
                          dev, n_batch=args.batch, n_steps=args.steps_per_call,
                          fuse_substeps=args.fuse)
@@ -534,8 +643,8 @@ def bench_cloth(args, dev):
     extra = ({"aggregate_steps_per_s": round(sps * args.batch, 2)}
              if args.batch > 1 else {})
     return _record(
-        dev, f"xpbd_cloth_{args.width * args.height // 1000}k_steps_per_s"
-        + (f"_b{args.batch}" if args.batch > 1 else ""), sps, "steps/s",
+        dev, metric + (f"_b{args.batch}" if args.batch > 1 else ""), sps,
+        "steps/s",
         ("cuda_fused" if args.fuse else "cuda_per_substep")
         if dev.type == "cuda" else "torch_plain",
         **extra)
@@ -543,17 +652,25 @@ def bench_cloth(args, dev):
 
 def bench_bar(args, dev):
     """``--bar``: ``make_tet_step`` over ``--steps-per-call`` steps
-    (``bench.py:482-580``)."""
+    (``bench.py:482-580``), one launch a step with ``--fuse`` (the
+    default), one an iteration with ``--no-fuse``; ``--no-pallas``:
+    :func:`bench_general`."""
     from positionbaseddynamics_tpu_torch.solver import StepConfig
     from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
 
     w, h, d = args.bar_dims
+    metric = f"xpbd_fem_bar_{w * h * d // 1000}k_steps_per_s"
+    if args.pallas is False:
+        return bench_general(
+            args, dev, bar_scene(args.bar_dims, dev), metric,
+            lambda s: bool(torch.isfinite(s.particles.x).all()))
+    _kernel_route_warnings(args)
     state, cset = bar_scene(args.bar_dims, dev)
-    cfg = StepConfig()
+    cfg = StepConfig(max_iterations=args.max_iterations)
     step = gtc.make_tet_step(
         cset.grid_tets[0], state.particles.inv_mass, dt=cfg.dt,
         substeps=cfg.substeps, max_iterations=cfg.max_iterations,
-        n_steps=args.steps_per_call, device=dev)
+        n_steps=args.steps_per_call, fuse_substeps=args.fuse, device=dev)
     xv = list(step(state.particles.x, state.particles.v))  # warm-up
     _sync(dev)
     if not torch.isfinite(xv[0]).all():
@@ -565,8 +682,10 @@ def bench_bar(args, dev):
     dt = _timed(dev, call, args.calls)
     sps = args.calls * args.steps_per_call / dt
     return _record(
-        dev, f"xpbd_fem_bar_{w * h * d // 1000}k_steps_per_s", sps,
-        "steps/s", "cuda_kernel" if dev.type == "cuda" else "torch_plain")
+        dev, metric + (f"_it{cfg.max_iterations}"
+                       if cfg.max_iterations != 1 else ""), sps, "steps/s",
+        ("cuda_fused" if args.fuse else "cuda_per_iteration")
+        if dev.type == "cuda" else "torch_plain")
 
 
 def bench_fluid(args, dev):
@@ -1014,13 +1133,14 @@ def check(args, dev):
                     "device": torch.cuda.get_device_name(dev),
                     "card": card_line(dev)})
 
-    cfg = StepConfig()
+    cfg = StepConfig(max_iterations=args.max_iterations)
     state, cset = cloth_scene(args.width, args.height, dev)
     p, gc = state.particles, cset.grid_cloths[0]
     xk, _ = cloth_step_fn(gc, p.inv_mass, cfg, dev, n_steps=10,
                           fuse_substeps=args.fuse)(p.x, p.v)
-    x, _ = plain_steps(gc, p.x, p.v, p.inv_mass,
-                                  10 * cfg.substeps, cfg.dt / cfg.substeps)
+    x, _ = plain_steps(gc, p.x, p.v, p.inv_mass, 10 * cfg.substeps,
+                       cfg.dt / cfg.substeps,
+                       max_iterations=cfg.max_iterations)
     record("cloth", xk, x)
 
     state, cset = bar_scene(args.bar_dims, dev)
@@ -1028,7 +1148,7 @@ def check(args, dev):
     xk, _ = gtc.make_tet_step(gt, p.inv_mass, dt=cfg.dt,
                               substeps=cfg.substeps,
                               max_iterations=cfg.max_iterations, n_steps=10,
-                              device=dev)(p.x, p.v)
+                              fuse_substeps=args.fuse, device=dev)(p.x, p.v)
     x, v = p.x, p.v
     for _ in range(10 * cfg.substeps):
         x, v = gtc.tet_substep_reference(
@@ -1059,8 +1179,32 @@ def parser():
     ap.add_argument("--width", type=int, default=320)
     ap.add_argument("--height", type=int, default=320)
     ap.add_argument("--steps-per-call", type=int, default=20)
+    ap.add_argument("--max-iterations", type=int, default=1,
+                    help="position iterations a substep (the reference's "
+                         "maxIterations; default 1) for the cloth, "
+                         "--batch, --bar and --check")
     ap.add_argument("--calls", type=int, default=5)
     ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--timers", action="store_true",
+                    help="with --no-pallas at batch 1: PhaseTimers' average "
+                         "times a phase on standard error")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="with --no-pallas: a torch.profiler Chrome trace "
+                         f"of the timed loop, DIR/{TRACE_FILE}")
+    ap.add_argument("--pallas", dest="pallas", action="store_true",
+                    default=None,
+                    help="the kernel routes (the default; the name is "
+                         "bench.py's)")
+    ap.add_argument("--no-pallas", dest="pallas", action="store_false",
+                    help="the cloth and the bar through the general "
+                         "stepper, solver.rollout(..., kernels=False)")
+    ap.add_argument("--donate", action="store_true",
+                    help="accepted for bench.py's command lines; PyTorch "
+                         "has no buffer donation, so it only warns")
+    ap.add_argument("--no-secondary", action="store_true",
+                    help="the default run prints the headline cloth line "
+                         "alone, without the bar, dam, pile and contact "
+                         "planner lines before it")
     ap.add_argument("--mpc", action="store_true")
     ap.add_argument("--mpc-big", action="store_true")
     ap.add_argument("--mpc-samples", type=int, default=256)
@@ -1077,10 +1221,11 @@ def parser():
                     help="the stiff-rod tree (bench.py --rods --tree)")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--fuse", dest="fuse", action="store_true", default=True,
-                    help="run a step's cloth substeps in one kernel launch "
-                         "(default, as bench.py)")
+                    help="run a step's cloth substeps in one kernel launch, "
+                         "and the bar's step in one (default, as bench.py)")
     ap.add_argument("--no-fuse", dest="fuse", action="store_false",
-                    help="one cloth kernel launch a substep")
+                    help="one cloth kernel launch a substep, one tet launch "
+                         "an iteration of each substep")
     ap.add_argument("--pile", action="store_true",
                     help="a scene file played headless (PileScene.json "
                          "under data/scenes/ unless --scene is given)")
@@ -1115,6 +1260,61 @@ def _scene_mode(args, dev, path):
                                    args.steps_per_call)[0]]
     return 0, [mpc_contact(path, dev, args.mpc_samples, args.mpc_horizon,
                            args.calls)[0]]
+
+
+def _contact_line(args, dev):
+    """The default run's contact planner line: ``--mpc-contact`` on
+    ``--scene`` or the shipped contact scene, which must exist."""
+    path = args.scene or CONTACT_SCENE
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"the scene file {path} does not exist (the "
+                                "shipped reference scenes are not in the "
+                                "repository)")
+    return mpc_contact(path, dev, args.mpc_samples, args.mpc_horizon,
+                       args.calls)[0]
+
+
+def secondary_lines(args, dev):
+    """The default run's secondary records (``bench.py:694-731``), in
+    ``bench.py``'s order and with its overrides and names: each mode under
+    a ``SIGALRM`` watchdog of ``SECONDARY_EACH_S`` s within a
+    ``SECONDARY_BUDGET_S`` s budget for all; an error, a timeout or a spent
+    budget becomes ``{"metric": name, "error": ...}``."""
+    lines = (
+        ("xpbd_fem_bar_103k_steps_per_s", bench_bar,
+         dict(calls=2, steps_per_call=10, check=False, pallas=None)),
+        ("pbf_dam_12k_steps_per_s", bench_fluid,
+         dict(fluid_dims=(40, 25, 12), calls=2, steps_per_call=10)),
+        ("rigid_pile_100body_steps_per_s", bench_pile_big,
+         dict(calls=2, steps_per_call=10, pile_bodies=100)),
+        ("mppi_contact_scene_updates_per_s", _contact_line,
+         dict(calls=1, mpc_samples=128, mpc_horizon=10)))
+    deadline = time.perf_counter() + SECONDARY_BUDGET_S
+    out = []
+    for name, fn, over in lines:
+        left = deadline - time.perf_counter()
+        if left < SECONDARY_MIN_S:
+            out.append({"metric": name,
+                        "error": "skipped: secondary budget exhausted"})
+            continue
+        budget = int(min(SECONDARY_EACH_S, left))
+        a2 = copy.copy(args)
+        for k, v in over.items():
+            setattr(a2, k, v)
+
+        def alarm(sig, frame, name=name, budget=budget):
+            raise TimeoutError(f"{name} exceeded {budget}s")
+
+        old = signal.signal(signal.SIGALRM, alarm)
+        signal.alarm(budget)
+        try:
+            out.append(fn(a2, dev))
+        except Exception as e:          # noqa: BLE001 — reported as a line
+            out.append({"metric": name, "error": f"{type(e).__name__}: {e}"})
+        finally:
+            signal.alarm(0)
+            signal.signal(signal.SIGALRM, old)
+    return out
 
 
 def run(argv=None):
@@ -1152,7 +1352,8 @@ def run(argv=None):
                      ("pile_big", bench_pile_big)):
         if getattr(args, flag):
             return 0, [fn(args, dev)]
-    return 0, [bench_cloth(args, dev)]
+    records = [] if args.no_secondary else secondary_lines(args, dev)
+    return 0, records + [bench_cloth(args, dev)]
 
 
 def main(argv=None) -> int:

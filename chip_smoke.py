@@ -66,8 +66,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the stencil route on the CPU (costs within 1e-5 relative, the nominal
    within 1e-5);
    then ``bench_torch.py``'s ``--mpc``, ``--check``, default (fused
-   cloth) and ``--no-fuse`` modes in this process, their JSON lines
-   printed as they come;
+   cloth, without its secondary lines) and ``--no-fuse`` modes in this
+   process, their JSON lines printed as they come;
 8. the unstructured route (slice 4) at full width, no kernel of the port
    on it: U1, the bench cloth, and U2, the bench bar, each built by
    ``SceneBuilder(use_structured_grid=False)`` as particle batches
@@ -155,7 +155,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     ``intra_grid`` against ``make_step_fn`` (2e-5, 20 steps), the rollout
     shard at 256 rollouts against the unsharded batched step bit for bit,
     ``intra`` on the unstructured cloth against ``make_step_fn`` (1e-5, 10
-    steps), and steps/s of each; one ``{"parallel": ...}`` line.
+    steps), and steps/s of each; one ``{"parallel": ...}`` line;
+14. B2's multi-substep mode (:func:`run_tet_fused`; one cooperative launch
+    a step, ``tet_substep_kernel<1>``) on the 80×36×36 bench bar: against
+    the per-iteration launches bit for bit in x and v at 1 and 4 rollouts,
+    1 and 2 iterations, with and without damping, over 3 steps, and
+    against the plain version over 10 steps (1e-5); its grid size and
+    runtime resources; a fused launch's time beside 5 per-iteration
+    launches in this call at 1 and 4 rollouts, with its bound and its
+    plain version's time; ``make_tet_step`` (fused) over 200 steps with
+    the launch counts set to 0 before and read after (200 fused
+    launches) and its steps/s; then ``bench_torch.py`` in this process:
+    ``--bar`` fused and ``--no-fuse``, ``--max-iterations 2`` on the cloth
+    and the bar, ``--no-pallas --timers --profile DIR`` on the cloth (the
+    trace file written) and the default run, whose secondary lines all
+    carry a value but the absent contact scene's; one ``{"tet_fused":
+    ...}`` line.
 
 Each phase's seconds are logged as it ends and printed as one
 ``{"phase_s": ...}`` line before the ``kernels`` line.
@@ -174,9 +189,11 @@ highest window.
 Prints one ``{"unstructured": {...}}`` line (phase 8), one ``{"rigid":
 {...}}`` line (phase 9), one ``{"collision": {...}}`` line (phase 10),
 one ``{"rods": {...}}`` line (phase 11), one ``{"scenes": {...}}`` line
-(phase 12), one ``{"parallel": {...}}`` line (phase 13), the
-``{"phase_s": {...}}`` line, one ``{"kernels": [...]}`` JSON line (the
-cloth kernel's per-substep, fused and row-window modes as three entries),
+(phase 12), one ``{"parallel": {...}}`` line (phase 13), one
+``{"tet_fused": {...}}`` line (phase 14), the ``{"phase_s": {...}}``
+line, one ``{"kernels": [...]}`` JSON line (the cloth kernel's
+per-substep, fused and row-window modes as three entries, the tet
+kernel's per-iteration and multi-substep modes as two),
 the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits 1 and prints no result.
@@ -280,6 +297,14 @@ INTRA_GRID_TOL = 2e-5           # tests/test_intra_sharding.py's bar
 INTRA_TOL = 1e-5
 DP_ROLLOUTS = 256
 PAR_MAIN_STEPS = 200            # counted steps of each phase-13 main path
+# phase 14: B2's multi-substep mode (one cooperative launch a step) and
+# bench_torch.py's remaining options
+TET_FUSED_BATCHES = (1, 4)      # rollouts of the fused checks and timings
+TET_FUSED_ITERS = (1, 2)        # iterations of the bit-for-bit checks
+TET_FUSED_DAMPING = (0.0, 0.01)
+TET_FUSED_BIT_STEPS = 3         # steps of each bit-for-bit check (before the
+#                                 reference's breakdown past one iteration)
+TET_FUSED_TIMED = {1: 200, 4: 100}     # launches a timing at each n_batch
 # phase 3, C-1: B2 at a rollout axis
 TET_BATCH = 4                   # B2's n_batch check on the bench bar
 TET_BATCH_JITTER = 0.01         # seeded jitter of free x, second case
@@ -474,6 +499,7 @@ def kernel_counters():
             "cloth_substep_fused": gcc.cloth_fused_cuda,
             "cloth_substep_window": gcc.cloth_window_cuda,
             "tet_substep": gtc.tet_substep_cuda,
+            "tet_substep_fused": gtc.tet_fused_cuda,
             "pbf_density_lambda": fcc.density_lambda_cuda,
             "pbf_corrections": fcc.corrections_cuda,
             "pbf_xsph": fcc.xsph_cuda}
@@ -687,16 +713,17 @@ def device_ms(fn, n, kernel_name):
 
 
 def tet_kernel_vs_plain(scene, steps, iters=1, damping=0.0, label=""):
-    """``make_tet_step`` one step at a time against the plain version.
-    Returns the max|dx| after each step, the plain version's largest
-    displacement after each step, and the final plain positions."""
+    """``make_tet_step`` in the per-iteration mode one step at a time
+    against the plain version. Returns the max|dx| after each step, the
+    plain version's largest displacement after each step, and the final
+    plain positions."""
     from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
 
     state, cset = scene
     gt, p = cset.grid_tets[0], state.particles
     f = gtc.make_tet_step(gt, p.inv_mass, dt=0.005, substeps=5,
                           max_iterations=iters, damping=damping,
-                          device=p.x.device)
+                          fuse_substeps=False, device=p.x.device)
     x, v, xr, vr = p.x, p.v, p.x, p.v
     devs, moved = [], []
     for _ in range(steps):
@@ -812,6 +839,9 @@ def check_tet_kernel_batched(dev, bar):
            "jittered_max_abs_err_per_step": jdevs,
            "jittered_singles_bitwise": jsingles,
            "ms_b1": times[1], f"ms_b{TET_BATCH}": times[TET_BATCH]}
+    for nb in (1, TET_BATCH):
+        b = tet_bound(dims, nb)
+        out[f"bound_ms_b{nb}"], out[f"bound_by_b{nb}"] = b["ms"], b["by"]
     log(f"check tet n_batch {TET_BATCH}: {out}")
     log(f"timing tet_substep at one rollout: {times[1]!r} ms a launch in "
         f"this run; PERF.md records 0.01585 ms for it")
@@ -921,6 +951,27 @@ def run_tet_main_path(dev, x_plain10):
             "peak_bytes": peak}
 
 
+def tet_bound(dims, nb=1, substeps=1, iterations=1):
+    """The least time of one tet launch at ``nb`` rollouts of a ``dims``
+    grid running ``substeps`` substeps of ``iterations`` iterations (the
+    per-iteration mode's launch: 1 and 1, the bound of a substep at one
+    iteration): each rollout's 6 state planes read once and written once,
+    w and inv_cnt read once for all rollouts, against the operations the
+    passes need (``TET_FLOPS_*``). Returns ``{"ms", "by", "bytes_ms",
+    "ops_ms"}``."""
+    n_vert = dims[0] * dims[1] * dims[2]
+    n_cells = (dims[0] - 1) * (dims[1] - 1) * (dims[2] - 1)
+    bytes_moved = 4 * (12 * nb + 2) * n_vert
+    flops = nb * (substeps * iterations * (TET_FLOPS_PER_CELL * n_cells
+                                           + TET_FLOPS_PER_VERTEX * n_vert)
+                  + substeps * TET_FLOPS_FIXED * n_vert)
+    t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_FP32_FLOPS * 1e3
+    return {"ms": max(t_bytes, t_ops),
+            "by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "ops_ms": t_ops}
+
+
 def time_tet_kernel(dev, bar):
     """Phase 5, tet: the kernel per launch (one substep at one iteration),
     the plain version per substep and the bound, at the main path's
@@ -951,16 +1002,9 @@ def time_tet_kernel(dev, bar):
                                           h=0.001)
 
     out["plain_ms"] = cuda_time_ms(plain, 20)
-    n_vert = p.n
-    n_cells = (dims[0] - 1) * (dims[1] - 1) * (dims[2] - 1)
-    bytes_moved = 4 * 14 * n_vert        # 6 planes + w + inv_cnt in, 6 out
-    flops = (TET_FLOPS_PER_CELL * n_cells
-             + (TET_FLOPS_PER_VERTEX + TET_FLOPS_FIXED) * n_vert)
-    t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOPS * 1e3
-    out["bound_ms"] = max(t_bytes, t_ops)
-    out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    out["bound_bytes_ms"], out["bound_ops_ms"] = t_bytes, t_ops
+    b = tet_bound(dims)
+    out["bound_ms"], out["bound_by"] = b["ms"], b["by"]
+    out["bound_bytes_ms"], out["bound_ops_ms"] = b["bytes_ms"], b["ops_ms"]
     for k, v in out.items():
         log(f"timing tet {k}: {v!r}")
     log(f"timing tet_substep: {out['ms']!r} ms a substep in this run; "
@@ -1749,11 +1793,13 @@ def check_mpc_big_rollouts(planner, u, x, cost):
 
 def run_bench_modes():
     """Phase 7c: ``bench_torch.py``'s ``--mpc``, ``--check`` and default
-    modes in this process; each JSON line is printed as it comes."""
+    modes in this process (the default without its secondary lines, which
+    phase 14 runs); each JSON line is printed as it comes."""
 
     out = {}
     for name, argv in (("mpc", ["--mpc"]), ("check", ["--check"]),
-                       ("default", []), ("no_fuse", ["--no-fuse"])):
+                       ("default", ["--no-secondary"]),
+                       ("no_fuse", ["--no-fuse", "--no-secondary"])):
         code, records = bench_torch.run(argv)
         for r in records:
             print(json.dumps(r), flush=True)
@@ -3607,6 +3653,234 @@ def run_parallel(dev):
     return out
 
 
+def check_tet_fused(dev, bar):
+    """Phase 14a: B2's multi-substep mode on the bench bar against the
+    per-iteration launches, bit for bit in x and v, at each of
+    ``TET_FUSED_BATCHES`` rollouts (rollout r at rest, its free vertices
+    moving at (0, −0.1 r, 0.05 r) m/s), ``TET_FUSED_ITERS`` iterations and
+    ``TET_FUSED_DAMPING`` over ``TET_FUSED_BIT_STEPS`` steps; then at one
+    iteration over 10 steps against the plain version (``CHECK_TOL``).
+    Returns the record and the start states."""
+    from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
+
+    state, cset = bar
+    gt, p = cset.grid_tets[0], state.particles
+    dims = (gt.width, gt.height, gt.depth)
+    w = p.inv_mass.contiguous()
+    ic = gt.inv_cnt.reshape(-1).contiguous()
+    free = (p.inv_mass > 0)[:, None]
+    starts = {}
+    for nb in TET_FUSED_BATCHES:
+        r = torch.arange(nb, device=dev, dtype=torch.float32)
+        vel = torch.stack([torch.zeros_like(r), -0.1 * r, 0.05 * r], -1)
+        v0 = torch.where(free, vel[:, None, :], 0.0)
+        x0 = p.x.expand(nb, -1, -1).contiguous()
+        starts[nb] = (x0[0], v0[0]) if nb == 1 else (x0, v0)
+    bitwise, grids = {}, {}
+    for nb in TET_FUSED_BATCHES:
+        for iters in TET_FUSED_ITERS:
+            for damping in TET_FUSED_DAMPING:
+                params = gtc.kernel_params(gt, h=0.001, damping=damping)
+                xf, vf = xs, vs = tuple(gtc.to_planes(a)
+                                        for a in starts[nb])
+                scratch = gtc.FusedScratch()
+                before = gtc.tet_fused_cuda.launches
+                for _ in range(TET_FUSED_BIT_STEPS):
+                    xf, vf = gtc.tet_fused_cuda(xf, vf, w, ic, params, dims,
+                                                iters, 5, scratch)
+                launches = gtc.tet_fused_cuda.launches - before
+                xs, vs, _, _ = gtc.run_substeps(
+                    xs, vs, w, ic, params, dims, iters,
+                    5 * TET_FUSED_BIT_STEPS)
+                torch.cuda.synchronize()
+                key = f"b{nb}_it{iters}_damping{damping}"
+                bitwise[key] = bool(torch.equal(xf, xs)
+                                    and torch.equal(vf, vs)
+                                    and torch.isfinite(xf).all())
+                grids[f"b{nb}"] = gtc.tet_fused_cuda.grid
+                assert launches == TET_FUSED_BIT_STEPS, launches
+    plain = {}
+    params = gtc.kernel_params(gt, h=0.001)
+    for nb in TET_FUSED_BATCHES:
+        x, v = starts[nb]
+        xf, vf = gtc.to_planes(x), gtc.to_planes(v)
+        scratch = gtc.FusedScratch()
+        xr, vr = x, v
+        devs = []
+        for _ in range(10):
+            xf, vf = gtc.tet_fused_cuda(xf, vf, w, ic, params, dims, 1, 5,
+                                        scratch)
+            for _ in range(5):
+                xr, vr = gtc.tet_substep_reference(gt, xr, vr, p.inv_mass,
+                                                   h=0.001)
+            lead = () if nb == 1 else (nb,)
+            devs.append(max_dev(gtc.from_planes(xf, lead), xr))
+        plain[f"b{nb}"] = devs
+    torch.cuda.synchronize()
+    out = {"bit_equal_per_iteration": bitwise, "grid": grids,
+           "plain_max_abs_err_per_step": plain,
+           "plain_max_abs_err": max(max(d) for d in plain.values())}
+    log(f"phase 14 tet fused checks: {out}")
+    assert all(bitwise.values()), bitwise
+    assert out["plain_max_abs_err"] <= CHECK_TOL, plain
+    return out, starts
+
+
+def time_tet_fused(dev, bar, starts):
+    """Phase 14b: a fused launch (one step, 5 passes) beside 5
+    per-iteration launches in this call, at each of ``TET_FUSED_BATCHES``
+    rollouts, with their bounds; the plain version of one fused launch at
+    one rollout."""
+    from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
+
+    state, cset = bar
+    gt, p = cset.grid_tets[0], state.particles
+    dims = (gt.width, gt.height, gt.depth)
+    w = p.inv_mass.contiguous()
+    ic = gt.inv_cnt.reshape(-1).contiguous()
+    params = gtc.kernel_params(gt, h=0.001)
+    out = {}
+    for nb in TET_FUSED_BATCHES:
+        x, v = starts[nb]
+        buf = [gtc.to_planes(x), gtc.to_planes(v)]
+        scratch = gtc.FusedScratch()
+
+        def fused():
+            buf[:] = gtc.tet_fused_cuda(buf[0], buf[1], w, ic, params, dims,
+                                        1, 5, scratch)
+
+        def per_iteration():
+            buf[:] = gtc.tet_substep_cuda(buf[0], buf[1], w, ic, params,
+                                          dims)
+
+        n = TET_FUSED_TIMED[nb]
+        # one instance at a time: the name matches both; a second profile
+        # where the first recorded no device time for it
+        for key, fn, count in (("ms", fused, n // 5),
+                               ("substep_ms", per_iteration, n)):
+            kms = (device_ms(fn, count, "tet_substep_kernel")
+                   or device_ms(fn, count, "tet_substep_kernel"))
+            out[f"{key}_b{nb}"] = (cuda_time_ms(fn, count) if kms is None
+                                   else kms)
+            out[f"{key}_source_b{nb}"] = ("cuda events" if kms is None
+                                          else "profiler")
+        out[f"interval_ms_b{nb}"] = cuda_time_ms(fused, n // 5)
+        out[f"five_launches_ms_b{nb}"] = 5 * out[f"substep_ms_b{nb}"]
+        b = tet_bound(dims, nb, substeps=5)
+        out[f"bound_ms_b{nb}"], out[f"bound_by_b{nb}"] = b["ms"], b["by"]
+        out[f"substep_bound_ms_b{nb}"] = tet_bound(dims, nb)["ms"]
+    x, v = starts[1]
+
+    def plain():
+        xr, vr = x, v
+        for _ in range(5):
+            xr, vr = gtc.tet_substep_reference(gt, xr, vr, p.inv_mass,
+                                               h=0.001)
+
+    out["plain_ms"] = cuda_time_ms(plain, 3)
+    log(f"phase 14 tet fused timing: {out}")
+    return out
+
+
+def run_tet_fused_main_path(dev, bar):
+    """Phase 14c: ``make_tet_step`` (fused, its default) over
+    ``STEPS_MAIN`` counted steps of the bench bar, one launch a step, and
+    its steps/s."""
+    from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
+
+    state, cset = bar
+    gt, p = cset.grid_tets[0], state.particles
+    step = gtc.make_tet_step(gt, p.inv_mass, dt=0.005, substeps=5)
+    xv, run_s, counts, peak = _counted_run(lambda a: step(*a), (p.x, p.v),
+                                           STEPS_MAIN)
+    log(f"phase 14 make_tet_step (fused): {STEPS_MAIN} steps in {run_s!r} "
+        f"s, launch counts {counts}, peak device memory {peak} B")
+    n_pin = gt.height * gt.depth
+    assert counts == {k: STEPS_MAIN if k == "tet_substep_fused" else 0
+                      for k in counts}, counts
+    assert torch.isfinite(xv[0]).all() and torch.isfinite(xv[1]).all()
+    assert torch.equal(xv[0][:n_pin], p.x[:n_pin]), "pinned face moved"
+    many = gtc.make_tet_step(gt, p.inv_mass, dt=0.005, substeps=5,
+                             n_steps=20)
+    rate = rate_windows(lambda: many(p.x, p.v), 20)
+    out = {"steps": STEPS_MAIN, "launches": counts, "peak_bytes": peak,
+           "steps_per_s": rate}
+    log(f"phase 14 fused main path: {out}")
+    return out
+
+
+def run_bench_options():
+    """Phase 14d: ``bench_torch.py``'s ``--bar`` fused and ``--no-fuse``,
+    ``--max-iterations 2`` on the cloth and the bar, ``--no-pallas
+    --timers --profile DIR`` on the cloth (the trace file written and not
+    empty) and the default run with its secondary lines, in this process;
+    each JSON line printed as it comes. Every secondary line but the
+    absent contact scene's has a value."""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        trace_dir = os.path.join(d, "trace")
+        runs = (("bar", ["--bar"]), ("bar_no_fuse", ["--bar", "--no-fuse"]),
+                ("cloth_it2", ["--max-iterations", "2", "--no-secondary"]),
+                ("bar_it2", ["--bar", "--max-iterations", "2"]),
+                ("cloth_no_pallas", ["--no-pallas", "--timers", "--profile",
+                                     trace_dir, "--no-secondary",
+                                     "--calls", "2", "--steps-per-call",
+                                     "5"]),
+                ("default", []))
+        for name, argv in runs:
+            t0 = time.perf_counter()
+            code, records = bench_torch.run(argv)
+            for r in records:
+                print(json.dumps(r), flush=True)
+            assert code == 0 and records, (name, code)
+            out[name] = {"records": records,
+                         "seconds": time.perf_counter() - t0}
+            if name == "cloth_no_pallas":
+                trace = os.path.join(trace_dir, bench_torch.TRACE_FILE)
+                out[name]["trace_bytes"] = (os.path.getsize(trace)
+                                            if os.path.exists(trace) else 0)
+    paths = {n: r["records"][-1]["path"] for n, r in out.items()}
+    log(f"phase 14 bench_torch.py paths: {paths}; seconds "
+        f"{ {n: r['seconds'] for n, r in out.items()} }")
+    assert paths == {"bar": "cuda_fused", "bar_no_fuse": "cuda_per_iteration",
+                     "cloth_it2": "cuda_fused", "bar_it2": "cuda_fused",
+                     "cloth_no_pallas": "torch_stencil",
+                     "default": "cuda_fused"}, paths
+    assert out["bar_it2"]["records"][0]["metric"].endswith("_it2")
+    assert out["cloth_no_pallas"]["trace_bytes"] > 0
+    default = out["default"]["records"]
+    assert len(default) == 5, default
+    for r in default[:3] + default[4:]:
+        assert math.isfinite(r["value"]) and r["value"] > 0, r
+    assert "ArmadilloCollisionScene.json" in default[3]["error"], default[3]
+    for name, r in out.items():
+        if name != "default":
+            assert all(math.isfinite(x["value"]) for x in r["records"])
+    return out
+
+
+def run_tet_fused(dev):
+    """Phase 14: B2's multi-substep mode on the card (:func:`check_tet_fused`,
+    :func:`time_tet_fused`, :func:`run_tet_fused_main_path`) and
+    ``bench_torch.py``'s remaining options (:func:`run_bench_options`).
+    Returns the record of ``{"tet_fused": ...}``."""
+    from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
+
+    bar = bar_scene(BAR, dev)
+    out = {"runtime_resources": gtc.kernel_resources(fused=True)}
+    log(f"phase 14 runtime tet_substep_kernel<1>: "
+        f"{out['runtime_resources']}")
+    out["checks"], starts = check_tet_fused(dev, bar)
+    out["timing"] = time_tet_fused(dev, bar, starts)
+    out["main_path"] = run_tet_fused_main_path(dev, bar)
+    del bar, starts
+    torch.cuda.empty_cache()
+    out["bench"] = run_bench_options()
+    return out
+
+
 PHASE_S = {}
 
 
@@ -3681,6 +3955,7 @@ def main() -> int:
     rods = timed("11 rods", run_rods, dev)
     scenes = timed("12 scenes", run_scenes, dev)
     parallel = timed("13 parallel", run_parallel, dev)
+    tet_fused = timed("14 tet fused and bench options", run_tet_fused, dev)
 
     kernels = [{
         "name": "cloth_substep",
@@ -3737,7 +4012,7 @@ def main() -> int:
         "main_path_device_busy": tet_main["device_busy"],
         "main_path_device_us_per_step": tet_main["device_us_per_step"],
         "main_path_peak_bytes": tet_main["peak_bytes"],
-        "ptxas": ptxas.get("tet_substep_kernel"),
+        "ptxas": ptxas.get("tet_substep_kernel<0>"),
         "runtime_resources": tet_resources,
         "n_batch_check": tet_batch,
         "planner_route_check": bar_planner_check,
@@ -3825,6 +4100,29 @@ def main() -> int:
             windows["stitched_vs_unsharded_max_dx"],
         "window_rows": windows["rows"] + 2 * windows["exchange_rows"],
     }]
+    tf, tft = tet_fused["checks"], tet_fused["timing"]
+    kernels.append({
+        "name": "tet_substep_fused",
+        "route": "cuda",
+        "source": "positionbaseddynamics_tpu_torch/csrc/grid_tet_step.cu",
+        "replaces": "positionbaseddynamics_tpu/solver/grid_tet_pallas.py:164",
+        "launches": tet_fused["main_path"]["launches"]["tet_substep_fused"],
+        "max_abs_err": tf["plain_max_abs_err"],
+        "ms": tft["ms_b1"],
+        "plain_ms": tft["plain_ms"],
+        "bound_ms": tft["bound_ms_b1"],
+        "bound_by": tft["bound_by_b1"],
+        "library_ms": None,
+        "ms_source": tft["ms_source_b1"],
+        **{k: v for k, v in tft.items()
+           if k not in ("ms_b1", "plain_ms", "bound_ms_b1", "bound_by_b1",
+                        "ms_source_b1")},
+        "bit_equal_per_iteration": tf["bit_equal_per_iteration"],
+        "grid": tf["grid"],
+        "main_path_steps_per_s": tet_fused["main_path"]["steps_per_s"],
+        "ptxas": ptxas.get("tet_substep_kernel<1>"),
+        "runtime_resources": tet_fused["runtime_resources"],
+    })
     assert dam["sync_error"] is None, dam["sync_error"]
     print(json.dumps({"unstructured": unstructured}))
     print(json.dumps({"rigid": rigid}))
@@ -3832,6 +4130,8 @@ def main() -> int:
     print(json.dumps({"rods": rods}))
     print(json.dumps({"scenes": scenes}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"tet_fused": {k: v for k, v in tet_fused.items()
+                                    if k != "bench"}}))
     print(json.dumps({"phase_s": PHASE_S}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -58,9 +58,31 @@
 // all of the bar's blocks are resident at once (252 blocks at 2 an SM):
 // a box whose blocks need a second round on the SMs loses more than a
 // smaller halo wins.
+//
+// The multi-substep mode (tet_substep_kernel<1>, the counterpart of the TPU
+// kernel's one pass a step, grid_tet_pallas.py:12-15): one cooperative,
+// persistent launch runs a whole step, substeps x max_iterations passes.
+// The TPU kernel widens each row block's halo by a row a pass; here a box
+// would have to widen its halo in all three directions (22 x 16 x 16
+// staged vertices for 432 owned at 5 passes), so the launch keeps the
+// one-vertex halo and puts a grid-wide barrier between the passes instead.
+// Its grid is as many blocks as the card holds at once (at most one a
+// (box, rollout) item); each pass a block takes the items in grid stride
+// and runs the three phases above on each, then the grid synchronises.
+// The positions ping-pong between x_out and a scratch plane set, chosen so
+// that the last pass writes x_out; the velocities likewise between v_out
+// and a scratch, one swap a substep; at more than one iteration the first
+// pass of a substep keeps the box's start positions in a third plane set
+// for the last pass's velocity update, and lambda ping-pongs as above. No
+// pass writes a buffer that another block reads in the same pass, and what
+// one pass writes is read only after the barrier; buffers that the launch
+// writes are read with plain loads (never the read-only path), which the
+// barrier orders. Every pass computes what a launch of the per-iteration
+// mode computes, by the same code, so the two modes agree bit for bit.
 #include <climits>
 #include <cstring>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -115,6 +137,34 @@ struct TetParams {
   float use_damp;      // 1 when damping != 0
 };
 static_assert(sizeof(TetParams) == N_PARAMS * sizeof(float), "param layout");
+
+// The multi-substep mode's step: its scratch planes (same layout as the
+// state planes; lambda as (n_batch, 5, cells)) and its counts. Unused by the
+// per-iteration mode.
+struct FusedPlan {
+  float* xs;      // positions, the planes x_out alternates with
+  float* vs;      // velocities, the planes v_out alternates with
+  float* x0;      // a substep's start positions (more than one iteration)
+  float* lam0;    // lambda ping-pong
+  float* lam1;    // (more than two iterations)
+  int n_batch;
+  int substeps;
+  int iterations;
+};
+
+// One pass's buffers in the multi-substep mode, the base of rollout 0,
+// kept in shared memory for the pass and read at each phase where they are
+// used, so that they hold no register through the solve.
+struct PassBuffers {
+  const float* x_in;
+  const float* v_in;
+  const float* x_cur;
+  const float* lam_in;
+  float* lam_out;
+  float* x_out;
+  float* v_out;
+  float* x0_out;
+};
 
 // Corner c of a cell sits at (i + a, j + b, k + c) (grid_tet._CORNERS).
 __host__ __device__ constexpr int corner_a(int c) {
@@ -324,21 +374,29 @@ __device__ __forceinline__ void solve_cell(const volatile float* sx,
   }
 }
 
-// One Jacobi iteration of a substep for the box of block blockIdx.x (boxes
-// numbered with k fastest) of rollout blockIdx.y. x_cur is null in a
+// One Jacobi iteration of a substep for box `box` (boxes numbered with k
+// fastest) of rollout `rollout`, by the whole block. x_cur is null in a
 // substep's first iteration (integrate); lam_in is null in the first
 // iteration (lambda 0) and lam_out in the last; v_out is set in the last
-// iteration only.
-__global__ void __launch_bounds__(Tile::threads, kMinBlocks)
-tet_substep_kernel(const float* __restrict__ x_in,
-                   const float* __restrict__ v_in,
-                   const float* __restrict__ x_cur,
-                   const float* __restrict__ w_g,
-                   const float* __restrict__ ic_g,
-                   const float* __restrict__ lam_in,
-                   float* __restrict__ lam_out, float* __restrict__ x_out,
-                   float* __restrict__ v_out, const TetParams P, int W, int H,
-                   int D, int w_bstride) {
+// iteration only. In the multi-substep mode (FUSED) the buffers come from
+// pb instead, x0_out among them: set in the first iteration of a substep
+// of more than one, the box's start positions go there, for x_in of the
+// substep's last iteration.
+template <int FUSED>
+__device__ __forceinline__ void tet_box(const float* __restrict__ x_in,
+                                        const float* __restrict__ v_in,
+                                        const float* __restrict__ x_cur,
+                                        const float* __restrict__ w_g,
+                                        const float* __restrict__ ic_g,
+                                        const float* __restrict__ lam_in,
+                                        float* __restrict__ lam_out,
+                                        float* __restrict__ x_out,
+                                        float* __restrict__ v_out,
+                                        float* __restrict__ x0_out,
+                                        const volatile PassBuffers* pb,
+                                        const TetParams& P, int W, int H,
+                                        int D, int w_bstride, unsigned box,
+                                        unsigned rollout) {
   extern __shared__ float smem[];
   float* sx = smem;                       // [3][S]
   float* sw = sx + 3 * Tile::S;           // [S]
@@ -347,23 +405,33 @@ tet_substep_kernel(const float* __restrict__ x_in,
   float* sc = sx0 + 3 * Tile::O;          // [24][C], the cells' sums
   const int t = threadIdx.x;
   const int nbk = (D + TK - 1) / TK, nbj = (H + TJ - 1) / TJ;
-  const int bk = blockIdx.x % nbk;
-  const int br = blockIdx.x / nbk;
+  const int bk = box % nbk;
+  const int br = box / nbk;
   const int i0 = br / nbj * TI, j0 = br % nbj * TJ, k0 = bk * TK;
   const int n = W * H * D;
-  // rollout blockIdx.y: its own state and lambda planes; w is shared when
-  // w_bstride is 0
+  // the rollout's own state and lambda planes; w is shared when w_bstride
+  // is 0
   {
-    const long long b = blockIdx.y;
+    const long long b = rollout;
     const long long xo = b * 3 * n;
     const long long lo = b * 5 * (long long)(W - 1) * (H - 1) * (D - 1);
+    if constexpr (FUSED) {
+      x_in = pb->x_in;
+      v_in = pb->v_in;
+      x_cur = pb->x_cur;
+      v_out = pb->v_out;          // whether this is a last iteration
+      x0_out = pb->x0_out;
+      if (x0_out != nullptr) x0_out += xo;
+    }
     x_in += xo;
     v_in += xo;
     if (x_cur != nullptr) x_cur += xo;
-    x_out += xo;
-    if (v_out != nullptr) v_out += xo;
-    if (lam_in != nullptr) lam_in += lo;
-    if (lam_out != nullptr) lam_out += lo;
+    if constexpr (!FUSED) {
+      x_out += xo;
+      if (v_out != nullptr) v_out += xo;
+      if (lam_in != nullptr) lam_in += lo;
+      if (lam_out != nullptr) lam_out += lo;
+    }
     w_g += b * w_bstride;
   }
 
@@ -403,6 +471,13 @@ tet_substep_kernel(const float* __restrict__ x_in,
         ro[u] = ((si - 1) * TJ + (sj - 1)) * TK + (sk - 1);
 #pragma unroll
         for (int a = 0; a < 3; ++a) r0[u][a] = x_in[a * n + vi];
+      }
+      if constexpr (FUSED) {
+        if (x0_out != nullptr && si >= 1 && si <= TI && sj >= 1 &&
+            sj <= TJ && sk >= 1 && sk <= TK) {
+#pragma unroll
+          for (int a = 0; a < 3; ++a) x0_out[a * n + vi] = rx[u][a];
+        }
       }
     }
   }
@@ -445,6 +520,13 @@ tet_substep_kernel(const float* __restrict__ x_in,
   const int n_cells = wc * hc * dc;
   const volatile float* vx = sx;
   const volatile float* vw = sw;
+  if constexpr (FUSED) {
+    const long long lo = (long long)rollout * 5 * n_cells;
+    lam_in = pb->lam_in;
+    lam_out = pb->lam_out;
+    if (lam_in != nullptr) lam_in += lo;
+    if (lam_out != nullptr) lam_out += lo;
+  }
 #pragma unroll
   for (int k = 0; k < Tile::NC; ++k) {
     const int m = m0 + k * stride;
@@ -470,6 +552,13 @@ tet_substep_kernel(const float* __restrict__ x_in,
   // ---- 3. the box's vertices: gather corner by corner, apply inv_cnt; in
   //      the last iteration the first-order velocity update
   //      (TimeIntegration.cpp:42-51) and damping
+  if constexpr (FUSED) {
+    const long long xo = (long long)rollout * 3 * n;
+    x_out = pb->x_out + xo;
+    v_out = pb->v_out;
+    if (v_out != nullptr) v_out += xo;
+    v_in = pb->v_in + xo;
+  }
   for (int o = t; o < Tile::O; o += Tile::threads) {
     const int oi = o / (TJ * TK);
     const int orr = o - oi * (TJ * TK);
@@ -508,9 +597,75 @@ tet_substep_kernel(const float* __restrict__ x_in,
       }
     }
   }
+}  // tet_box
+
+__host__ __device__ inline int n_blocks(int W, int H, int D) {
+  return ((W + TI - 1) / TI) * ((H + TJ - 1) / TJ) * ((D + TK - 1) / TK);
+}
+
+// FUSED 0: one Jacobi iteration of a substep, the box of block blockIdx.x
+// of rollout blockIdx.y (tet_box; F unused). FUSED 1: a whole step of
+// F.n_batch rollouts, F.substeps x F.iterations passes, in one cooperative
+// launch (see the top of the file): x_in and v_in are the step's input,
+// x_out and v_out its output, x_cur, lam_in and lam_out unused.
+template <int FUSED>
+__global__ void __launch_bounds__(Tile::threads, kMinBlocks)
+tet_substep_kernel(const float* __restrict__ x_in,
+                   const float* __restrict__ v_in,
+                   const float* __restrict__ x_cur,
+                   const float* __restrict__ w_g,
+                   const float* __restrict__ ic_g,
+                   const float* __restrict__ lam_in,
+                   float* __restrict__ lam_out, float* __restrict__ x_out,
+                   float* __restrict__ v_out, const TetParams P, int W, int H,
+                   int D, int w_bstride, const FusedPlan F) {
+  if constexpr (FUSED == 0) {
+    tet_box<0>(x_in, v_in, x_cur, w_g, ic_g, lam_in, lam_out, x_out, v_out,
+               nullptr, nullptr, P, W, H, D, w_bstride, blockIdx.x,
+               blockIdx.y);
+  } else {
+    cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+    __shared__ PassBuffers pass;
+    const int nbox = n_blocks(W, H, D);
+    const int items = nbox * F.n_batch;
+    const int passes = F.substeps * F.iterations;
+    for (int p = 0; p < passes; ++p) {
+      if (threadIdx.x == 0) {
+        const int s = p / F.iterations, it = p - s * F.iterations;
+        const bool first = it == 0, last = it == F.iterations - 1;
+        // pass p reads the positions pass p - 1 wrote (the input at p = 0)
+        // and writes the other plane set, the last pass x_out; a substep
+        // reads the velocities the substep before it wrote and writes the
+        // other set, the last substep v_out
+        const float* xr = p == 0 ? x_in : ((passes - p) & 1) ? F.xs : x_out;
+        const float* vr =
+            s == 0 ? v_in : ((F.substeps - s) & 1) ? F.vs : v_out;
+        pass.x_in = first ? xr : F.x0;
+        pass.v_in = vr;
+        pass.x_cur = first ? nullptr : xr;
+        // lambda as grid_tet_cuda.lambda_plan: read the plane the
+        // iteration before wrote, write the other
+        pass.lam_in = first ? nullptr : ((it - 1) & 1) ? F.lam1 : F.lam0;
+        pass.lam_out = last ? nullptr : (it & 1) ? F.lam1 : F.lam0;
+        pass.x_out = ((passes - 1 - p) & 1) ? F.xs : x_out;
+        pass.v_out =
+            last ? ((F.substeps - 1 - s) & 1) ? F.vs : v_out : nullptr;
+        pass.x0_out = first && !last ? F.x0 : nullptr;
+      }
+      __syncthreads();
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        // the item before may still read the block's shared memory
+        if (item != (int)blockIdx.x) __syncthreads();
+        tet_box<1>(nullptr, nullptr, nullptr, w_g, ic_g, nullptr, nullptr,
+                   nullptr, nullptr, nullptr, &pass, P, W, H, D, w_bstride,
+                   (unsigned)(item % nbox), (unsigned)(item / nbox));
+      }
+      grid.sync();
+    }
+  }
 }  // tet_substep_kernel
 
-// Opt in to the block's dynamic shared memory once per device: the
+// Opt in to the blocks' dynamic shared memory once per device: the
 // attribute holds for every later launch there.
 cudaError_t allow_smem() {
   static bool done[kMaxDevices] = {};
@@ -519,9 +674,13 @@ cudaError_t allow_smem() {
   if (e != cudaSuccess) return e;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (done[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(tet_substep_kernel,
+  e = cudaFuncSetAttribute(tet_substep_kernel<0>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)Tile::smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(tet_substep_kernel<1>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)Tile::smem);
   if (e == cudaSuccess) done[dev] = true;
   return e;
 }
@@ -533,30 +692,47 @@ bool dims_ok(int W, int H, int D) {
   return 3 * n < INT_MAX && 5 * cells < INT_MAX;
 }
 
-int n_blocks(int W, int H, int D) {
-  return ((W + TI - 1) / TI) * ((H + TJ - 1) / TJ) * ((D + TK - 1) / TK);
+// Blocks of the multi-substep mode resident on the current card at once
+// (its grid's largest size): out = blocks an SM x SMs. Returns
+// cudaErrorNotSupported on a card without cooperative launch.
+cudaError_t fused_capacity(int* out) {
+  static int cap[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cap[dev] == 0) {
+    int coop = 0, sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e != cudaSuccess) return e;
+    if (!coop) return cudaErrorNotSupported;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    e = allow_smem();
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, tet_substep_kernel<1>, Tile::threads, Tile::smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+    cap[dev] = per_sm * sms;
+  }
+  *out = cap[dev];
+  return cudaSuccess;
 }
 
-}  // namespace
-
-extern "C" {
-
-int pbd_tet_param_count() { return N_PARAMS; }
-
-// The kernel's resources as the runtime sees them: out[0] registers a
-// thread, out[1] static shared bytes a block, out[2] dynamic shared bytes a
-// block, out[3] local (spill) bytes a thread, out[4] resident blocks an SM,
-// out[5] threads a block. Returns a CUDA error code.
-int pbd_tet_kernel_resources(int* out) {
+// The resources of tet_substep_kernel<FUSED>, laid out as
+// pbd_tet_kernel_resources reports them.
+template <int FUSED>
+int resources_of(int* out) {
   if (!out) return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem();
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes at;
-  err = cudaFuncGetAttributes(&at, tet_substep_kernel);
+  err = cudaFuncGetAttributes(&at, tet_substep_kernel<FUSED>);
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, tet_substep_kernel, Tile::threads, Tile::smem);
+      &blocks, tet_substep_kernel<FUSED>, Tile::threads, Tile::smem);
   if (err != cudaSuccess) return (int)err;
   out[0] = at.numRegs;
   out[1] = (int)at.sharedSizeBytes;
@@ -566,6 +742,21 @@ int pbd_tet_kernel_resources(int* out) {
   out[5] = Tile::threads;
   return (int)cudaSuccess;
 }
+
+}  // namespace
+
+extern "C" {
+
+int pbd_tet_param_count() { return N_PARAMS; }
+
+// The per-iteration kernel's resources as the runtime sees them: out[0]
+// registers a thread, out[1] static shared bytes a block, out[2] dynamic
+// shared bytes a block, out[3] local (spill) bytes a thread, out[4] resident
+// blocks an SM, out[5] threads a block. Returns a CUDA error code.
+int pbd_tet_kernel_resources(int* out) { return resources_of<0>(out); }
+
+// The same for the multi-substep kernel.
+int pbd_tet_fused_resources(int* out) { return resources_of<1>(out); }
 
 // One Jacobi iteration of a substep of n_batch rollouts, one launch. State
 // planes are (n_batch, 3, W*H*D) float32; w is (W*H*D,) shared by the
@@ -593,11 +784,12 @@ int pbd_tet_substep_batched(const void* x_in, const void* v_in,
   TetParams P;
   std::memcpy(&P, params, sizeof(P));
   const dim3 grid(n_blocks(W, H, D), n_batch);
-  tet_substep_kernel<<<grid, Tile::threads, Tile::smem,
-                       (cudaStream_t)stream>>>(
+  tet_substep_kernel<0><<<grid, Tile::threads, Tile::smem,
+                          (cudaStream_t)stream>>>(
       (const float*)x_in, (const float*)v_in, (const float*)x_cur,
       (const float*)w, (const float*)inv_cnt, (const float*)lam_in,
-      (float*)lam_out, (float*)x_out, (float*)v_out, P, W, H, D, w_bstride);
+      (float*)lam_out, (float*)x_out, (float*)v_out, P, W, H, D, w_bstride,
+      FusedPlan{});
   return (int)cudaGetLastError();
 }
 
@@ -609,6 +801,65 @@ int pbd_tet_substep(const void* x_in, const void* v_in, const void* x_cur,
   return pbd_tet_substep_batched(x_in, v_in, x_cur, w, inv_cnt, lam_in,
                                  lam_out, x_out, v_out, params, 1, 0, W, H,
                                  D, stream);
+}
+
+// One solver step of n_batch rollouts, substeps x iterations passes, in
+// one cooperative launch of the multi-substep kernel. x_in, v_in (the
+// step's input) and x_out, v_out (its output) are (n_batch, 3, W*H*D)
+// planes; w and inv_cnt as above. Scratch of the caller, left undefined:
+// xs (planes like x_in) unless substeps x iterations is 1, vs (likewise)
+// unless substeps is 1, x0 (likewise) and lam0 ((n_batch, 5, cells))
+// unless iterations is 1, lam1 (likewise) past two iterations; every
+// buffer distinct from every other. Writes the launch's grid size to
+// *grid_size when it is not null. Returns a CUDA error code, 0 when the
+// launch was queued; cudaErrorNotSupported on a card without cooperative
+// launch.
+int pbd_tet_step_fused(const void* x_in, const void* v_in, const void* w,
+                       const void* inv_cnt, void* x_out, void* v_out,
+                       void* xs, void* vs, void* x0, void* lam0, void* lam1,
+                       const void* params, int n_batch, int w_bstride,
+                       int substeps, int iterations, int W, int H, int D,
+                       int* grid_size, void* stream) {
+  if (!dims_ok(W, H, D) || x_in == nullptr || v_in == nullptr ||
+      x_out == nullptr || v_out == nullptr || n_batch < 1 || substeps < 1 ||
+      iterations < 1 || (w_bstride != 0 && w_bstride != W * H * D) ||
+      (long long)n_blocks(W, H, D) * n_batch > INT_MAX ||
+      (long long)substeps * iterations > INT_MAX ||
+      (substeps * iterations > 1 && xs == nullptr) ||
+      (substeps > 1 && vs == nullptr) ||
+      (iterations > 1 && (x0 == nullptr || lam0 == nullptr)) ||
+      (iterations > 2 && lam1 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const void* bufs[] = {x_in, v_in, x_out, v_out, xs, vs, x0, lam0, lam1};
+  for (int i = 0; i < 9; ++i)
+    for (int j = i + 1; j < 9; ++j)
+      if (bufs[i] != nullptr && bufs[i] == bufs[j])
+        return (int)cudaErrorInvalidValue;
+  int cap = 0;
+  cudaError_t e = fused_capacity(&cap);
+  if (e != cudaSuccess) return (int)e;
+  const int items = n_blocks(W, H, D) * n_batch;
+  const int blocks = items < cap ? items : cap;
+  if (grid_size != nullptr) *grid_size = blocks;
+  TetParams P;
+  std::memcpy(&P, params, sizeof(P));
+  FusedPlan F{(float*)xs,   (float*)vs, (float*)x0, (float*)lam0,
+              (float*)lam1, n_batch,    substeps,   iterations};
+  const float* a_x = (const float*)x_in;
+  const float* a_v = (const float*)v_in;
+  const float* a_w = (const float*)w;
+  const float* a_ic = (const float*)inv_cnt;
+  const float* a_none = nullptr;
+  float* a_none_w = nullptr;
+  float* a_xo = (float*)x_out;
+  float* a_vo = (float*)v_out;
+  void* args[] = {&a_x, &a_v, &a_none, &a_w, &a_ic, &a_none, &a_none_w,
+                  &a_xo, &a_vo, &P, &W, &H, &D, &w_bstride, &F};
+  e = cudaLaunchCooperativeKernel((const void*)tet_substep_kernel<1>,
+                                  dim3(blocks), dim3(Tile::threads), args,
+                                  Tile::smem, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 const char* pbd_tet_error_string(int err) {

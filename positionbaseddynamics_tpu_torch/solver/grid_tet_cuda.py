@@ -3,7 +3,8 @@ the counterpart of ``positionbaseddynamics_tpu/solver/grid_tet_pallas.py``
 (``make_pallas_tet_step``).
 
 A substep of a regular W×H×D tet grid runs as one launch of
-``csrc/grid_tet_step.cu`` per Jacobi iteration. A block stages a box of
+``csrc/grid_tet_step.cu`` per Jacobi iteration (:func:`tet_substep_cuda`,
+``tet_substep_kernel<0>``). A block stages a box of
 vertices with a one-vertex halo in shared memory, solves the 5 tets of
 every hex cell that touches the box (warps of one cell parity), gathers
 the corrections corner by corner in the plain version's order and writes
@@ -17,6 +18,17 @@ converts ``(x, v)`` to planes once per call and back once at the end.
 ``(K, 5, cells)``) and take one launch per iteration, the rollout a
 dimension of the launch grid, as JAX's planner ``vmap``s the grid over
 its samples.
+
+The TPU kernel runs a whole step in one pass a row block; its counterpart
+here is the multi-substep mode (:func:`tet_fused_cuda`,
+``tet_substep_kernel<1>``, ``make_tet_step``'s default
+``fuse_substeps=True``): one cooperative launch a step, as many blocks as
+the card holds at once, each taking (box, rollout) items in grid stride
+and the grid synchronising after each of the ``substeps × max_iterations``
+passes. A pass runs the per-iteration launch's code, so the two modes
+agree bit for bit. Its scratch planes are allocated once per step
+function (:class:`FusedScratch`). A card without cooperative launch, or a
+launch that fails, raises; nothing falls back to the per-iteration mode.
 
 Beside the kernel sits its plain PyTorch version,
 :func:`tet_substep_reference`, composed of the ported integration
@@ -132,6 +144,14 @@ def _bind(lib):
     lib.pbd_tet_param_count.restype = ci
     lib.pbd_tet_kernel_resources.argtypes = [vp]
     lib.pbd_tet_kernel_resources.restype = ci
+    if hasattr(lib, "pbd_tet_step_fused"):
+        # x_in, v_in, w, inv_cnt, x_out, v_out, xs, vs, x0, lam0, lam1,
+        # params, n_batch, w_bstride, substeps, iterations, W, H, D,
+        # grid_size, stream
+        lib.pbd_tet_step_fused.argtypes = [vp] * 12 + [ci] * 7 + [vp, vp]
+        lib.pbd_tet_step_fused.restype = ci
+        lib.pbd_tet_fused_resources.argtypes = [vp]
+        lib.pbd_tet_fused_resources.restype = ci
     if lib.pbd_tet_param_count() != N_PARAMS:
         raise RuntimeError("grid_tet_step.cu and grid_tet_cuda.py disagree "
                            "on the kernel's parameter layout")
@@ -139,17 +159,19 @@ def _bind(lib):
     return fn
 
 
-def kernel_resources(lib=None) -> dict:
+def kernel_resources(lib=None, fused: bool = False) -> dict:
     """The kernel's resources as the CUDA runtime reports them on the
     current card: ``{"registers", "static_shared_bytes",
     "dynamic_shared_bytes", "local_bytes", "blocks_per_sm", "threads"}``,
     of the package's kernel or of ``lib``, a library built from a variant
-    of ``csrc/grid_tet_step.cu``."""
+    of ``csrc/grid_tet_step.cu``; of the multi-substep instance with
+    ``fused``."""
     if lib is None:
         lib = _build.load("grid_tet_step")
     _bind(lib)
     vals = (ctypes.c_int * len(RESOURCE_KEYS))()
-    err = lib.pbd_tet_kernel_resources(vals)
+    err = (lib.pbd_tet_fused_resources if fused
+           else lib.pbd_tet_kernel_resources)(vals)
     _check(lib, err, "tet kernel resources")
     return dict(zip(RESOURCE_KEYS, vals))
 
@@ -172,19 +194,14 @@ def lambda_plan(max_iterations: int):
     return plan
 
 
-def tet_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
-                     params: np.ndarray, dims, max_iterations: int = 1):
-    """Run one substep through the kernel, one launch per iteration.
-    ``xp``, ``vp``: ``(3, N)`` float32 planes on one CUDA device, or ``(K,
-    3, N)`` for ``K`` rollouts, ``N = W·H·D`` for ``dims = (W, H, D)``;
-    ``w``: inverse masses ``(N,)`` shared by the rollouts, or ``(K, N)``;
-    ``ic``: per-vertex Jacobi weights ``(N,)``; ``params`` from
-    :func:`kernel_params`. Returns new ``(xp, vp)`` buffers; the inputs
-    are left as they were. Counts its launches in
-    ``tet_substep_cuda.launches``."""
+def _check_planes(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
+                  params: np.ndarray, dims, max_iterations: int, what: str):
+    """Refuse what the kernel does not take. Returns ``(W, H, D)``, the
+    rollouts ``K`` (1 for ``(3, N)`` planes), ``w``'s rollout stride and
+    ``params`` as contiguous float32."""
     if xp.device.type != "cuda":
-        raise ValueError("tet_substep_cuda takes CUDA tensors; the plain "
-                         "version is tet_substep_reference")
+        raise ValueError(f"{what} takes CUDA tensors; the plain version is "
+                         "tet_substep_reference")
     wd, hd, dd = (int(s) for s in dims)
     if min(wd, hd, dd) < 2:
         raise ValueError(f"grid {dims}: each side needs 2 vertices or more")
@@ -207,10 +224,25 @@ def tet_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
         raise ValueError(f"params: expected ({N_PARAMS},), got {params.shape}")
     if max_iterations < 1:
         raise ValueError(f"max_iterations={max_iterations}: at least 1")
+    return (wd, hd, dd), k, (n if w.dim() == 2 else 0), params
+
+
+def tet_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
+                     params: np.ndarray, dims, max_iterations: int = 1):
+    """Run one substep through the kernel, one launch per iteration.
+    ``xp``, ``vp``: ``(3, N)`` float32 planes on one CUDA device, or ``(K,
+    3, N)`` for ``K`` rollouts, ``N = W·H·D`` for ``dims = (W, H, D)``;
+    ``w``: inverse masses ``(N,)`` shared by the rollouts, or ``(K, N)``;
+    ``ic``: per-vertex Jacobi weights ``(N,)``; ``params`` from
+    :func:`kernel_params`. Returns new ``(xp, vp)`` buffers; the inputs
+    are left as they were. Counts its launches in
+    ``tet_substep_cuda.launches``."""
+    (wd, hd, dd), k, w_bstride, params = _check_planes(
+        xp, vp, w, ic, params, dims, max_iterations, "tet_substep_cuda")
     lib = _build.load("grid_tet_step")
     _bind(lib)
     fn = lib.pbd_tet_substep_batched
-    w_bstride = n if w.dim() == 2 else 0
+    lead = () if xp.dim() == 2 else (k,)
     n_cells = (wd - 1) * (hd - 1) * (dd - 1)
     plan = lambda_plan(max_iterations)
     x_cur = vo = None
@@ -240,6 +272,75 @@ tet_substep_cuda.launches = 0
 def _check(lib, err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what}: " + lib.pbd_tet_error_string(err).decode())
+
+
+class FusedScratch:
+    """The multi-substep launch's scratch planes, allocated at the first
+    launch of a shape and kept for every later one: positions and
+    velocities like the state's planes, a substep's start positions past
+    one iteration, and two λ planes ``(K, 5, cells)`` past one (the
+    second past two). The launch leaves them undefined, so one scratch
+    serves launches in turn on one stream."""
+
+    def __init__(self):
+        self._key = None
+        self.bufs = None
+
+    def get(self, xp: Tensor, n_cells: int, substeps: int,
+            iterations: int):
+        """``(xs, vs, x0, lam0, lam1)`` for planes like ``xp``, None where
+        the launch needs no such buffer."""
+        key = (xp.device, tuple(xp.shape), n_cells, substeps, iterations)
+        if key != self._key:
+            lead = tuple(xp.shape[:-2])
+            self.bufs = (
+                xp.new_empty(xp.shape) if substeps * iterations > 1 else None,
+                xp.new_empty(xp.shape) if substeps > 1 else None,
+                xp.new_empty(xp.shape) if iterations > 1 else None,
+                xp.new_empty(lead + (5, n_cells)) if iterations > 1 else None,
+                xp.new_empty(lead + (5, n_cells)) if iterations > 2 else None)
+            self._key = key
+        return self.bufs
+
+
+def tet_fused_cuda(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
+                   params: np.ndarray, dims, max_iterations: int = 1,
+                   substeps: int = 1, scratch: Optional[FusedScratch] = None):
+    """Run one solver step, ``substeps`` substeps of ``max_iterations``
+    iterations, through the multi-substep kernel in one cooperative
+    launch — the counterpart of one ``pallas_call`` of
+    ``make_pallas_tet_step``. Arguments as :func:`tet_substep_cuda`;
+    ``scratch`` keeps the launch's scratch planes between calls (a fresh
+    one when None). Returns new ``(xp, vp)`` buffers and leaves the inputs
+    as they were. Raises where the card has no cooperative launch or the
+    launch fails. Counts its launches in ``tet_fused_cuda.launches`` and
+    keeps the last launch's grid size in ``tet_fused_cuda.grid``."""
+    (wd, hd, dd), k, w_bstride, params = _check_planes(
+        xp, vp, w, ic, params, dims, max_iterations, "tet_fused_cuda")
+    if substeps < 1:
+        raise ValueError(f"substeps={substeps}: at least 1")
+    lib = _build.load("grid_tet_step")
+    _bind(lib)
+    n_cells = (wd - 1) * (hd - 1) * (dd - 1)
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream(xp.device).cuda_stream
+        bufs = (scratch or FusedScratch()).get(xp, n_cells, substeps,
+                                               max_iterations)
+        xo, vo = torch.empty_like(xp), torch.empty_like(vp)
+        err = lib.pbd_tet_step_fused(
+            xp.data_ptr(), vp.data_ptr(), w.data_ptr(), ic.data_ptr(),
+            xo.data_ptr(), vo.data_ptr(), *(_ptr(b) for b in bufs),
+            params.ctypes.data, k, w_bstride, substeps, max_iterations, wd,
+            hd, dd, ctypes.byref(grid), stream)
+        _check(lib, err, "tet multi-substep launch failed")
+    tet_fused_cuda.launches += 1
+    tet_fused_cuda.grid = grid.value
+    return xo, vo
+
+
+tet_fused_cuda.launches = 0
+tet_fused_cuda.grid = None
 
 
 def run_substeps(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
@@ -278,16 +379,20 @@ def tet_substep_reference(batch: GridTetBatch, x: Tensor, v: Tensor,
 
 def make_tet_step(batch: GridTetBatch, inv_mass, *, dt: float, substeps: int,
                   max_iterations: int = 1, gravity=(0.0, -9.81, 0.0),
-                  damping: float = 0.0, n_steps: int = 1, device=None):
+                  damping: float = 0.0, n_steps: int = 1,
+                  fuse_substeps: bool = True, device=None):
     """Build ``step(x (N, 3), v (N, 3)) -> (x, v)`` that advances
-    ``n_steps·substeps`` substeps of a scene that is this tet grid alone,
-    covering particles ``[0, W·H·D)`` — the counterpart of
+    ``n_steps`` steps of ``substeps`` substeps of a scene that is this tet
+    grid alone, covering particles ``[0, W·H·D)`` — the counterpart of
     ``make_pallas_tet_step``. Raises NotImplementedError for a batch the
     kernel cannot run (offset ≠ 0, ``inversion_handling``), as the TPU
-    kernel does.
+    kernel does, in either mode.
 
-    On ``device`` (None means CUDA) the step launches the kernel, one
-    launch per iteration of each substep; given CPU tensors it runs
+    On ``device`` (None means CUDA) the step launches the kernel: with
+    ``fuse_substeps`` (the default, as the TPU kernel always fuses) one
+    cooperative launch a step (:func:`tet_fused_cuda`, ``n_steps``
+    launches a call, as JAX scans its ``pallas_call``), else one launch
+    per iteration of each substep. Given CPU tensors either mode runs
     :func:`tet_substep_reference`."""
     dev = resolve_device(device)
     dims = (batch.width, batch.height, batch.depth)
@@ -305,6 +410,7 @@ def make_tet_step(batch: GridTetBatch, inv_mass, *, dt: float, substeps: int,
     w = w.reshape(n).contiguous()
     ic = batch.inv_cnt.reshape(n).contiguous()
     n_sub = n_steps * substeps
+    scratch = FusedScratch()
 
     def step(x: Tensor, v: Tensor):
         if tuple(x.shape) != (n, 3) or tuple(v.shape) != (n, 3):
@@ -314,8 +420,15 @@ def make_tet_step(batch: GridTetBatch, inv_mass, *, dt: float, substeps: int,
             raise ValueError(f"step was built for {dev}; got tensors on "
                              f"{x.device} and {v.device}")
         if dev.type == "cuda":
-            xp, vp, _, _ = run_substeps(to_planes(x), to_planes(v), w, ic,
-                                        params, dims, max_iterations, n_sub)
+            xp, vp = to_planes(x), to_planes(v)
+            if fuse_substeps:
+                for _ in range(n_steps):
+                    xp, vp = tet_fused_cuda(xp, vp, w, ic, params, dims,
+                                            max_iterations, substeps,
+                                            scratch)
+            else:
+                xp, vp, _, _ = run_substeps(xp, vp, w, ic, params, dims,
+                                            max_iterations, n_sub)
             return from_planes(xp), from_planes(vp)
         for _ in range(n_sub):
             x, v = tet_substep_reference(

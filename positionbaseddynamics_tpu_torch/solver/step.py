@@ -47,7 +47,9 @@ configuration:
 * ``"torch_stencil"``: the PyTorch stencil ops of ``grid_cloth.py`` and
   ``grid_tet.py`` for every other configuration.
 
-The last four run on any device.
+The last four run on any device; ``kernels=False`` (``make_step_fn``,
+``rollout``) keeps a kernel-route scene on them on the card too, as
+``bench.py --no-pallas`` keeps it off the TPU kernels.
 """
 from __future__ import annotations
 
@@ -695,11 +697,13 @@ def _has_pipeline(pipeline) -> bool:
     return pipeline is not None and pipeline.active
 
 
-def _route(cset: ConstraintSet, cfg: StepConfig, n: int, pipeline=None):
+def _route(cset: ConstraintSet, cfg: StepConfig, n: int, pipeline=None,
+           kernels: bool = True):
     """``(plan, passes, path)`` of a scene: the kernel plan, or the
-    particle passes and the PyTorch route's name. A collision pipeline
-    takes the PyTorch route."""
-    plan = None if _has_pipeline(pipeline) else kernel_plan(cset, cfg)
+    particle passes and the PyTorch route's name. A collision pipeline,
+    or ``kernels=False``, takes the PyTorch route."""
+    plan = (None if _has_pipeline(pipeline) or not kernels
+            else kernel_plan(cset, cfg))
     if plan is not None:
         return plan, (), PATH_KERNEL
     passes = batch_passes(cset, cfg, n)
@@ -711,13 +715,13 @@ def _route(cset: ConstraintSet, cfg: StepConfig, n: int, pipeline=None):
 
 
 def make_step_fn(cset: ConstraintSet, cfg: StepConfig, device=None,
-                 pipeline=None):
+                 pipeline=None, kernels: bool = True):
     """``state → state`` closure over a fixed scene on ``device`` (None
     means CUDA), with its collision ``pipeline`` when given (moved to
     ``device``). ``fn.path`` names the route its steps take,
     ``"cuda_kernel"``, ``"torch_rigid"``, ``"torch_rods"``,
     ``"torch_unstructured"`` or ``"torch_stencil"``; a scene with a
-    pipeline never takes the kernel route."""
+    pipeline, or ``kernels=False``, never takes the kernel route."""
     dev = resolve_device(device)
     if cset.device is not None and cset.device != dev:
         cset = cset.to(dev)
@@ -728,7 +732,7 @@ def make_step_fn(cset: ConstraintSet, cfg: StepConfig, device=None,
         raise ValueError("a constraint set with particle batches needs its "
                          "n_particles; build it with SceneBuilder or "
                          "convert.scene_from_numpy")
-    plan, passes, path = _route(cset, cfg, n, pipeline)
+    plan, passes, path = _route(cset, cfg, n, pipeline, kernels)
 
     def fn(state: SimState) -> SimState:
         if state.particles.x.device != dev:
@@ -741,13 +745,16 @@ def make_step_fn(cset: ConstraintSet, cfg: StepConfig, device=None,
 
 
 def rollout(state: SimState, cset: ConstraintSet, cfg: StepConfig,
-            n_steps: int, collect: bool = False, pipeline=None):
+            n_steps: int, collect: bool = False, pipeline=None,
+            kernels: bool = True):
     """Run ``n_steps`` sim steps (with the collision ``pipeline`` when
-    given). Returns ``(final state, trajectory)``: the stacked positions
-    ``(n_steps, ..., N, 3)`` when ``collect``, else None — the shape of
-    the JAX ``rollout``'s scan result."""
+    given), through the kernel route where ``make_step_fn`` would take it
+    and ``kernels`` is True. Returns ``(final state, trajectory)``: the
+    stacked positions ``(n_steps, ..., N, 3)`` when ``collect``, else None
+    — the shape of the JAX ``rollout``'s scan result."""
     if state.particles.x.device.type == "cuda":
-        plan, passes, _ = _route(cset, cfg, state.particles.n, pipeline)
+        plan, passes, _ = _route(cset, cfg, state.particles.n, pipeline,
+                                 kernels)
     else:
         plan, passes = None, batch_passes(cset, cfg, state.particles.n)
     xs = []

@@ -27,10 +27,10 @@ measures what the solve and the gather cost alone. Both copies compute
 nothing of use.
 
 A measurement tool outside the tests: it edits the kernel source by exact
-text anchors (the ``// ---- <n>.`` phase headers and the kernel's closing
-line), and stops with an error naming the anchor where a later edit of the
-kernel moved one; ``tests/test_torch_tet_tooling.py`` checks the anchors
-on the CPU.
+text anchors (the ``// ---- <n>.`` phase headers and the closing line of
+``tet_box``, the block's pass), and stops with an error naming the anchor
+where a later edit of the kernel moved one;
+``tests/test_torch_tet_tooling.py`` checks the anchors on the CPU.
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ sys.path.insert(0, str(ROOT / "scripts"))
 PHASES = (("  // ---- 1. stage", "stage"),
           ("  // ---- 2. solve", "solve"),
           ("  // ---- 3. the box's vertices", "gather_write"))
-END = "}  // tet_substep_kernel\n"
+END = "}  // tet_box\n"
 INCLUDE = "#include <cuda_runtime.h>\n"
 EXPORTS = 'extern "C" {\n'
 SOLVE = ("    if (odd)\n"

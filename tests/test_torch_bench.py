@@ -2,11 +2,15 @@
 prints one JSON line with ``bench.py``'s metric name and a finite value at
 a small size (``--device cpu`` runs the plain versions); without CUDA and
 without ``--device cpu`` it exits non-zero and prints no result; ``--check``
-on the CPU and the modes the port lacks exit 2."""
+on the CPU and the modes the port lacks exit 2. Every option of
+``bench.py`` is parsed and does what ``bench.py``'s does; the default run's
+secondary lines are checked with the modes stood in by monkeypatch."""
 import json
 import math
+import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -29,8 +33,8 @@ def _one_torch_thread():
 
 
 @pytest.mark.parametrize("mode,metric,extra", [
-    ([], "xpbd_cloth_0k_steps_per_s", ()),
-    (["--batch", "2"], "xpbd_cloth_0k_steps_per_s_b2",
+    (["--no-secondary"], "xpbd_cloth_0k_steps_per_s", ()),
+    (["--batch", "2", "--no-secondary"], "xpbd_cloth_0k_steps_per_s_b2",
      ("aggregate_steps_per_s",)),
     (["--mpc"] + MPC, "mppi_cloth1k_rollouts_per_s_k4_h2", ()),
     (["--mpc-big"] + MPC, "mppi_cloth0k_planner_updates_per_s_k4_h2",
@@ -107,14 +111,14 @@ def test_check_on_cpu_and_unported_modes_exit_2(capsys, flags, names):
         assert bench_torch.main(flags) == 2       # before the device check
 
 
-def test_there_is_no_fuse_flag():
+def test_fuse_is_the_default_and_no_fuse_turns_it_off():
     """``--fuse`` is the default and ``--no-fuse`` turns it off, as in
     ``bench.py:660-664``; on the CPU both take the plain version."""
     assert bench_torch.parser().parse_args([]).fuse
     assert bench_torch.parser().parse_args(["--fuse"]).fuse
     assert not bench_torch.parser().parse_args(["--no-fuse"]).fuse
     for flag in ("--fuse", "--no-fuse"):
-        code, (rec,) = bench_torch.run(SMALL + [flag])
+        code, (rec,) = bench_torch.run(SMALL + [flag, "--no-secondary"])
         assert code == 0 and rec["path"] == "torch_plain"
 
 
@@ -209,3 +213,302 @@ def test_stand_in_files_have_the_shipped_structure(tmp_path):
     assert plane["uv_indices"].shape == (2 * 50 * 50, 3)
     sphere = load_obj(str(models / "sphere.obj"))
     assert sphere["faces"].shape == (1280, 3)
+
+
+# ---------------------------------------------------------------------------
+# bench.py's options
+# ---------------------------------------------------------------------------
+
+
+def _bench_py_options():
+    """The option strings of ``bench.py``'s parser, read from its source
+    (importing it would import JAX)."""
+    text = (ROOT / "bench.py").read_text()
+    return set(re.findall(r'add_argument\(\s*"(--[a-z-]+)"', text))
+
+
+def test_every_bench_py_option_is_listed():
+    ours = set(bench_torch.parser()._option_string_actions)
+    theirs = _bench_py_options()
+    assert len(theirs) >= 30 and "--no-secondary" in theirs
+    assert theirs <= ours, sorted(theirs - ours)
+    out = subprocess.run([sys.executable, "bench_torch.py", "--help"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0
+    for opt in theirs:
+        assert opt in out.stdout, opt
+
+
+@pytest.mark.parametrize("argv,want", [
+    ([], dict(max_iterations=1, pallas=None, timers=False, profile=None,
+              donate=False, no_secondary=False)),
+    (["--max-iterations", "3"], dict(max_iterations=3)),
+    (["--pallas"], dict(pallas=True)),
+    (["--no-pallas"], dict(pallas=False)),
+    (["--timers", "--profile", "out/dir"], dict(timers=True,
+                                                profile="out/dir")),
+    (["--donate", "--no-secondary"], dict(donate=True, no_secondary=True))],
+    ids=["defaults", "max_iterations", "pallas", "no_pallas",
+         "timers_profile", "donate_no_secondary"])
+def test_new_options_parse(argv, want):
+    args = bench_torch.parser().parse_args(argv)
+    for k, v in want.items():
+        assert getattr(args, k) == v, k
+
+
+BAR = ["--bar", "--bar-dims", "6", "4", "4"]
+
+
+@pytest.mark.parametrize("mode,iters,metric", [
+    (BAR, 2, "xpbd_fem_bar_0k_steps_per_s_it2"),
+    (BAR, 1, "xpbd_fem_bar_0k_steps_per_s"),
+    (BAR + ["--no-fuse"], 3, "xpbd_fem_bar_0k_steps_per_s_it3"),
+    (["--no-secondary"], 2, "xpbd_cloth_0k_steps_per_s")],
+    ids=["bar_it2", "bar_it1", "bar_no_fuse_it3", "cloth_it2"])
+def test_max_iterations_names_the_bar_metric(mode, iters, metric):
+    """The bar's kernel-route metric gains ``_it{N}`` past one iteration,
+    as ``bench.py:553-556`` names it; the cloth's keeps its name."""
+    code, (rec,) = bench_torch.run(SMALL + mode + ["--max-iterations",
+                                                   str(iters)])
+    assert code == 0 and rec["metric"] == metric
+    assert math.isfinite(rec["value"]) and rec["value"] > 0
+
+
+def test_max_iterations_reaches_the_step(monkeypatch):
+    """``--max-iterations`` is the solver's: the bar's step is built with
+    it, and so is the cloth's."""
+    from positionbaseddynamics_tpu_torch.solver import grid_cloth_cuda as gcc
+    from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
+
+    seen = []
+    for mod, name in ((gtc, "make_tet_step"), (gcc, "make_cloth_step")):
+        real = getattr(mod, name)
+
+        def spy(*a, _real=real, **kw):
+            seen.append(kw["max_iterations"])
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(mod, name, spy)
+    bench_torch.run(SMALL + BAR + ["--max-iterations", "4"])
+    bench_torch.run(SMALL + ["--no-secondary", "--max-iterations", "3"])
+    assert seen == [4, 3]
+
+
+@pytest.mark.parametrize("mode,metric", [
+    (["--no-secondary"], "xpbd_cloth_0k_steps_per_s"),
+    (["--no-secondary", "--batch", "2"], "xpbd_cloth_0k_steps_per_s_b2"),
+    (BAR, "xpbd_fem_bar_0k_steps_per_s")],
+    ids=["cloth", "cloth_batch", "bar"])
+def test_no_pallas_runs_the_general_stepper(mode, metric):
+    """``--no-pallas`` steps the scene through ``solver.rollout(...,
+    kernels=False)``; its path is ``make_step_fn``'s name for that route,
+    and at ``--batch`` 2 the rollouts are a leading axis."""
+    code, (rec,) = bench_torch.run(SMALL + mode + ["--no-pallas"])
+    assert code == 0 and rec["metric"] == metric
+    assert rec["path"] == "torch_stencil"
+    assert math.isfinite(rec["value"]) and rec["value"] > 0
+    if "--batch" in mode:
+        assert rec["aggregate_steps_per_s"] == pytest.approx(
+            2 * rec["value"], rel=1e-2)
+
+
+def test_no_pallas_route_equals_the_plain_kernel_route():
+    """The general stepper and the kernel route's plain version step the
+    bench cloth alike: two runs of the same steps land on the same
+    positions within float32 noise of the two code paths."""
+    from positionbaseddynamics_tpu_torch.solver import StepConfig, rollout
+
+    cpu = torch.device("cpu")
+    state, cset = bench_torch.cloth_scene(8, 8, cpu)
+    cfg = StepConfig()
+    general, _ = rollout(state, cset, cfg, 3, kernels=False)
+    step = bench_torch.cloth_step_fn(cset.grid_cloths[0],
+                                     state.particles.inv_mass, cfg, cpu,
+                                     n_steps=3)
+    x, _ = step(state.particles.x, state.particles.v)
+    assert (general.particles.x - x).abs().max().item() <= 1e-6
+
+
+def test_timers_report_on_stderr(capsys):
+    assert bench_torch.main(SMALL + ["--no-secondary", "--no-pallas",
+                                     "--timers"]) == 0
+    out = capsys.readouterr()
+    assert "---- average times ----" in out.err
+    assert "simulation step" in out.err
+    assert json.loads(out.out.strip())["path"] == "torch_stencil"
+
+
+def test_profile_writes_a_trace_on_the_cpu(capsys, tmp_path):
+    d = tmp_path / "trace"
+    assert bench_torch.main(SMALL + ["--no-secondary", "--no-pallas",
+                                     "--profile", str(d)]) == 0
+    trace = d / bench_torch.TRACE_FILE
+    assert trace.exists() and trace.stat().st_size > 0
+    assert "traceEvents" in trace.read_text()
+    assert str(trace) in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("route", [[], ["--no-pallas"]],
+                         ids=["kernel_route", "no_pallas"])
+def test_donate_warns_that_pytorch_has_no_donation(capsys, route):
+    assert bench_torch.main(SMALL + ["--no-secondary", "--donate"]
+                            + route) == 0
+    assert "no buffer donation" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", ["--timers", "--profile"])
+def test_kernel_route_warns_that_it_ignores(capsys, tmp_path, flag):
+    """As ``bench.py:795-803``: the kernel route ignores ``--timers`` and
+    ``--profile`` and says so; no trace is written."""
+    argv = [flag] + ([str(tmp_path / "t")] if flag == "--profile" else [])
+    assert bench_torch.main(SMALL + ["--no-secondary"] + argv) == 0
+    err = capsys.readouterr().err
+    assert f"{flag} is ignored on the kernel route" in err
+    assert not (tmp_path / "t").exists()
+
+
+# ---------------------------------------------------------------------------
+# the default run's secondary lines (bench.py:694-731)
+# ---------------------------------------------------------------------------
+
+
+def _stand_in_modes(monkeypatch, calls, fail=()):
+    """Stand the default run's modes in by functions that record their
+    arguments and return a record (or raise, for the names in ``fail``)."""
+    def make(name, metric):
+        def fn(args, dev):
+            calls.append((name, args))
+            if name in fail:
+                raise RuntimeError(f"{name} failed")
+            return {"metric": metric, "value": 1.0}
+        return fn
+
+    for name, metric in (("bench_bar", "bar"), ("bench_fluid", "dam"),
+                         ("bench_pile_big", "pile"),
+                         ("bench_cloth", "headline")):
+        monkeypatch.setattr(bench_torch, name, make(name, metric))
+
+    def mpc_contact(path, dev, samples, horizon, n_calls):
+        calls.append(("mpc_contact", (path, samples, horizon, n_calls)))
+        return {"metric": "contact", "value": 1.0}, None
+
+    monkeypatch.setattr(bench_torch, "mpc_contact", mpc_contact)
+
+
+def test_secondary_lines_come_first_with_bench_py_overrides(monkeypatch):
+    calls = []
+    _stand_in_modes(monkeypatch, calls)
+    code, records = bench_torch.run(SMALL)
+    assert code == 0
+    assert [c[0] for c in calls] == ["bench_bar", "bench_fluid",
+                                     "bench_pile_big", "bench_cloth"]
+    bar, dam, pile, cloth = (c[1] for c in calls)
+    assert (bar.calls, bar.steps_per_call, bar.check, bar.pallas) == (
+        2, 10, False, None)
+    assert tuple(dam.fluid_dims) == (40, 25, 12)
+    assert (dam.calls, dam.steps_per_call) == (2, 10)
+    assert (pile.calls, pile.steps_per_call, pile.pile_bodies) == (2, 10,
+                                                                  100)
+    # the headline keeps the command line's own values
+    assert (cloth.calls, cloth.steps_per_call) == (1, 2)
+    names = [r["metric"] for r in records]
+    assert names == ["bar", "dam", "pile",
+                     "mppi_contact_scene_updates_per_s", "headline"]
+    contact = records[3]
+    assert "ArmadilloCollisionScene.json" in contact["error"]
+    assert contact["error"].startswith("FileNotFoundError")
+
+
+def test_secondary_contact_line_takes_the_scene(monkeypatch, tmp_path):
+    calls = []
+    _stand_in_modes(monkeypatch, calls)
+    scene = tmp_path / "Contact.json"
+    scene.write_text("{}")
+    code, records = bench_torch.run(SMALL + ["--scene", str(scene)])
+    assert code == 0
+    assert ("mpc_contact", (str(scene), 128, 10, 1)) in calls
+    assert [r["metric"] for r in records] == ["bar", "dam", "pile",
+                                              "contact", "headline"]
+
+
+def test_a_failing_secondary_becomes_an_error_line(monkeypatch, capsys):
+    calls = []
+    _stand_in_modes(monkeypatch, calls, fail=("bench_fluid",))
+    assert bench_torch.main(SMALL) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert lines[1] == {"metric": "pbf_dam_12k_steps_per_s",
+                        "error": "RuntimeError: bench_fluid failed"}
+    assert lines[-1]["metric"] == "headline" and len(lines) == 5
+
+
+def test_a_secondary_past_its_watchdog_is_cut(monkeypatch):
+    calls = []
+    _stand_in_modes(monkeypatch, calls)
+    monkeypatch.setattr(bench_torch, "SECONDARY_EACH_S", 1)
+
+    def slow(args, dev):
+        time.sleep(5)
+        return {"metric": "pile", "value": 1.0}
+
+    monkeypatch.setattr(bench_torch, "bench_pile_big", slow)
+    t0 = time.perf_counter()
+    _, records = bench_torch.run(SMALL)
+    assert time.perf_counter() - t0 < 4
+    assert records[2] == {"metric": "rigid_pile_100body_steps_per_s",
+                          "error": "TimeoutError: rigid_pile_100body_steps_"
+                                   "per_s exceeded 1s"}
+    assert records[-1]["metric"] == "headline"
+
+
+def test_a_spent_budget_skips_the_secondaries(monkeypatch):
+    calls = []
+    _stand_in_modes(monkeypatch, calls)
+    monkeypatch.setattr(bench_torch, "SECONDARY_BUDGET_S", 10.0)
+    _, records = bench_torch.run(SMALL)
+    assert [c[0] for c in calls] == ["bench_cloth"]
+    assert all(r["error"] == "skipped: secondary budget exhausted"
+               for r in records[:4])
+    assert records[-1]["metric"] == "headline"
+
+
+@pytest.mark.parametrize("flag", ["--no-secondary", "--bar"])
+def test_no_secondary_lines_outside_the_default_run(monkeypatch, flag):
+    calls = []
+    _stand_in_modes(monkeypatch, calls)
+    code, records = bench_torch.run(SMALL + [flag])
+    assert code == 0 and len(records) == 1
+    assert len(calls) == 1
+
+
+def test_kernels_false_keeps_a_kernel_scene_off_the_kernel(monkeypatch):
+    """``make_step_fn`` takes the kernel plan where one exists, and
+    ``kernels=False`` (``--no-pallas``) keeps the scene on the PyTorch
+    route; the plan is stood in here, since on the CPU there is none."""
+    import importlib
+
+    from positionbaseddynamics_tpu_torch.solver import StepConfig, make_step_fn
+
+    # the package exports the function step; the module is the stepper's
+    step_mod = importlib.import_module(
+        "positionbaseddynamics_tpu_torch.solver.step")
+
+    runs = []
+
+    def run(p, n):
+        runs.append(n)
+        return p.x, p.v, p.x, None
+
+    monkeypatch.setattr(step_mod, "kernel_plan",
+                        lambda cset, cfg: step_mod.KernelPlan("cloth", run))
+    cpu = torch.device("cpu")
+    state, cset = bench_torch.cloth_scene(6, 6, cpu)
+    cfg = StepConfig()
+    kernel = make_step_fn(cset, cfg, cpu)
+    general = make_step_fn(cset, cfg, cpu, kernels=False)
+    assert (kernel.path, general.path) == ("cuda_kernel", "torch_stencil")
+    kernel(state)
+    assert runs == [cfg.substeps]
+    moved = general(state)
+    assert runs == [cfg.substeps]
+    assert not torch.equal(moved.particles.x, state.particles.x)

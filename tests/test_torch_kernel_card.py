@@ -746,6 +746,96 @@ def test_tet_kernel_at_3_rollouts_on_card(cuda, own_w):
 
 
 # ---------------------------------------------------------------------------
+# B2's multi-substep mode: one cooperative launch a step
+# ---------------------------------------------------------------------------
+
+
+# the steps stop before the reference's own breakdown past one iteration
+# (see the 5-iteration case above); 21x11x45 and 17x19x9 reach the boxes'
+# clipped edges, and 9 rollouts of 21x11x45 (288 items) are more items
+# than an H100 holds blocks at once (264), so blocks take several a pass
+@pytest.mark.parametrize("dims,iters,damping,k,steps", [
+    ((13, 7, 5), 1, 0.0, 1, 10), ((13, 7, 5), 2, 0.01, 1, 4),
+    ((17, 19, 9), 3, 0.01, 1, 4), ((21, 11, 45), 1, 0.0, 9, 5),
+    ((17, 19, 9), 2, 0.0, 3, 4)],
+    ids=["13x7x5", "13x7x5_it2_damped", "17x19x9_it3_damped",
+         "21x11x45_k9", "17x19x9_it2_k3"])
+def test_tet_fused_equals_per_iteration_on_card(cuda, dims, iters, damping,
+                                                k, steps):
+    """The multi-substep launch against the per-iteration launches, bit for
+    bit in x and v, one launch a step, and against the plain version
+    within 1e-5; rollout r starts at rest with its free vertices moving at
+    (0, −0.1 r, 0.05 r) m/s, as ``chip_smoke.py``'s rollouts do."""
+    ts, tc = _bar(dims, cuda)
+    g, p = tc.grid_tets[0], ts.particles
+    dims = (g.width, g.height, g.depth)
+    params = gtc.kernel_params(g, h=1e-3, damping=damping)
+    ic = g.inv_cnt.reshape(-1).contiguous()
+    free = (p.inv_mass > 0)[:, None]
+    r = torch.arange(k, device=cuda, dtype=torch.float32)
+    vel = torch.stack([torch.zeros_like(r), -0.1 * r, 0.05 * r], -1)
+    v0 = torch.where(free, vel[:, None, :], 0.0)
+    x0 = p.x.expand(k, -1, -1).contiguous()
+    if k == 1:
+        x0, v0 = x0[0], v0[0]
+    w = p.inv_mass.contiguous()
+    xf, vf = xs, vs = gtc.to_planes(x0), gtc.to_planes(v0)
+    scratch = gtc.FusedScratch()
+    before = gtc.tet_fused_cuda.launches
+    for _ in range(steps):
+        xf, vf = gtc.tet_fused_cuda(xf, vf, w, ic, params, dims, iters, 5,
+                                    scratch)
+    xs, vs, _, _ = gtc.run_substeps(xs, vs, w, ic, params, dims, iters,
+                                    5 * steps)
+    torch.cuda.synchronize()
+    assert gtc.tet_fused_cuda.launches - before == steps
+    boxes = -(-dims[0] // 12) * -(-dims[1] // 6) * -(-dims[2] // 6)
+    assert 1 <= gtc.tet_fused_cuda.grid <= boxes * k
+    assert torch.equal(xf, xs) and torch.equal(vf, vs)
+    xr, vr = x0, v0
+    for _ in range(5 * steps):
+        xr, vr = gtc.tet_substep_reference(g, xr, vr, p.inv_mass, h=1e-3,
+                                           max_iterations=iters,
+                                           damping=damping)
+    lead = () if k == 1 else (k,)
+    assert (gtc.from_planes(xf, lead) - xr).abs().max().item() <= 1e-5
+
+
+def test_tet_fused_leaves_its_inputs_on_card(cuda):
+    """A fused launch writes fresh buffers, leaves its inputs as they were,
+    reuses its scratch between launches, and refuses what it does not take
+    without launching; ``make_tet_step`` launches once a step."""
+    ts, tc = _bar((17, 19, 9), cuda)
+    g, p = tc.grid_tets[0], ts.particles
+    dims = (g.width, g.height, g.depth)
+    params = gtc.kernel_params(g, h=1e-3)
+    w, ic = p.inv_mass.contiguous(), g.inv_cnt.reshape(-1).contiguous()
+    xp, vp = gtc.to_planes(p.x), gtc.to_planes(p.v)
+    x0, v0 = xp.clone(), vp.clone()
+    scratch = gtc.FusedScratch()
+    before = gtc.tet_fused_cuda.launches
+    xo, vo = gtc.tet_fused_cuda(xp, vp, w, ic, params, dims, 2, 5, scratch)
+    bufs = scratch.bufs
+    xo2, _ = gtc.tet_fused_cuda(xp, vp, w, ic, params, dims, 2, 5, scratch)
+    torch.cuda.synchronize()
+    assert all(a is b for a, b in zip(bufs, scratch.bufs))
+    assert torch.equal(xo, xo2)
+    ptrs = {t.data_ptr() for t in (xp, vp, w, ic)}
+    assert xo.data_ptr() not in ptrs and vo.data_ptr() not in ptrs
+    assert torch.equal(xp, x0) and torch.equal(vp, v0)
+    with pytest.raises(ValueError, match="inv_cnt"):
+        gtc.tet_fused_cuda(xp, vp, w, ic[:-1], params, dims, 1, 5)
+    with pytest.raises(ValueError, match="substeps"):
+        gtc.tet_fused_cuda(xp, vp, w, ic, params, dims, 1, 0)
+    assert gtc.tet_fused_cuda.launches - before == 2
+    step = gtc.make_tet_step(g, p.inv_mass, dt=0.005, substeps=5, n_steps=3)
+    before = (gtc.tet_fused_cuda.launches, gtc.tet_substep_cuda.launches)
+    step(p.x, p.v)
+    assert (gtc.tet_fused_cuda.launches - before[0],
+            gtc.tet_substep_cuda.launches - before[1]) == (3, 0)
+
+
+# ---------------------------------------------------------------------------
 # An active particle–rigid contact on the card (fault C-2), and the rods
 # (slice 7: no kernel of the port on their path, plain PyTorch on the card)
 # ---------------------------------------------------------------------------
