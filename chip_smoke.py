@@ -139,23 +139,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     counted steps), ``run_scene_torch.py`` and the kernel demos; one
     ``{"scenes": ...}`` line;
 13. parallelism (slice 9) and B1's fused and row-window modes
-    (:func:`run_parallel`): B1 fused (a step's 5 substeps in one launch) at
-    ``n_batch`` 1, 4 and 256 over 10 steps against the per-substep kernel
-    (x 2e-6, v 2e-4, JAX's bar, and whether bit for bit) and its plain
-    version (1e-5), one launch a step, its time a launch beside 5
-    per-substep launches and its bound; 4 ranks in this process, each a
-    window of 80 + 2·18 rows of the 320×320 cloth at ``80r − 18`` stepped
-    by the fused window kernel, the kept rows stitched against the
-    unsharded fused step (1e-6) over 10 steps, each window against its
-    plain version (1e-5); ``make_cloth_step(fuse_substeps=True)`` over 200
-    steps with the launch counts set to 0 before and read after (200
-    fused launches); then at world size 1 through NCCL (an in-process
-    ``HashStore``) ``intra_cuda`` against the unsharded fused step (1e-6,
-    10 steps) and over 200 counted steps (200 window launches),
-    ``intra_grid`` against ``make_step_fn`` (2e-5, 20 steps), the rollout
-    shard at 256 rollouts against the unsharded batched step bit for bit,
-    ``intra`` on the unstructured cloth against ``make_step_fn`` (1e-5, 10
-    steps), and steps/s of each; one ``{"parallel": ...}`` line;
+    (:func:`run_parallel`): the fused kernel's runtime resources and
+    largest grid; B1 fused (a step's 5 substeps in one cooperative launch)
+    at ``n_batch`` 1, 4 and 256 against the per-substep kernel bit for bit
+    in x and v at 1 and 2 iterations, with and without damping, over 3
+    steps, its grid size against ``fused_grid``, and over 10 steps against
+    the per-substep kernel (x 2e-6, v 2e-4, JAX's bar, and whether bit for
+    bit) and its plain version (1e-5), one launch a step, its time a
+    launch beside 5 per-substep launches and its bound; 4 ranks in this
+    process, each a window of 80 + 2·18 rows of the 320×320 cloth at
+    ``80r − 18`` stepped by the fused window kernel, the kept rows
+    stitched against the unsharded fused step (1e-6) over 10 steps, each
+    window against its plain version (1e-5);
+    ``make_cloth_step(fuse_substeps=True)`` over 200 steps with the launch
+    counts set to 0 before and read after (200 fused launches);
+    ``bench_torch.py``'s default cloth and ``--batch 4`` (both fused);
+    then at world size 1 through NCCL (an in-process ``HashStore``)
+    ``intra_cuda`` against the unsharded fused step (1e-6, 10 steps) and
+    over 200 counted steps (200 window launches), ``intra_grid`` against
+    ``make_step_fn`` (2e-5, 20 steps), the rollout shard at 256 rollouts
+    against the unsharded batched step bit for bit, ``intra`` on the
+    unstructured cloth against ``make_step_fn`` (1e-5, 10 steps), and
+    steps/s of each; one ``{"parallel": ...}`` line;
 14. B2's multi-substep mode (:func:`run_tet_fused`; one cooperative launch
     a step, ``tet_substep_kernel<1>``) on the 80×36×36 bench bar: against
     the per-iteration launches bit for bit in x and v at 1 and 4 rollouts,
@@ -287,6 +292,9 @@ KERNEL_DEMO_LAUNCHES = {
 PAR_STEPS = 10                  # steps of each mode's and module's check
 PAR_BATCHES = (1, 4, 256)       # n_batch of the fused checks
 PAR_TIMED = {1: 200, 4: 100, 256: 4}   # launches a timing at each n_batch
+PAR_BIT_ITERS = (1, 2)          # iterations of the fused bit-for-bit checks
+PAR_BIT_DAMPING = (0.0, 0.01)
+PAR_BIT_STEPS = 3               # steps of each fused bit-for-bit check
 FUSED_TOL = (2e-6, 2e-4)        # fused vs per-substep kernel, x and v: JAX's
 #                                 bar, tests/test_grid_cloth_pallas.py:80-103
 PAR_PLAIN_CHUNK = 64            # rollouts per piece of the plain replay
@@ -3349,12 +3357,15 @@ def fused_bound(nb, rows=GRID, substeps=5):
 
 
 def check_fused(dev, gc, p, nb):
-    """Phase 13a: B1 fused at ``n_batch`` ``nb`` on the bench cloth over
-    ``PAR_STEPS`` steps (rollouts set apart by their start velocities):
-    one launch a step, against the per-substep kernel (``FUSED_TOL``, and
-    whether bit for bit) and against the plain version (``CHECK_TOL``);
-    then the fused launch's time beside 5 per-substep launches and its
-    bound."""
+    """Phase 13a: B1 fused (one cooperative launch a step) at ``n_batch``
+    ``nb`` on the bench cloth (rollouts set apart by their start
+    velocities): against the per-substep kernel bit for bit in x and v at
+    each of ``PAR_BIT_ITERS`` iterations and ``PAR_BIT_DAMPING`` over
+    ``PAR_BIT_STEPS`` steps, with its grid size against
+    ``fused_grid``; over ``PAR_STEPS`` steps at one iteration, one launch
+    a step, against the per-substep kernel (``FUSED_TOL``, and whether bit
+    for bit) and against the plain version (``CHECK_TOL``); then the fused
+    launch's time beside 5 per-substep launches and its bound."""
     from positionbaseddynamics_tpu_torch.solver import grid_cloth_cuda as gcc
 
     x = p.x.expand(nb, *p.x.shape).clone()
@@ -3363,10 +3374,28 @@ def check_fused(dev, gc, p, nb):
     if nb == 1:
         x, v = x[0], v[0]
 
-    def step(fuse):
+    def step(fuse, iters=1, damping=0.0):
         return gcc.make_cloth_step(gc, p.inv_mass, gc.inv_cnt_dist,
                                    gc.inv_cnt_bend, dt=0.005, substeps=5,
+                                   max_iterations=iters, damping=damping,
                                    n_batch=nb, fuse_substeps=fuse)
+
+    bitwise = {}
+    for iters in PAR_BIT_ITERS:
+        for damping in PAR_BIT_DAMPING:
+            fused, per = step(True, iters, damping), step(False, iters,
+                                                          damping)
+            xf, vf, xs, vs = x, v, x, v
+            for _ in range(PAR_BIT_STEPS):
+                xf, vf = fused(xf, vf)
+                xs, vs = per(xs, vs)
+            torch.cuda.synchronize()
+            bitwise[f"it{iters}_damping{damping}"] = bool(
+                torch.equal(xf, xs) and torch.equal(vf, vs)
+                and torch.isfinite(xf).all())
+    del xf, vf, xs, vs, fused, per
+    grid = gcc.cloth_fused_cuda.grid
+    want_grid = gcc.fused_grid(nb, GRID, GRID, gcc.fused_capacity())
 
     fused, per = step(True), step(False)
     before = gcc.cloth_fused_cuda.launches
@@ -3387,6 +3416,7 @@ def check_fused(dev, gc, p, nb):
            "vs_per_substep_max_dv": max_dev(vf, vs),
            "bit_equal_per_substep": bool(torch.equal(xf, xs)
                                          and torch.equal(vf, vs)),
+           "bit_equal_cases": bitwise, "grid": grid, "want_grid": want_grid,
            "plain_max_abs_err": plain_dx,
            "finite": bool(torch.isfinite(xf).all()
                           and torch.isfinite(vf).all())}
@@ -3398,19 +3428,24 @@ def check_fused(dev, gc, p, nb):
     icb = gc.inv_cnt_bend.reshape(GRID, GRID).contiguous()
     buf = [gcc.to_planes(x, GRID, GRID), gcc.to_planes(v, GRID, GRID)]
 
+    scratch = gcc.FusedScratch()
+
     def fused_launch():
         buf[:] = gcc.cloth_fused_cuda(buf[0], buf[1], w, icd, icb, params,
-                                      1, 5)
+                                      1, 5, scratch)
 
     def substep_launch():
         buf[:] = gcc.cloth_substep_cuda(buf[0], buf[1], w, icd, icb, params)
 
-    for key, fn in (("ms", fused_launch), ("substep_ms", substep_launch)):
-        kms = device_ms(fn, PAR_TIMED[nb], "cloth_substep_kernel")
+    for key, fn, kname in (("ms", fused_launch, "cloth_fused_kernel"),
+                           ("substep_ms", substep_launch,
+                            "cloth_substep_kernel")):
+        kms = device_ms(fn, PAR_TIMED[nb], kname)
         out[key] = (cuda_time_ms(fn, PAR_TIMED[nb]) if kms is None
                     else kms)
         out[key + "_source"] = "cuda events" if kms is None else "profiler"
     out["five_substeps_ms"] = 5 * out["substep_ms"]
+    out["over_five_substeps"] = out["ms"] / out["five_substeps_ms"]
     if nb == 1:                 # the plain version of one fused launch
         out["plain_ms"] = cuda_time_ms(
             lambda: plain_steps(gc, x, v, p.inv_mass, 5, 0.001), 3)
@@ -3418,6 +3453,8 @@ def check_fused(dev, gc, p, nb):
     out["substep_bound_ms"] = 5 * fused_bound(nb, substeps=1)[0]
     log(f"phase 13 fused B1 at n_batch {nb}: {out}")
     assert launches == PAR_STEPS, launches
+    assert all(bitwise.values()), bitwise
+    assert grid == want_grid, (grid, want_grid)
     assert out["finite"]
     assert out["vs_per_substep_max_dx"] <= FUSED_TOL[0], out
     assert out["vs_per_substep_max_dv"] <= FUSED_TOL[1], out
@@ -3490,12 +3527,14 @@ def check_windows(dev, gc, p):
     xe, ve = cut(xg, off), cut(vg, off)
     buf = [gcc.to_planes(xe, rows, GRID), gcc.to_planes(ve, rows, GRID)]
 
+    scratch = gcc.FusedScratch()
+
     def window_launch():
         buf[:] = gcc.cloth_window_cuda(buf[0], buf[1], w[..., 0],
                                        icd[..., 0], icb[..., 0], params, 1,
-                                       5, off, GRID)
+                                       5, off, GRID, scratch)
 
-    kms = device_ms(window_launch, PAR_TIMED[1], "cloth_substep_kernel")
+    kms = device_ms(window_launch, PAR_TIMED[1], "cloth_fused_kernel")
     out["ms"] = cuda_time_ms(window_launch, PAR_TIMED[1]) if kms is None \
         else kms
     out["ms_source"] = "cuda events" if kms is None else "profiler"
@@ -3504,6 +3543,7 @@ def check_windows(dev, gc, p):
                                           row_offset=off,
                                           global_height=GRID, n=5), 3)
     out["bound_ms"], out["bound_by"] = fused_bound(1, rows=rows)
+    out["grid"] = gcc.cloth_window_cuda.grid
     log(f"phase 13 windows: {out}")
     assert out["launches"] == PAR_STEPS * WINDOW_RANKS, out
     assert out["stitched_vs_unsharded_max_dx"] <= WINDOW_TOL, out
@@ -3627,9 +3667,12 @@ def run_parallel(dev):
     ``{"parallel": ...}``."""
     from positionbaseddynamics_tpu_torch.solver import grid_cloth_cuda as gcc
 
+    out = {"runtime_resources": gcc.kernel_resources(fused=True),
+           "capacity": gcc.fused_capacity()}
+    log(f"phase 13 runtime cloth_fused_kernel: {out}")
     state, cset = cloth_scene(GRID, GRID, dev)
     gc, p = cset.grid_cloths[0], state.particles
-    out = {"fused": {nb: check_fused(dev, gc, p, nb) for nb in PAR_BATCHES}}
+    out["fused"] = {nb: check_fused(dev, gc, p, nb) for nb in PAR_BATCHES}
     torch.cuda.empty_cache()
     out["windows"] = check_windows(dev, gc, p)
     fused = gcc.make_cloth_step(gc, p.inv_mass, gc.inv_cnt_dist,
@@ -3649,6 +3692,17 @@ def run_parallel(dev):
     out["main_path"] = {"steps": PAR_MAIN_STEPS, "launches": counts,
                         "steps_per_s": rate}
     log(f"phase 13 fused main path: {out['main_path']}")
+    out["bench"] = {}
+    for name, argv in (("default", ["--no-secondary"]),
+                       ("batch4", ["--batch", "4", "--no-secondary"])):
+        code, records = bench_torch.run(argv)
+        for r in records:
+            print(json.dumps(r), flush=True)
+        assert code == 0 and records, (name, code)
+        assert records[-1]["path"] == "cuda_fused", records
+        assert all(math.isfinite(r["value"]) for r in records), records
+        out["bench"][name] = records[-1]
+    log(f"phase 13 bench_torch.py cloth: {out['bench']}")
     out["modules"] = run_parallel_modules(dev)
     return out
 
@@ -3915,10 +3969,8 @@ def main() -> int:
     from positionbaseddynamics_tpu_torch.solver import grid_cloth_cuda as gcc
     cloth_resources = gcc.kernel_resources()
     for iters, r in cloth_resources.items():
-        log(f"  runtime cloth_substep_kernel<{iters},0>: {r}")
-    fused_resources = gcc.kernel_resources(fused=True)
-    for passes, r in fused_resources.items():
-        log(f"  runtime cloth_substep_kernel<{passes},1>: {r}")
+        log(f"  runtime cloth_substep_kernel<{iters}>: {r}")
+    log(f"  runtime cloth_fused_kernel: {gcc.kernel_resources(fused=True)}")
     from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
     tet_resources = gtc.kernel_resources()
     log(f"  runtime tet_substep_kernel: {tet_resources}")
@@ -3988,7 +4040,7 @@ def main() -> int:
         "planner_peak_bytes": mpc_big["peak_bytes"],
         "planner_route_check": planner_check,
         "bench_check": bench_lines["check"],
-        "ptxas": {iters: ptxas.get(f"cloth_substep_kernel<{iters},0>")
+        "ptxas": {iters: ptxas.get(f"cloth_substep_kernel<{iters}>")
                   for iters in cloth_resources},
         "runtime_resources": cloth_resources,
     }, {
@@ -4074,14 +4126,17 @@ def main() -> int:
         "library_ms": None,
         "ms_source": fused[1]["ms_source"],
         **{f"{k}_b{nb}": r[k] for nb, r in fused.items()
-           for k in ("ms", "five_substeps_ms", "bound_ms", "bound_by",
-                     "substep_bound_ms", "vs_per_substep_max_dx",
-                     "vs_per_substep_max_dv", "bit_equal_per_substep",
+           for k in ("ms", "five_substeps_ms", "over_five_substeps",
+                     "bound_ms", "bound_by", "substep_bound_ms",
+                     "vs_per_substep_max_dx", "vs_per_substep_max_dv",
+                     "bit_equal_per_substep", "bit_equal_cases", "grid",
                      "plain_max_abs_err")},
         "main_path_steps_per_s": parallel["main_path"]["steps_per_s"],
-        "ptxas": {n: ptxas.get(f"cloth_substep_kernel<{n},1>")
-                  for n in fused_resources},
-        "runtime_resources": fused_resources,
+        "bench_steps_per_s": parallel["bench"]["default"]["value"],
+        "bench_steps_per_s_b4": parallel["bench"]["batch4"]["value"],
+        "capacity": parallel["capacity"],
+        "ptxas": ptxas.get("cloth_fused_kernel"),
+        "runtime_resources": parallel["runtime_resources"],
     }, {
         "name": "cloth_substep_window",
         "route": "cuda",
@@ -4099,6 +4154,7 @@ def main() -> int:
         "stitched_vs_unsharded_max_dx":
             windows["stitched_vs_unsharded_max_dx"],
         "window_rows": windows["rows"] + 2 * windows["exchange_rows"],
+        "grid": windows["grid"],
     }]
     tf, tft = tet_fused["checks"], tet_fused["timing"]
     kernels.append({

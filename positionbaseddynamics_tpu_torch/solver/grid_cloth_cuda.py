@@ -12,14 +12,23 @@ them. The state travels as component planes
 per call and back once at the end.
 
 Two modes of the TPU kernel are here too. **Fused** (``fuse_substeps``,
-:func:`cloth_fused_cuda`): one launch runs whole substeps, up to
-``FUSED_PASSES`` iterations × substeps, so a step of 5 substeps at one
-iteration is one launch. **Row window** (``height_override``,
-``global_height``, ``external_params``, :func:`cloth_window_cuda` and the
-row offset of :func:`cloth_substep_cuda`): the kernel steps a window of a
-taller grid's rows, its masks and parity from the global row, the
-inverse masses and Jacobi weights given per call; ``parallel/intra_cuda.py``
-runs a rank's rows so.
+:func:`cloth_fused_cuda`): one cooperative launch runs whole substeps, up
+to ``FUSED_PASSES`` iterations × substeps, so a step of 5 substeps at one
+iteration is one launch. Its grid is as many blocks as the card holds at
+once (:func:`fused_capacity`), each taking (tile, rollout) items in grid
+stride; a pass runs a one-iteration launch's code on each item, with the
+halo of one pass, and the grid synchronises between passes. The state
+between passes lives in scratch planes that the step function allocates
+once (:class:`FusedScratch`). A pass computes what a per-substep launch
+computes, so the two modes agree bit for bit. **Row window**
+(``height_override``, ``global_height``, ``external_params``,
+:func:`cloth_window_cuda` and the row offset of
+:func:`cloth_substep_cuda`): the kernel steps a window of a taller grid's
+rows, its masks and parity from the global row, the inverse masses and
+Jacobi weights given per call; ``parallel/intra_cuda.py`` runs a rank's
+rows so, through the fused kernel. A card without cooperative launch, or
+a launch that fails, raises; nothing falls back to the per-substep
+launches.
 
 Beside the kernel sit its plain PyTorch versions:
 :func:`cloth_substep_reference`, composed of the ported integration
@@ -52,10 +61,12 @@ N_PARAMS = 40                   # floats in the kernel's Params struct
 # and 115 registers a thread at 4. A substep with more iterations takes
 # several launches, which carry the positions and λ between them.
 FUSED_ITERATIONS = 4
-# Iterations × substeps one fused launch holds: the window's halo is 3 rows
-# a pass, so at 5 a 32×16 tile's window is 62×46 cells (148 KB of shared
-# memory); a step of more passes takes launches of fewer substeps each.
+# Iterations × substeps one fused launch runs; a step of more passes takes
+# launches of fewer substeps each.
 FUSED_PASSES = 5
+# A block's tile, (width, height) (``TX``, ``TY`` of the kernel source): a
+# fused launch's items are (tile, rollout) pairs.
+TILE = (32, 16)
 _BEND_ORDER = ("bh", "bv", "bd")
 
 
@@ -166,16 +177,20 @@ def _bind(lib):
     lib.pbd_error_string.argtypes = [ctypes.c_int]
     lib.pbd_error_string.restype = ctypes.c_char_p
     fused = lib.pbd_cloth_fused
-    fused.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong, vp, vp, vp,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_int, vp]
+    # x_in v_in x_out v_out xs vs xp0 xp1 lam0 lam1 w w_bstride icd icb
+    # params n_batch height width iters substeps row_offset global_height
+    # grid_size stream
+    fused.argtypes = [vp] * 11 + [ctypes.c_longlong, vp, vp, vp] + \
+        [ctypes.c_int] * 7 + [vp, vp]
     fused.restype = ctypes.c_int
     for name in ("pbd_cloth_param_count", "pbd_cloth_max_iterations",
                  "pbd_cloth_max_passes"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
-    for name in ("pbd_cloth_kernel_resources", "pbd_cloth_fused_resources"):
-        getattr(lib, name).argtypes = [ctypes.c_int, vp]
+    lib.pbd_cloth_kernel_resources.argtypes = [ctypes.c_int, vp]
+    lib.pbd_cloth_kernel_resources.restype = ctypes.c_int
+    for name in ("pbd_cloth_fused_resources", "pbd_cloth_fused_capacity"):
+        getattr(lib, name).argtypes = [vp]
         getattr(lib, name).restype = ctypes.c_int
     if (lib.pbd_cloth_param_count() != N_PARAMS
             or lib.pbd_cloth_max_iterations() != FUSED_ITERATIONS
@@ -190,31 +205,68 @@ def _bind(lib):
 def kernel_resources(fused: bool = False) -> dict:
     """The kernel's resources as the CUDA runtime reports them on the
     current card, for each iteration count one launch holds (one template
-    instance each), or with ``fused`` for each count of passes a fused
-    launch holds: ``{iters: {"registers", "static_shared_bytes",
+    instance each): ``{iters: {"registers", "static_shared_bytes",
     "dynamic_shared_bytes", "local_bytes", "blocks_per_sm",
-    "threads"}}``."""
+    "threads"}}``; with ``fused`` the one dict of the fused kernel."""
     lib = _build.load("grid_cloth_step")
     _bind(lib)
-    top = FUSED_PASSES if fused else FUSED_ITERATIONS
-    return {iters: resources_of(lib, iters, fused)
-            for iters in range(1, top + 1)}
+    if fused:
+        return fused_resources_of(lib)
+    return {iters: resources_of(lib, iters)
+            for iters in range(1, FUSED_ITERATIONS + 1)}
 
 
 RESOURCE_KEYS = ("registers", "static_shared_bytes", "dynamic_shared_bytes",
                  "local_bytes", "blocks_per_sm", "threads")
 
 
-def resources_of(lib, iters: int, fused: bool = False) -> dict:
-    """:func:`kernel_resources` of one iteration count, from a library
-    built from ``csrc/grid_cloth_step.cu`` or from a variant of it."""
+def _resources(lib, fn, *args) -> dict:
     vals = (ctypes.c_int * len(RESOURCE_KEYS))()
-    err = (lib.pbd_cloth_fused_resources if fused
-           else lib.pbd_cloth_kernel_resources)(iters, vals)
+    err = fn(*args, vals)
     if err != 0:
         raise RuntimeError("cloth kernel resources: "
                            + lib.pbd_error_string(err).decode())
     return dict(zip(RESOURCE_KEYS, vals))
+
+
+def resources_of(lib, iters: int) -> dict:
+    """:func:`kernel_resources` of one iteration count, from a library
+    built from ``csrc/grid_cloth_step.cu`` or from a variant of it."""
+    return _resources(lib, lib.pbd_cloth_kernel_resources, iters)
+
+
+def fused_resources_of(lib) -> dict:
+    """:func:`kernel_resources` of the fused kernel, from a library built
+    from ``csrc/grid_cloth_step.cu`` or from a variant of it."""
+    return _resources(lib, lib.pbd_cloth_fused_resources)
+
+
+def fused_capacity() -> int:
+    """The fused launch's largest grid on the current card: the blocks it
+    holds at once (blocks an SM × SMs). Raises on a card without
+    cooperative launch."""
+    lib = _build.load("grid_cloth_step")
+    _bind(lib)
+    cap = ctypes.c_int(0)
+    err = lib.pbd_cloth_fused_capacity(ctypes.byref(cap))
+    if err != 0:
+        raise RuntimeError("cloth fused capacity: "
+                           + lib.pbd_error_string(err).decode())
+    return cap.value
+
+
+def fused_items(n_batch: int, height: int, width: int) -> int:
+    """The (tile, rollout) items of a fused launch: each pass runs one
+    :data:`TILE` of one rollout an item."""
+    return n_batch * -(-height // TILE[1]) * -(-width // TILE[0])
+
+
+def fused_grid(n_batch: int, height: int, width: int, capacity: int) -> int:
+    """Blocks of a fused launch on a card that holds ``capacity`` at once
+    (:func:`fused_capacity`): one an item, at most ``capacity``; a block
+    takes the items in grid stride, ``ceil(items / grid)`` or one fewer a
+    pass."""
+    return min(fused_items(n_batch, height, width), capacity)
 
 
 def _ptr(t: Optional[Tensor]):
@@ -322,62 +374,114 @@ def fused_split(substeps: int, max_iterations: int) -> list:
     return [min(k, substeps - s) for s in range(0, substeps, k)]
 
 
+class FusedScratch:
+    """The fused launch's scratch planes, allocated at the first launch
+    that needs each and kept for every later one of the same planes: a
+    state ``(xs, vs)`` like the step's planes past one substep, positions
+    between a substep's passes and a λ plane ``(B, 6, H + 2, W)`` past one
+    iteration (a second of each past two). λ holds a row above and below
+    the planes' rows: a row window's anchors there reach into its first
+    and last rows. The launch leaves them undefined, so one scratch serves
+    launches in turn on one stream."""
+
+    NAMES = ("xs", "vs", "xp0", "xp1", "lam0", "lam1")
+
+    def __init__(self):
+        self._key = None
+        self.bufs = {}
+
+    def get(self, xp: Tensor, substeps: int, iterations: int):
+        """The buffers of :data:`NAMES` for a launch of ``substeps``
+        substeps of ``iterations`` on planes like ``xp``, None where it
+        needs no such buffer."""
+        key = (xp.device, tuple(xp.shape))
+        if key != self._key:
+            self._key, self.bufs = key, {}
+        need = {"xs": substeps > 1, "vs": substeps > 1,
+                "xp0": iterations > 1, "xp1": iterations > 2,
+                "lam0": iterations > 1, "lam1": iterations > 2}
+        out = []
+        for name in self.NAMES:
+            if need[name] and name not in self.bufs:
+                shape = xp.shape
+                if name.startswith("lam"):
+                    shape = (xp.shape[0], 6, xp.shape[2] + 2, xp.shape[3])
+                self.bufs[name] = xp.new_empty(shape)
+            out.append(self.bufs[name] if need[name] else None)
+        return tuple(out)
+
+
 def _fused(xp, vp, w, icd, icb, params, max_iterations, substeps,
-           row_offset, global_height, what):
+           row_offset, global_height, scratch, what):
     """``substeps`` substeps in the launches of :func:`fused_split`.
-    Returns ``(xp, vp, launches)``."""
+    Returns ``(xp, vp, launches, grid)``, ``grid`` the last launch's grid
+    size."""
     params, w_bstride = _check_planes(xp, vp, w, icd, icb, params, what)
     b, _, h, wd = xp.shape
     split = fused_split(substeps, max_iterations)
     lib = _build.load("grid_cloth_step")
     _bind(lib)
+    scratch = scratch or FusedScratch()
+    grid = ctypes.c_int(0)
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
         for n in split:
+            bufs = scratch.get(xp, n, max_iterations)
             xo, vo = torch.empty_like(xp), torch.empty_like(vp)
             err = lib.pbd_cloth_fused(
                 xp.data_ptr(), vp.data_ptr(), xo.data_ptr(), vo.data_ptr(),
-                w.data_ptr(), w_bstride, icd.data_ptr(), icb.data_ptr(),
-                params.ctypes.data, b, h, wd, max_iterations, n,
-                int(row_offset), int(global_height), stream)
+                *(_ptr(t) for t in bufs), w.data_ptr(), w_bstride,
+                icd.data_ptr(), icb.data_ptr(), params.ctypes.data, b, h, wd,
+                max_iterations, n, int(row_offset), int(global_height),
+                ctypes.byref(grid), stream)
             _raise_on(lib, err, what)
             xp, vp = xo, vo
-    return xp, vp, len(split)
+    return xp, vp, len(split), grid.value
 
 
 def cloth_fused_cuda(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
                      icb: Tensor, params: np.ndarray, max_iterations: int,
-                     substeps: int):
+                     substeps: int, scratch: Optional[FusedScratch] = None):
     """Run ``substeps`` whole substeps through the fused kernel, as many a
     launch as ``FUSED_PASSES`` holds (one launch for 5 substeps at one
     iteration), the counterpart of ``fuse_substeps``. Arguments as
-    :func:`cloth_substep_cuda`'s. Returns new ``(xp, vp)`` buffers. Counts
-    its launches in ``cloth_fused_cuda.launches``."""
-    xp, vp, n = _fused(xp, vp, w, icd, icb, params, max_iterations,
-                       substeps, 0, xp.shape[-2], "cloth_fused_cuda")
+    :func:`cloth_substep_cuda`'s; ``scratch`` keeps the launches' scratch
+    planes between calls (a fresh one when None). Returns new ``(xp, vp)``
+    buffers and leaves the inputs as they were. Counts its launches in
+    ``cloth_fused_cuda.launches`` and keeps the last launch's grid size in
+    ``cloth_fused_cuda.grid``."""
+    xp, vp, n, grid = _fused(xp, vp, w, icd, icb, params, max_iterations,
+                             substeps, 0, xp.shape[-2], scratch,
+                             "cloth_fused_cuda")
     cloth_fused_cuda.launches += n
+    cloth_fused_cuda.grid = grid
     return xp, vp
 
 
 cloth_fused_cuda.launches = 0
+cloth_fused_cuda.grid = None
 
 
 def cloth_window_cuda(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
                       icb: Tensor, params: np.ndarray, max_iterations: int,
-                      substeps: int, row_offset: int, global_height: int):
+                      substeps: int, row_offset: int, global_height: int,
+                      scratch: Optional[FusedScratch] = None):
     """:func:`cloth_fused_cuda` on a window of rows: the H rows of the
     planes are rows ``row_offset..`` (negative above the grid) of a grid of
     ``global_height`` rows, and rows beyond the window count as zeros of
     zero inverse mass. Counts its launches in
-    ``cloth_window_cuda.launches``."""
-    xp, vp, n = _fused(xp, vp, w, icd, icb, params, max_iterations,
-                       substeps, row_offset, global_height,
-                       "cloth_window_cuda")
+    ``cloth_window_cuda.launches`` and keeps the last launch's grid size
+    in ``cloth_window_cuda.grid``."""
+    xp, vp, n, grid = _fused(xp, vp, w, icd, icb, params, max_iterations,
+                             substeps, row_offset, global_height, scratch,
+                             "cloth_window_cuda")
     cloth_window_cuda.launches += n
+    cloth_window_cuda.grid = grid
     return xp, vp
 
 
 cloth_window_cuda.launches = 0
+cloth_window_cuda.grid = None
 
 
 def run_substeps(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
@@ -429,8 +533,9 @@ def make_cloth_step(batch: GridClothBatch, inv_mass, inv_cnt_dist,
     ``[0, H·W)`` with uniform XPBD parameters, as for the TPU kernel.
 
     ``fuse_substeps`` runs a step's substeps in :func:`fused_split`'s
-    launches (one at 5 substeps of one iteration), else one launch a
-    substep (two past ``FUSED_ITERATIONS`` iterations). The row-window mode
+    cooperative launches (one at 5 substeps of one iteration), their
+    scratch planes allocated once for the step function, else one launch
+    a substep (two past ``FUSED_ITERATIONS`` iterations). The row-window mode
     (``grid_cloth_pallas.py:161, 221, 554``): the step works on
     ``height_override`` rows, masks and parity from a grid of
     ``global_height`` rows (default: the window's own); with
@@ -467,6 +572,7 @@ def make_cloth_step(batch: GridClothBatch, inv_mass, inv_cnt_dist,
 
     shape = (n, 3) if n_batch == 1 else (n_batch, n, 3)
     n_sub = n_steps * substeps
+    scratch = FusedScratch()
 
     def run(x, v, w, icd, icb, off):
         if tuple(x.shape) != shape or tuple(v.shape) != shape:
@@ -486,11 +592,12 @@ def make_cloth_step(batch: GridClothBatch, inv_mass, inv_cnt_dist,
                 for _ in range(n_steps):
                     xp, vp = cloth_window_cuda(xp, vp, w, icd, icb, params,
                                                max_iterations, substeps, off,
-                                               gh)
+                                               gh, scratch)
             else:
                 for _ in range(n_steps):
                     xp, vp = cloth_fused_cuda(xp, vp, w, icd, icb, params,
-                                              max_iterations, substeps)
+                                              max_iterations, substeps,
+                                              scratch)
             return from_planes(xp, lead), from_planes(vp, lead)
         if windowed:
             def grid(a):

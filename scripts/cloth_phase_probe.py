@@ -49,7 +49,7 @@ PHASES = (("// ---- load the tile", "load"),
           ("// ---- isometric bending", "bending_solve"),
           ("// ---- bending gather", "bending_gather"),
           ("// ---- tile interior", "write_back"))
-END = "}  // cloth_substep_kernel\n"
+END = "}  // cloth_tile\n"
 CONFIGS = ((1, 1), (1, 4), (4, 1), (4, 4))     # (iterations, rollouts)
 PROBE = r"""
 __device__ unsigned long long g_cloth_probe[16];

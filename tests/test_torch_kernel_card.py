@@ -255,6 +255,39 @@ def test_kernel_at_64_rollouts_equals_each_rollout_alone_on_card(cuda):
     assert torch.equal(xk[:, [0, 63]], x[:, [0, 63]])
 
 
+def test_fused_kernel_at_64_rollouts_on_card(cuda):
+    """The fused mode at the planner's shape: the 64 smoothly moving
+    rollouts of the 64×64 cloth (512 items, more than an H100 holds
+    blocks at once, so blocks take several a pass), 10 steps of one
+    cooperative launch each, bit for bit the per-substep launches and
+    within 1e-5 of the plain version; a rollout launched alone (8 items)
+    bit for bit its place in the batch."""
+    g, p, step, gen = _64_rollouts(cuda)
+    shift = 0.05 * torch.randn((64, 1, 3), generator=gen, device=cuda)
+    x = (p.x + shift).contiguous()
+    v = (0.2 * torch.randn((64, 1, 3), generator=gen, device=cuda)
+         ).expand(64, *p.v.shape).contiguous()
+    fused = gcc.make_cloth_step(
+        g, p.inv_mass, g.inv_cnt_dist, g.inv_cnt_bend, dt=0.005, substeps=5,
+        n_batch=64, n_steps=10, fuse_substeps=True)
+    before = gcc.cloth_fused_cuda.launches
+    xf, vf = fused(x, v)
+    assert gcc.cloth_fused_cuda.launches - before == 10
+    assert gcc.cloth_fused_cuda.grid == min(512, gcc.fused_capacity())
+    xk, vk = step(x, v)
+    assert torch.equal(xf, xk) and torch.equal(vf, vk)
+    xr, vr = x, v
+    for _ in range(50):
+        xr, vr = gcc.cloth_substep_reference(g, xr, vr, p.inv_mass, h=1e-3)
+    assert (xf - xr).abs().max().item() <= 1e-5
+    one = gcc.make_cloth_step(
+        g, p.inv_mass, g.inv_cnt_dist, g.inv_cnt_bend, dt=0.005, substeps=5,
+        n_steps=10, fuse_substeps=True)
+    xs, vs = one(x[17], v[17])
+    assert gcc.cloth_fused_cuda.grid == 8
+    assert torch.equal(xf[17], xs) and torch.equal(vf[17], vs)
+
+
 def test_mppi_update_kernel_route_matches_stencil_route_on_card(cuda):
     """One MPPI update with fed noise on ``bench.py --mpc``'s scene at
     32×32, K 16, h 3, its cost plus the free corner's distance to the

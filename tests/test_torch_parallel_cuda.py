@@ -78,6 +78,122 @@ def test_fused_kernel_matches_plain_and_per_substep_on_card(
     assert torch.equal(xf[..., [0, 39], :], x[..., [0, 39], :])
 
 
+# the cooperative fused launch against the per-substep launches: 40×37 is
+# 6 tiles, so 64 rollouts are 384 items, more than an H100 holds blocks at
+# once (264), and blocks take several a pass
+@pytest.mark.parametrize("substeps,iters", [(5, 1), (2, 2)],
+                         ids=["5x1", "2x2"])
+@pytest.mark.parametrize("damping", [0.0, 0.01])
+@pytest.mark.parametrize("n_batch", [1, 4, 64])
+def test_fused_launch_equals_per_substep_launches_on_card(
+        cuda, substeps, iters, damping, n_batch):
+    """Over 3 steps, one launch a step, bit for bit in x and v; its grid is
+    ``fused_grid``'s, one block an item up to the card's capacity."""
+    ts, tc = _build(40, 37, cuda)
+    g, p = tc.grid_cloths[0], ts.particles
+    x = p.x.expand(n_batch, *p.x.shape).clone()
+    x += 0.01 * torch.sin(x[..., :1] * 3.0
+                          + torch.arange(n_batch, device=cuda)[:, None, None])
+    x[:, [0, 39]] = p.x[[0, 39]]
+    v = torch.zeros_like(x)
+    if n_batch == 1:
+        x, v = x[0], v[0]
+
+    def steps(fuse):
+        return gcc.make_cloth_step(
+            g, p.inv_mass, g.inv_cnt_dist, g.inv_cnt_bend, dt=DT,
+            substeps=substeps, max_iterations=iters, damping=damping,
+            n_batch=n_batch, n_steps=3, fuse_substeps=fuse)
+
+    before = gcc.cloth_fused_cuda.launches
+    xf, vf = steps(True)(x, v)
+    assert gcc.cloth_fused_cuda.launches - before == 3
+    xs, vs = steps(False)(x, v)
+    torch.cuda.synchronize()
+    assert torch.equal(xf, xs) and torch.equal(vf, vs)
+    assert (xf - x).abs().max().item() > 1e-4
+    assert gcc.cloth_fused_cuda.grid == gcc.fused_grid(
+        n_batch, 37, 40, gcc.fused_capacity())
+
+
+def test_fused_launch_leaves_its_inputs_on_card(cuda):
+    """A fused launch writes fresh buffers, leaves its inputs as they were,
+    keeps its scratch between launches (the same result from the same
+    input), and reports the runtime's resources of its kernel."""
+    ts, tc = _build(40, 37, cuda)
+    g, p = tc.grid_cloths[0], ts.particles
+    params = gcc.kernel_params(g, h=DT / 2, damping=0.01)
+    w = p.inv_mass.reshape(37, 40)
+    icd = g.inv_cnt_dist.reshape(37, 40).contiguous()
+    icb = g.inv_cnt_bend.reshape(37, 40).contiguous()
+    xp = gcc.to_planes(torch.stack([p.x, p.x + 0.01]), 37, 40)
+    vp = torch.rand_like(xp)
+    x0, v0 = xp.clone(), vp.clone()
+    scratch = gcc.FusedScratch()
+    xo, vo = gcc.cloth_fused_cuda(xp, vp, w, icd, icb, params, 2, 2, scratch)
+    bufs = dict(scratch.bufs)
+    xo2, vo2 = gcc.cloth_fused_cuda(xp, vp, w, icd, icb, params, 2, 2,
+                                    scratch)
+    torch.cuda.synchronize()
+    assert all(scratch.bufs[k] is t for k, t in bufs.items())
+    assert torch.equal(xo, xo2) and torch.equal(vo, vo2)
+    ptrs = {t.data_ptr() for t in (xp, vp, w, icd, icb)}
+    assert xo.data_ptr() not in ptrs and vo.data_ptr() not in ptrs
+    assert torch.equal(xp, x0) and torch.equal(vp, v0)
+    res = gcc.kernel_resources(fused=True)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert res["threads"] == 864 and res["blocks_per_sm"] >= 1
+    assert gcc.fused_capacity() == res["blocks_per_sm"] * sms
+
+
+# windows at the grid's top (row_offset < 0), at its bottom and inside
+# it, at one iteration and at two (the anchors just beyond a window's inner
+# edge carry λ between passes)
+@pytest.mark.parametrize("off,iters", [(-8, 1), (22, 1), (6, 1), (-8, 2),
+                                       (22, 2)])
+def test_row_windows_at_the_edges_on_card(cuda, off, iters):
+    """A window of 26 rows of a 40-row cloth at ``off``: the fused window
+    launch equals the per-substep launches of the same window bit for
+    bit, its plain version within 1e-5, and the unsharded fused step on
+    the rows more than the step's reach (3·iterations·substeps) from the
+    window's inner edges, within 1e-6."""
+    ts, tc = _build(32, 40, cuda)
+    g, p = tc.grid_cloths[0], ts.particles
+    h, w, rows, sub = g.height, g.width, 26, 2
+    params = gcc.kernel_params(g, h=DT / sub)
+    planes = [a.reshape(h, w, 1) for a in (p.inv_mass, g.inv_cnt_dist,
+                                           g.inv_cnt_bend)]
+    xg = p.x.reshape(h, w, 3) + 0.01 * torch.sin(
+        torch.arange(h * w, device=cuda, dtype=torch.float32)).reshape(
+            h, w, 1)
+    xg[0] = p.x.reshape(h, w, 3)[0]
+    vg = torch.zeros_like(xg)
+    we, icde, icbe = (_cut(a, off, rows, h).contiguous() for a in planes)
+    xe, ve = _cut(xg, off, rows, h), _cut(vg, off, rows, h)
+    xp, vp = gcc.to_planes(xe, rows, w), gcc.to_planes(ve, rows, w)
+    args = (we[..., 0], icde[..., 0], icbe[..., 0], params)
+    xk, vk = gcc.cloth_window_cuda(xp, vp, *args, iters, sub, off, h)
+    xs, vs = xp, vp
+    for _ in range(sub):
+        xs, vs = gcc.cloth_substep_cuda(xs, vs, *args, iters, off, h)
+    torch.cuda.synchronize()
+    assert torch.equal(xk, xs) and torch.equal(vk, vs)
+    xk = xk.permute(0, 2, 3, 1)[0]
+    xr, _ = window_substeps_reference(params, xe, ve, we, icde, icbe,
+                                      row_offset=off, global_height=h,
+                                      max_iterations=iters, n=sub)
+    assert (xk - xr).abs().max().item() <= 1e-5
+    full = gcc.make_cloth_step(g, p.inv_mass, g.inv_cnt_dist,
+                               g.inv_cnt_bend, dt=DT, substeps=sub,
+                               max_iterations=iters, fuse_substeps=True)
+    xu = full(xg.reshape(-1, 3), vg.reshape(-1, 3))[0].reshape(h, w, 3)
+    reach = 3 * iters * sub
+    lo = max(off, 0) if off <= 0 else off + reach
+    hi = min(off + rows, h) if off + rows >= h else off + rows - reach
+    assert hi - lo >= 4, (lo, hi)
+    assert (xk[lo - off:hi - off] - xu[lo:hi]).abs().max().item() <= 1e-6
+
+
 def _cut(a, off, rows, h):
     """Rows ``off .. off + rows`` of ``a`` (..., h, W, k), zeros beyond."""
     out = a.new_zeros(a.shape[:-3] + (rows,) + a.shape[-2:])
