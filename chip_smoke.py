@@ -498,28 +498,34 @@ def ptxas_report(logs):
     return out, lines
 
 
-def kernel_counters():
-    from positionbaseddynamics_tpu_torch.fluids import cellgrid_cuda as fcc
-    from positionbaseddynamics_tpu_torch.solver import grid_cloth_cuda as gcc
-    from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
+# the name each launch count is logged under, and its kernel's launch
+# counter in ``utils.telemetry``
+KERNEL_COUNTERS = {"cloth_substep": "cloth_substep",
+                   "cloth_substep_fused": "cloth_fused",
+                   "cloth_substep_window": "cloth_window",
+                   "tet_substep": "tet_substep",
+                   "tet_substep_fused": "tet_fused",
+                   "pbf_density_lambda": "pbf_density_lambda",
+                   "pbf_corrections": "pbf_corrections",
+                   "pbf_xsph": "pbf_xsph"}
 
-    return {"cloth_substep": gcc.cloth_substep_cuda,
-            "cloth_substep_fused": gcc.cloth_fused_cuda,
-            "cloth_substep_window": gcc.cloth_window_cuda,
-            "tet_substep": gtc.tet_substep_cuda,
-            "tet_substep_fused": gtc.tet_fused_cuda,
-            "pbf_density_lambda": fcc.density_lambda_cuda,
-            "pbf_corrections": fcc.corrections_cuda,
-            "pbf_xsph": fcc.xsph_cuda}
+
+def launch_count(name: str) -> int:
+    """The launches counted so far of ``KERNEL_COUNTERS``' kernel
+    ``name``."""
+    from positionbaseddynamics_tpu_torch.utils import telemetry
+
+    return telemetry.launches(KERNEL_COUNTERS[name])
 
 
 def reset_counts():
-    for wrapper in kernel_counters().values():
-        wrapper.launches = 0
+    from positionbaseddynamics_tpu_torch.utils import telemetry
+
+    telemetry.reset()
 
 
 def read_counts():
-    return {k: w.launches for k, w in kernel_counters().items()}
+    return {k: launch_count(k) for k in KERNEL_COUNTERS}
 
 
 def max_dev(a, b) -> float:
@@ -580,11 +586,11 @@ def check_kernel_against_plain(dev):
 
     # more iterations than one launch holds: each substep takes two
     kw = dict(max_iterations=gcc.FUSED_ITERATIONS + 2)
-    before = gcc.cloth_substep_cuda.launches
+    before = launch_count("cloth_substep")
     x3, _ = make_cloth_step(g2, p2.inv_mass, g2.inv_cnt_dist,
                             g2.inv_cnt_bend, dt=0.005, substeps=5,
                             n_steps=10, device=dev, **kw)(p2.x, p2.v)
-    split = gcc.cloth_substep_cuda.launches - before
+    split = launch_count("cloth_substep") - before
     x3r, _ = plain_steps(g2, p2.x, p2.v, p2.inv_mass, 50, h, **kw)
     torch.cuda.synchronize()
     dev3 = max_dev(x3, x3r)
@@ -1569,10 +1575,10 @@ def check_planner_routes(dev):
     gen = torch.Generator(device=dev).manual_seed(7)
     eps = mcfg.sigma * torch.randn((k, hz, 3), generator=gen, device=dev)
     nominal = 0.3 * torch.randn((hz, 3), generator=gen, device=dev)
-    before = gcc.cloth_substep_cuda.launches
+    before = launch_count("cloth_substep")
     nk, ck = mpc.mppi_update(sk, nominal, seq_k, mcfg, eps=eps)
     torch.cuda.synchronize()
-    launches = gcc.cloth_substep_cuda.launches - before
+    launches = launch_count("cloth_substep") - before
     npl, cpl = mpc.mppi_update(sp, nominal.cpu(), seq_p, mcfg, eps=eps.cpu())
     cost_rel = ((ck.cpu() - cpl).abs().max() / cpl.abs().max()).item()
     nom_dev = max_dev(nk.cpu(), npl)
@@ -1635,10 +1641,10 @@ def check_bar_planner_routes(dev):
     gen = torch.Generator(device=dev).manual_seed(12)
     eps = mcfg.sigma * torch.randn((k, hz, 3), generator=gen, device=dev)
     nominal = 0.2 * torch.randn((hz, 3), generator=gen, device=dev)
-    before = gtc.tet_substep_cuda.launches
+    before = launch_count("tet_substep")
     nk, ck = mpc.mppi_update(sk, nominal, seq_k, mcfg, eps=eps)
     torch.cuda.synchronize()
-    launches = gtc.tet_substep_cuda.launches - before
+    launches = launch_count("tet_substep") - before
     npl, cpl = mpc.mppi_update(sp, nominal.cpu(), seq_p, mcfg,
                                eps=eps.cpu())
     cost_rel = ((ck.cpu() - cpl).abs().max() / cpl.abs().max()).item()
@@ -3398,12 +3404,12 @@ def check_fused(dev, gc, p, nb):
     want_grid = gcc.fused_grid(nb, GRID, GRID, gcc.fused_capacity())
 
     fused, per = step(True), step(False)
-    before = gcc.cloth_fused_cuda.launches
+    before = launch_count("cloth_substep_fused")
     xf, vf, xs, vs = x, v, x, v
     for _ in range(PAR_STEPS):
         xf, vf = fused(xf, vf)
         xs, vs = per(xs, vs)
-    launches = gcc.cloth_fused_cuda.launches - before
+    launches = launch_count("cloth_substep_fused") - before
     plain_dx = 0.0
     for lo in range(0, nb, PAR_PLAIN_CHUNK):
         sl = slice(lo, lo + PAR_PLAIN_CHUNK)
@@ -3496,7 +3502,7 @@ def check_windows(dev, gc, p):
     xg, vg = p.x.reshape(GRID, GRID, 3), p.v.reshape(GRID, GRID, 3)
     xu, vu = p.x, p.v
     plain_dx = 0.0
-    before = gcc.cloth_window_cuda.launches
+    before = launch_count("cloth_substep_window")
     for _ in range(PAR_STEPS):
         kept = []
         for r in range(WINDOW_RANKS):
@@ -3517,7 +3523,7 @@ def check_windows(dev, gc, p):
         xu, vu = full(xu, vu)
     torch.cuda.synchronize()
     out = {"ranks": WINDOW_RANKS, "rows": r_loc, "exchange_rows": exch,
-           "launches": gcc.cloth_window_cuda.launches - before,
+           "launches": launch_count("cloth_substep_window") - before,
            "stitched_vs_unsharded_max_dx": max_dev(xg.reshape(-1, 3), xu),
            "stitched_vs_unsharded_max_dv": max_dev(vg.reshape(-1, 3), vu),
            "plain_max_abs_err": plain_dx}
@@ -3738,11 +3744,11 @@ def check_tet_fused(dev, bar):
                 xf, vf = xs, vs = tuple(gtc.to_planes(a)
                                         for a in starts[nb])
                 scratch = gtc.FusedScratch()
-                before = gtc.tet_fused_cuda.launches
+                before = launch_count("tet_substep_fused")
                 for _ in range(TET_FUSED_BIT_STEPS):
                     xf, vf = gtc.tet_fused_cuda(xf, vf, w, ic, params, dims,
                                                 iters, 5, scratch)
-                launches = gtc.tet_fused_cuda.launches - before
+                launches = launch_count("tet_substep_fused") - before
                 xs, vs, _, _ = gtc.run_substeps(
                     xs, vs, w, ic, params, dims, iters,
                     5 * TET_FUSED_BIT_STEPS)

@@ -18,8 +18,11 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict
+
+from .utils import telemetry
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -50,7 +53,18 @@ def _target(src: Path) -> Path:
 def build_all() -> Dict[str, ctypes.CDLL]:
     """Compile every source that has no current library, all at once, and
     load them all. Returns ``{source stem: CDLL}``. Raises RuntimeError
-    with the compiler's output if a build fails."""
+    with the compiler's output if a build fails. Counts its seconds in
+    ``kernels.load_s``, its ``nvcc`` processes in ``kernels.nvcc_builds``
+    and the libraries it loads in ``kernels.libraries_loaded``."""
+    t0 = time.perf_counter()
+    try:
+        with telemetry.span("pbd.kernels.load"):
+            return _build_and_load()
+    finally:
+        telemetry.count("kernels.load_s", time.perf_counter() - t0)
+
+
+def _build_and_load() -> Dict[str, ctypes.CDLL]:
     with _lock:
         sources = sorted(CSRC.glob("*.cu"))
         pending = []
@@ -63,6 +77,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             proc = subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            telemetry.count("kernels.nvcc_builds")
             pending.append((src, out, tmp, proc))
         failed = []
         for src, out, tmp, proc in pending:
@@ -77,6 +92,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         for src in sources:
             if src.stem not in _libs:
                 _libs[src.stem] = ctypes.CDLL(str(_target(src)))
+                telemetry.count("kernels.libraries_loaded")
         return dict(_libs)
 
 

@@ -24,9 +24,10 @@ shuffle tree adds the group's partial sums in a fixed order. Every pass
 recomputes the step's frozen pair set from the pre-projection table
 ``xt0`` with explicitly rounded operations, so its pairs equal the plain
 version's. Each wrapper checks device, dtype, shape and contiguity and
-raises on anything the kernel does not take; it counts its launches in
-``<wrapper>.launches``. There is no fallback: :func:`pbf_step_cuda`
-takes CUDA tensors only.
+raises on anything the kernel does not take; it runs in the span
+``pbd.kernel.pbf_<pass>`` and counts its launches in the counter
+``kernel.pbf_<pass>.launches`` (:mod:`..utils.telemetry`). There is no
+fallback: :func:`pbf_step_cuda` takes CUDA tensors only.
 :func:`kernel_resources` reports each kernel's registers, shared memory,
 spills and resident blocks an SM.
 
@@ -43,6 +44,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils import telemetry
 from . import sph
 from .cellgrid import (corrections_reference,  # noqa: F401 (plain versions)
                        density_lambda_reference, occupied_count,
@@ -189,13 +191,14 @@ def _launch(which, fn, lib, args, device):
                            + lib.pbd_pbf_error_string(err).decode())
 
 
+@telemetry.traced("pbd.kernel.pbf_density_lambda")
 def density_lambda_cuda(spec, xt, xt0, mt, count, active, nbr, nbr_ok,
                         lam_t, dens_t, params):
     """B3: write λ and density of every slot of the active cells into the
     ``(n_cells, cap)`` tables ``lam_t`` and ``dens_t`` (other rows are left
     as they are). ``count``: :func:`cellgrid.occupied_count` of ``mt``;
-    ``params``: :func:`kernel_params`. Counts its launches in
-    ``density_lambda_cuda.launches``."""
+    ``params``: :func:`kernel_params`. Counts its launches in the counter
+    ``kernel.pbf_density_lambda.launches``."""
     args = _cells_args(spec, xt, xt0, mt, count, active, nbr, nbr_ok)
     for name, t in (("lam_t", lam_t), ("dens_t", dens_t)):
         _expect(name, t, mt.shape, torch.float32, xt.device)
@@ -206,18 +209,16 @@ def density_lambda_cuda(spec, xt, xt0, mt, count, active, nbr, nbr_ok,
     _launch("density/lambda", fn, lib, args + [
         lam_t.data_ptr(), dens_t.data_ptr(), _params_ptr(params)],
         xt.device)
-    density_lambda_cuda.launches += 1
+    telemetry.count("kernel.pbf_density_lambda.launches")
 
 
-density_lambda_cuda.launches = 0
-
-
+@telemetry.traced("pbd.kernel.pbf_corrections")
 def corrections_cuda(spec, xt, xt0, mt, count, lam_t, active, nbr, nbr_ok,
                      x_out, params):
     """B4: write ``x + Δx`` of every slot of the active cells into
     ``x_out`` (a table other than ``xt``; other rows are left as they are),
-    with λ read from ``lam_t``. Counts its launches in
-    ``corrections_cuda.launches``."""
+    with λ read from ``lam_t``. Counts its launches in the counter
+    ``kernel.pbf_corrections.launches``."""
     args = _cells_args(spec, xt, xt0, mt, count, active, nbr, nbr_ok)
     _expect("lam_t", lam_t, mt.shape, torch.float32, xt.device)
     _expect("x_out", x_out, xt.shape, torch.float32, xt.device)
@@ -231,18 +232,16 @@ def corrections_cuda(spec, xt, xt0, mt, count, lam_t, active, nbr, nbr_ok,
     _launch("corrections", fn, lib, args + [
         lam_t.data_ptr(), x_out.data_ptr(), _params_ptr(params)],
         xt.device)
-    corrections_cuda.launches += 1
+    telemetry.count("kernel.pbf_corrections.launches")
 
 
-corrections_cuda.launches = 0
-
-
+@telemetry.traced("pbd.kernel.pbf_xsph")
 def xsph_cuda(spec, xt, xt0, vt, mt, count, dens_t, active, nbr, nbr_ok,
               v_out, params):
     """B5: write ``v − ν·dv`` of every slot of the active cells into
     ``v_out`` (a table other than ``vt``; other rows are left as they
-    are), with ρ read from ``dens_t``. Counts its launches in
-    ``xsph_cuda.launches``."""
+    are), with ρ read from ``dens_t``. Counts its launches in the counter
+    ``kernel.pbf_xsph.launches``."""
     args = _cells_args(spec, xt, xt0, mt, count, active, nbr, nbr_ok)
     _expect("vt", vt, xt.shape, torch.float32, xt.device)
     _expect("dens_t", dens_t, mt.shape, torch.float32, xt.device)
@@ -257,10 +256,7 @@ def xsph_cuda(spec, xt, xt0, vt, mt, count, dens_t, active, nbr, nbr_ok,
     _launch("XSPH", fn, lib, args + [
         vt.data_ptr(), dens_t.data_ptr(), v_out.data_ptr(),
         _params_ptr(params)], xt.device)
-    xsph_cuda.launches += 1
-
-
-xsph_cuda.launches = 0
+    telemetry.count("kernel.pbf_xsph.launches")
 
 
 def _params_ptr(params: np.ndarray) -> int:

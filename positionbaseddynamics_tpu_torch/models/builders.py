@@ -37,7 +37,7 @@ from ..solver.grid_tet import GridTetBatch
 from ..solver.joints import make_joint_batch
 from ..solver.state import (OrientationState, ParticleState, RigidState,
                             SimState)
-from ..utils import npquat
+from ..utils import npquat, telemetry
 from ..utils.massprops import mass_properties, principal_frame
 from .mesh import TetMesh, TriangleMesh
 
@@ -1183,6 +1183,7 @@ class SceneBuilder:
                                             device=dev, **kwargs))
         return tuple(batches)
 
+    @telemetry.traced("pbd.scene.build")
     def build(self, device=None) -> Tuple[SimState, ConstraintSet]:
         dev = resolve_device(device)
         x = (np.concatenate(self._x, axis=0)

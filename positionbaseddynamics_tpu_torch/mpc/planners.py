@@ -41,6 +41,7 @@ from .._device import resolve_device
 from ..solver.constraints import ConstraintSet
 from ..solver.state import ParticleState, SimState
 from ..solver.step import StepConfig, make_step_fn
+from ..utils import telemetry
 
 Tensor = torch.Tensor
 
@@ -109,22 +110,33 @@ def make_sequence_cost(cset: ConstraintSet, cfg: StepConfig, control_model,
     taken as it is. The cost is 0-d or ``(K,)``. The step function is
     built once, here, with the collision ``pipeline`` when given (its
     detection and contact solves run once for all K rollouts);
-    ``seq_cost.step`` is it, and ``seq_cost.path`` its route."""
+    ``seq_cost.step`` is it, and ``seq_cost.path`` its route.
+
+    A call runs in the span ``pbd.plan.rollouts``; inside it the
+    expansion in ``pbd.plan.expand``, each ``control_model.apply`` in
+    ``pbd.plan.control``, each running and the terminal cost in
+    ``pbd.plan.cost``, and each step in ``pbd.step``."""
     step_fn = make_step_fn(cset, cfg, device, pipeline=pipeline)
 
+    @telemetry.traced("pbd.plan.rollouts")
     def seq_cost(state: SimState, controls: Tensor):
         x = state.particles.x
         if controls.dim() == 3 and x.dim() == 2:
-            state = _expand_state(state, controls.shape[0])
+            with telemetry.span("pbd.plan.expand"):
+                state = _expand_state(state, controls.shape[0])
         acc = torch.zeros(controls.shape[:-2], dtype=torch.float32,
                           device=x.device)
         for t in range(controls.shape[-2]):
             u = controls[..., t, :]
-            state = step_fn(control_model.apply(state, u, cfg.dt))
+            with telemetry.span("pbd.plan.control"):
+                state = control_model.apply(state, u, cfg.dt)
+            state = step_fn(state)
             if running_cost is not None:
-                acc = acc + running_cost(state, u)
+                with telemetry.span("pbd.plan.cost"):
+                    acc = acc + running_cost(state, u)
         if terminal_cost is not None:
-            acc = acc + terminal_cost(state)
+            with telemetry.span("pbd.plan.cost"):
+                acc = acc + terminal_cost(state)
         return acc, state
 
     seq_cost.step, seq_cost.path = step_fn, step_fn.path
@@ -141,6 +153,7 @@ def _normal(shape, like: Tensor, generator):
                        device=like.device)
 
 
+@telemetry.traced("pbd.mppi.update")
 def mppi_update(state, nominal: Tensor, seq_cost, mcfg: MPPIConfig,
                 generator: Optional[torch.Generator] = None,
                 eps: Optional[Tensor] = None):
@@ -148,17 +161,20 @@ def mppi_update(state, nominal: Tensor, seq_cost, mcfg: MPPIConfig,
     ``eps`` is the perturbation ``σ·N(0, 1)`` of shape ``(K,) +
     nominal.shape`` (JAX's ``eps``, ``planners.py:90``); when None it is
     drawn from ``generator`` on the state's device. Returns
-    ``(new_nominal, costs (K,))``."""
+    ``(new_nominal, costs (K,))``. Runs in the span ``pbd.mppi.update``,
+    the softmin weights and their sum in ``pbd.mppi.weights``."""
     if eps is None:
         eps = mcfg.sigma * _normal((mcfg.num_samples,) + tuple(nominal.shape),
                                    nominal, generator)
     costs = seq_cost(state, nominal + eps)[0]
-    beta = torch.min(costs)
-    w = torch.exp(-(costs - beta) / mcfg.temperature)
-    w = w / torch.clamp_min(torch.sum(w), 1e-12)
-    return nominal + torch.tensordot(w, eps, dims=1), costs
+    with telemetry.span("pbd.mppi.weights"):
+        beta = torch.min(costs)
+        w = torch.exp(-(costs - beta) / mcfg.temperature)
+        w = w / torch.clamp_min(torch.sum(w), 1e-12)
+        return nominal + torch.tensordot(w, eps, dims=1), costs
 
 
+@telemetry.traced("pbd.cem.update")
 def cem_update(state, mean: Tensor, sigma: Tensor, seq_cost,
                ccfg: CEMConfig, generator: Optional[torch.Generator] = None,
                eps: Optional[Tensor] = None):
@@ -166,18 +182,21 @@ def cem_update(state, mean: Tensor, sigma: Tensor, seq_cost,
     ``eps`` is the standard normal draw of shape ``(K,) + mean.shape``
     (JAX's ``eps``, ``planners.py:103``: samples are ``mean + sigma·eps``);
     when None it is drawn from ``generator`` on the state's device.
-    Returns ``(mean, sigma, costs (K,))``."""
+    Returns ``(mean, sigma, costs (K,))``. Runs in the span
+    ``pbd.cem.update``, the elites' selection and refit in
+    ``pbd.cem.refit``."""
     n_elite = max(1, int(ccfg.elite_frac * ccfg.num_samples))
     if eps is None:
         eps = _normal((ccfg.num_samples,) + tuple(mean.shape), mean,
                       generator)
     samples = mean + sigma * eps
     costs = seq_cost(state, samples)[0]
-    elite_idx = torch.topk(-costs, n_elite).indices
-    elites = samples[elite_idx]
-    mean = torch.mean(elites, dim=0)
-    sigma = torch.clamp_min(torch.std(elites, dim=0, correction=0),
-                            ccfg.min_sigma)
+    with telemetry.span("pbd.cem.refit"):
+        elite_idx = torch.topk(-costs, n_elite).indices
+        elites = samples[elite_idx]
+        mean = torch.mean(elites, dim=0)
+        sigma = torch.clamp_min(torch.std(elites, dim=0, correction=0),
+                                ccfg.min_sigma)
     return mean, sigma, costs
 
 

@@ -38,6 +38,13 @@ tests run them, and the card's smoke run holds the kernel against them.
 The step function that :func:`make_cloth_step` returns takes the plain
 versions for CPU tensors only; for CUDA tensors it launches the kernel or
 raises.
+
+:func:`run_substeps`, :func:`cloth_fused_cuda` and
+:func:`cloth_window_cuda` each run in one ``pbd.kernel.cloth`` span
+(:mod:`..utils.telemetry`) that covers their checks, output allocations
+and launches; the launches are counted in
+``kernel.cloth_substep.launches``, ``kernel.cloth_fused.launches`` and
+``kernel.cloth_window.launches``.
 """
 from __future__ import annotations
 
@@ -50,6 +57,7 @@ import torch
 from .. import _build
 from .._device import resolve_device
 from ..ops import integration
+from ..utils import telemetry
 from .grid_cloth import _DIST_FAMILIES, GridClothBatch, _helper_grid
 from .grid_window import window_substeps_reference
 
@@ -326,7 +334,7 @@ def cloth_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
     :func:`kernel_params`. The H rows are rows ``row_offset..`` of a grid
     of ``global_height`` rows (default: the whole grid, H). Returns new
     ``(xp, vp)`` buffers; the inputs are left as they were. Counts its
-    launches in ``cloth_substep_cuda.launches``."""
+    launches in the counter ``kernel.cloth_substep.launches``."""
     params, w_bstride = _check_planes(xp, vp, w, icd, icb, params,
                                       "cloth_substep_cuda")
     b, _, h, wd = xp.shape
@@ -353,12 +361,9 @@ def cloth_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
                      params.ctypes.data, b, h, wd, k, int(row_offset), gh,
                      stream)
             _raise_on(lib, err, "cloth substep")
-            cloth_substep_cuda.launches += 1
+            telemetry.count("kernel.cloth_substep.launches")
             x_cur, lam = xo, lam_out
     return x_cur, vo
-
-
-cloth_substep_cuda.launches = 0
 
 
 def fused_split(substeps: int, max_iterations: int) -> list:
@@ -439,6 +444,7 @@ def _fused(xp, vp, w, icd, icb, params, max_iterations, substeps,
     return xp, vp, len(split), grid.value
 
 
+@telemetry.traced("pbd.kernel.cloth")
 def cloth_fused_cuda(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
                      icb: Tensor, params: np.ndarray, max_iterations: int,
                      substeps: int, scratch: Optional[FusedScratch] = None):
@@ -447,21 +453,21 @@ def cloth_fused_cuda(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
     iteration), the counterpart of ``fuse_substeps``. Arguments as
     :func:`cloth_substep_cuda`'s; ``scratch`` keeps the launches' scratch
     planes between calls (a fresh one when None). Returns new ``(xp, vp)``
-    buffers and leaves the inputs as they were. Counts its launches in
-    ``cloth_fused_cuda.launches`` and keeps the last launch's grid size in
-    ``cloth_fused_cuda.grid``."""
+    buffers and leaves the inputs as they were. Counts its launches in the
+    counter ``kernel.cloth_fused.launches`` and keeps the last launch's
+    grid size in ``cloth_fused_cuda.grid``."""
     xp, vp, n, grid = _fused(xp, vp, w, icd, icb, params, max_iterations,
                              substeps, 0, xp.shape[-2], scratch,
                              "cloth_fused_cuda")
-    cloth_fused_cuda.launches += n
+    telemetry.count("kernel.cloth_fused.launches", n)
     cloth_fused_cuda.grid = grid
     return xp, vp
 
 
-cloth_fused_cuda.launches = 0
 cloth_fused_cuda.grid = None
 
 
+@telemetry.traced("pbd.kernel.cloth")
 def cloth_window_cuda(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
                       icb: Tensor, params: np.ndarray, max_iterations: int,
                       substeps: int, row_offset: int, global_height: int,
@@ -469,21 +475,21 @@ def cloth_window_cuda(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
     """:func:`cloth_fused_cuda` on a window of rows: the H rows of the
     planes are rows ``row_offset..`` (negative above the grid) of a grid of
     ``global_height`` rows, and rows beyond the window count as zeros of
-    zero inverse mass. Counts its launches in
-    ``cloth_window_cuda.launches`` and keeps the last launch's grid size
-    in ``cloth_window_cuda.grid``."""
+    zero inverse mass. Counts its launches in the counter
+    ``kernel.cloth_window.launches`` and keeps the last launch's grid
+    size in ``cloth_window_cuda.grid``."""
     xp, vp, n, grid = _fused(xp, vp, w, icd, icb, params, max_iterations,
                              substeps, row_offset, global_height, scratch,
                              "cloth_window_cuda")
-    cloth_window_cuda.launches += n
+    telemetry.count("kernel.cloth_window.launches", n)
     cloth_window_cuda.grid = grid
     return xp, vp
 
 
-cloth_window_cuda.launches = 0
 cloth_window_cuda.grid = None
 
 
+@telemetry.traced("pbd.kernel.cloth")
 def run_substeps(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
                  icb: Tensor, params: np.ndarray, max_iterations: int,
                  n: int):
@@ -585,9 +591,11 @@ def make_cloth_step(batch: GridClothBatch, inv_mass, inv_cnt_dist,
         if dev.type == "cuda":
             xp, vp = to_planes(x, hgt, wid), to_planes(v, hgt, wid)
             if not fuse_substeps:
-                for _ in range(n_sub):
-                    xp, vp = cloth_substep_cuda(xp, vp, w, icd, icb, params,
-                                                max_iterations, off, gh)
+                with telemetry.span("pbd.kernel.cloth"):
+                    for _ in range(n_sub):
+                        xp, vp = cloth_substep_cuda(
+                            xp, vp, w, icd, icb, params, max_iterations,
+                            off, gh)
             elif windowed:
                 for _ in range(n_steps):
                     xp, vp = cloth_window_cuda(xp, vp, w, icd, icb, params,

@@ -36,6 +36,11 @@ functions and :meth:`GridTetBatch.project`. The CPU tests run it, and the
 card's smoke run holds the kernel against it. The step function that
 :func:`make_tet_step` returns takes the plain version for CPU tensors
 only; for CUDA tensors it launches the kernel or raises.
+
+:func:`run_substeps` and :func:`tet_fused_cuda` each run in one
+``pbd.kernel.tet`` span (:mod:`..utils.telemetry`); the launches are
+counted in ``kernel.tet_substep.launches`` and
+``kernel.tet_fused.launches``.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ import torch
 from .. import _build
 from .._device import resolve_device
 from ..ops import integration
+from ..utils import telemetry
 from .grid_cloth_cuda import RESOURCE_KEYS
 from .grid_tet import GridTetBatch
 
@@ -235,8 +241,8 @@ def tet_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
     ``w``: inverse masses ``(N,)`` shared by the rollouts, or ``(K, N)``;
     ``ic``: per-vertex Jacobi weights ``(N,)``; ``params`` from
     :func:`kernel_params`. Returns new ``(xp, vp)`` buffers; the inputs
-    are left as they were. Counts its launches in
-    ``tet_substep_cuda.launches``."""
+    are left as they were. Counts its launches in the counter
+    ``kernel.tet_substep.launches``."""
     (wd, hd, dd), k, w_bstride, params = _check_planes(
         xp, vp, w, ic, params, dims, max_iterations, "tet_substep_cuda")
     lib = _build.load("grid_tet_step")
@@ -261,12 +267,9 @@ def tet_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
                      xo.data_ptr(), _ptr(vo), params.ctypes.data, k,
                      w_bstride, wd, hd, dd, stream)
             _check(lib, err, "tet kernel launch failed")
-            tet_substep_cuda.launches += 1
+            telemetry.count("kernel.tet_substep.launches")
             x_cur = xo
     return x_cur, vo
-
-
-tet_substep_cuda.launches = 0
 
 
 def _check(lib, err: int, what: str):
@@ -303,6 +306,7 @@ class FusedScratch:
         return self.bufs
 
 
+@telemetry.traced("pbd.kernel.tet")
 def tet_fused_cuda(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
                    params: np.ndarray, dims, max_iterations: int = 1,
                    substeps: int = 1, scratch: Optional[FusedScratch] = None):
@@ -313,8 +317,9 @@ def tet_fused_cuda(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
     ``scratch`` keeps the launch's scratch planes between calls (a fresh
     one when None). Returns new ``(xp, vp)`` buffers and leaves the inputs
     as they were. Raises where the card has no cooperative launch or the
-    launch fails. Counts its launches in ``tet_fused_cuda.launches`` and
-    keeps the last launch's grid size in ``tet_fused_cuda.grid``."""
+    launch fails. Counts its launches in the counter
+    ``kernel.tet_fused.launches`` and keeps the last launch's grid size in
+    ``tet_fused_cuda.grid``."""
     (wd, hd, dd), k, w_bstride, params = _check_planes(
         xp, vp, w, ic, params, dims, max_iterations, "tet_fused_cuda")
     if substeps < 1:
@@ -334,15 +339,15 @@ def tet_fused_cuda(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
             params.ctypes.data, k, w_bstride, substeps, max_iterations, wd,
             hd, dd, ctypes.byref(grid), stream)
         _check(lib, err, "tet multi-substep launch failed")
-    tet_fused_cuda.launches += 1
+    telemetry.count("kernel.tet_fused.launches")
     tet_fused_cuda.grid = grid.value
     return xo, vo
 
 
-tet_fused_cuda.launches = 0
 tet_fused_cuda.grid = None
 
 
+@telemetry.traced("pbd.kernel.tet")
 def run_substeps(xp: Tensor, vp: Tensor, w: Tensor, ic: Tensor,
                  params: np.ndarray, dims, max_iterations: int, n: int):
     """``n`` substeps through :func:`tet_substep_cuda`. Returns the final

@@ -63,6 +63,7 @@ import torch
 from .._device import resolve_device
 from ..ops import integration, quaternion as quat
 from ..ops.rigidbody import rotation_correction
+from ..utils import telemetry
 from . import grid_cloth_cuda as gcc
 from . import grid_tet_cuda as gtc
 from .constraints import ConstraintSet, _index_add
@@ -506,8 +507,9 @@ def velocity_constraint_projection(state: SimState, cset: ConstraintSet,
     rc = pc = None
     if has_contacts:
         from ..collision.detection import contacts_overflow
-        rc = pipeline.detect_rigid(r)
-        pc = pipeline.detect_particles(p.x, p.v, p.inv_mass, r)
+        with telemetry.span("pbd.step.collision"):
+            rc = pipeline.detect_rigid(r)
+            pc = pipeline.detect_particles(p.x, p.v, p.inv_mass, r)
         state = dataclasses.replace(state, overflow=_max_overflow(
             state.overflow, contacts_overflow(rc, pc)))
     # the contact solves run on one flattened batch axis
@@ -566,10 +568,41 @@ class KernelPlan:
     """The kernel route of a step function, computed once by
     :func:`kernel_plan`: which kernel (``"cloth"`` or ``"tet"``), and
     ``run(particles, n)``, which runs ``n`` substeps through it and returns
-    ``(x, v, old_x, last_x)``, with ``last_x`` None when ``n < 2``."""
+    ``(x, v, old_x, last_x)``, with ``last_x`` None when ``n < 2``.
+    ``traced``, when given, is ``run`` with its phases in spans, which the
+    step takes while a profiler records."""
 
     kernel: str
     run: Callable
+    traced: Optional[Callable] = None
+
+
+def _plan(kernel: str, planes, substeps, wrapper, from_planes) -> KernelPlan:
+    """The plan of a kernel from its phases: ``planes(p)`` gives the
+    kernel's ``(xp, vp, w)``, ``substeps(fn, xp, vp, w, n)`` runs them
+    through ``fn``, and ``from_planes`` converts its outputs back.
+    ``run`` calls the undecorated function of ``wrapper`` (the module's
+    ``run_substeps``), so an untraced step checks for a profiler only
+    once, in :func:`step`; ``traced`` calls ``wrapper`` itself, in its
+    ``pbd.kernel.*`` span, between the conversions in
+    ``pbd.step.planes``."""
+    plain = wrapper.__wrapped__
+
+    def run(p, n):
+        lead = p.x.shape[:-2]
+        return tuple(None if a is None else from_planes(a, lead)
+                     for a in substeps(plain, *planes(p), n))
+
+    def traced(p, n):
+        with telemetry.span("pbd.step.planes"):
+            args = planes(p)
+        out = substeps(wrapper, *args, n)
+        with telemetry.span("pbd.step.planes"):
+            lead = p.x.shape[:-2]
+            return tuple(None if a is None else from_planes(a, lead)
+                         for a in out)
+
+    return KernelPlan(kernel, run, traced)
 
 
 def _cloth_plan(gc, cfg: StepConfig) -> KernelPlan:
@@ -579,17 +612,16 @@ def _cloth_plan(gc, cfg: StepConfig) -> KernelPlan:
     icd = gc.inv_cnt_dist.reshape(hgt, wid).contiguous()
     icb = gc.inv_cnt_bend.reshape(hgt, wid).contiguous()
 
-    def run(p, n):
-        lead = p.x.shape[:-2]
+    def planes(p):
         w = p.inv_mass.reshape(-1, hgt, wid)
         w = w[0] if w.shape[0] == 1 else w.contiguous()
-        out = gcc.run_substeps(
-            gcc.to_planes(p.x, hgt, wid), gcc.to_planes(p.v, hgt, wid), w,
-            icd, icb, params, cfg.max_iterations, n)
-        return tuple(None if a is None else gcc.from_planes(a, lead)
-                     for a in out)
+        return gcc.to_planes(p.x, hgt, wid), gcc.to_planes(p.v, hgt, wid), w
 
-    return KernelPlan("cloth", run)
+    def substeps(fn, xp, vp, w, n):
+        return fn(xp, vp, w, icd, icb, params, cfg.max_iterations, n)
+
+    return _plan("cloth", planes, substeps, gcc.run_substeps,
+                 gcc.from_planes)
 
 
 def _tet_plan(gt, cfg: StepConfig) -> KernelPlan:
@@ -598,16 +630,15 @@ def _tet_plan(gt, cfg: StepConfig) -> KernelPlan:
                                gravity=cfg.gravity, damping=cfg.damping)
     ic = gt.inv_cnt.reshape(-1).contiguous()
 
-    def run(p, n):
-        lead = p.x.shape[:-2]
+    def planes(p):
         w = p.inv_mass.reshape(-1, p.inv_mass.shape[-1])
         w = w[0] if w.shape[0] == 1 else w.contiguous()
-        out = gtc.run_substeps(gtc.to_planes(p.x), gtc.to_planes(p.v), w,
-                               ic, params, dims, cfg.max_iterations, n)
-        return tuple(None if a is None else gtc.from_planes(a, lead)
-                     for a in out)
+        return gtc.to_planes(p.x), gtc.to_planes(p.v), w
 
-    return KernelPlan("tet", run)
+    def substeps(fn, xp, vp, w, n):
+        return fn(xp, vp, w, ic, params, dims, cfg.max_iterations, n)
+
+    return _plan("tet", planes, substeps, gtc.run_substeps, gtc.from_planes)
 
 
 def kernel_plan(cset: ConstraintSet, cfg: StepConfig
@@ -640,13 +671,14 @@ def kernel_plan(cset: ConstraintSet, cfg: StepConfig
     return _tet_plan(gt, cfg)
 
 
-def _kernel_substeps(state: SimState, plan: KernelPlan, cfg: StepConfig
-                     ) -> SimState:
-    """All substeps of one step through the plan's kernel. ``old_x`` and
-    ``last_x`` end as ``_substep`` leaves them: the inputs of the last and
-    of the second-last substep."""
+def _kernel_substeps(state: SimState, plan: KernelPlan, cfg: StepConfig,
+                     traced: bool) -> SimState:
+    """All substeps of one step through the plan's kernel, with the plan's
+    spans when ``traced``. ``old_x`` and ``last_x`` end as ``_substep``
+    leaves them: the inputs of the last and of the second-last substep."""
     p = state.particles
-    x, v, old_x, last_x = plan.run(p, cfg.substeps)
+    run = plan.traced if traced and plan.traced is not None else plan.run
+    x, v, old_x, last_x = run(p, cfg.substeps)
     particles = dataclasses.replace(
         p, x=x, v=v, old_x=old_x,
         last_x=p.old_x if last_x is None else last_x)
@@ -664,7 +696,20 @@ def step(state: SimState, cset: ConstraintSet, cfg: StepConfig,
     ``rollout`` compute both once. A collision ``pipeline`` detects the
     particle–tet contacts before the substeps (their overflow into
     ``state.overflow``) and the other contacts in the velocity-level
-    projection."""
+    projection. It runs in the span ``pbd.step``: on the kernel route its
+    children are ``pbd.step.planes`` and the kernel wrapper's span, on the
+    PyTorch route ``pbd.step.substeps``, ``pbd.step.velocity`` and
+    ``pbd.step.collision``. With no profiler recording it checks for one
+    once and opens no span."""
+    if not telemetry.recording():
+        return _step(state, cset, cfg, plan, passes, pipeline, False)
+    with telemetry.span("pbd.step"):
+        return _step(state, cset, cfg, plan, passes, pipeline, True)
+
+
+def _step(state: SimState, cset: ConstraintSet, cfg: StepConfig,
+          plan: Optional[KernelPlan], passes, pipeline,
+          traced: bool) -> SimState:
     if plan is not None:
         if (state.rigid is not None or state.orientations is not None
                 or _has_pipeline(pipeline)):
@@ -674,22 +719,25 @@ def step(state: SimState, cset: ConstraintSet, cfg: StepConfig,
                 "PyTorch route (a constraint set that records its bodies, "
                 "n_rigid, and its rods, as SceneBuilder and "
                 "convert.scene_from_numpy set them)")
-        state = _kernel_substeps(state, plan, cfg)
+        state = _kernel_substeps(state, plan, cfg, traced)
         return dataclasses.replace(state, time=state.time + cfg.dt)
     if passes is None:
         passes = batch_passes(cset, cfg, state.particles.n)
     solid_contacts = solid_lam = None
     if pipeline is not None and pipeline.solid_pairs:
         p = state.particles
-        solid_contacts = pipeline.detect_solids(p.x, p.v, p.inv_mass)
+        with telemetry.span("pbd.step.collision"):
+            solid_contacts = pipeline.detect_solids(p.x, p.v, p.inv_mass)
         state = dataclasses.replace(state, overflow=_max_overflow(
             state.overflow, solid_contacts.overflow))
     h = cfg.dt / cfg.substeps
-    for _ in range(cfg.substeps):
-        state, solid_lam = _substep(state, cset, h, cfg, passes,
-                                    solid_contacts)
-    state = velocity_constraint_projection(state, cset, cfg, pipeline,
-                                           solid_contacts, solid_lam)
+    with telemetry.span("pbd.step.substeps"):
+        for _ in range(cfg.substeps):
+            state, solid_lam = _substep(state, cset, h, cfg, passes,
+                                        solid_contacts)
+    with telemetry.span("pbd.step.velocity"):
+        state = velocity_constraint_projection(state, cset, cfg, pipeline,
+                                               solid_contacts, solid_lam)
     return dataclasses.replace(state, time=state.time + cfg.dt)
 
 
@@ -697,6 +745,7 @@ def _has_pipeline(pipeline) -> bool:
     return pipeline is not None and pipeline.active
 
 
+@telemetry.traced("pbd.route.plan")
 def _route(cset: ConstraintSet, cfg: StepConfig, n: int, pipeline=None,
            kernels: bool = True):
     """``(plan, passes, path)`` of a scene: the kernel plan, or the

@@ -3,7 +3,10 @@
 
 * :mod:`.loaders` — OBJ/PLY/TetGen mesh ingestion (numpy copies)
 * :mod:`.massprops` — polyhedral mass/COM/inertia integrals
-* :mod:`.timing` — phase timers (``Utils/Timing.h``)
+* :mod:`.timing` — phase timers (``Utils/Timing.h``), read from the
+  step's spans
+* :mod:`.telemetry` — the port's ``pbd.*`` spans (on ``torch.profiler``)
+  and its always-on counters
 * :mod:`.log` — sink-based logging (``Utils/Logger.h``)
 * :mod:`.checkpoint` — state save/load, in JAX's npz layout
 * :mod:`.npquat` — host-side quaternion helpers

@@ -12,6 +12,8 @@ import torch
 
 from positionbaseddynamics_tpu_torch.models import SceneBuilder
 from positionbaseddynamics_tpu_torch.solver import grid_cloth_cuda as gcc
+from positionbaseddynamics_tpu_torch.utils import telemetry
+
 
 H100_CAPACITY = 2 * 132        # 2 blocks of 864 threads on each of 132 SMs
 
@@ -98,13 +100,14 @@ def test_fused_wrappers_refuse_cpu_tensors(which):
     one = torch.ones(8, 8)
     scratch = gcc.FusedScratch()
     fn = gcc.cloth_fused_cuda if which == "fused" else gcc.cloth_window_cuda
+    kernel = "cloth_fused" if which == "fused" else "cloth_window"
     args = (xp, xp.clone(), one, one, one, p, 1, 5)
     if which == "window":
         args += (-2, 16)
-    before = fn.launches
+    before = telemetry.launches(kernel)
     with pytest.raises(ValueError, match="CUDA"):
         fn(*args, scratch=scratch)
-    assert fn.launches == before
+    assert telemetry.launches(kernel) == before
     assert scratch.bufs == {}
 
 

@@ -15,6 +15,7 @@ from positionbaseddynamics_tpu_torch.models import SceneBuilder
 from positionbaseddynamics_tpu_torch.solver import StepConfig, make_step_fn
 from positionbaseddynamics_tpu_torch.solver import grid_cloth_cuda as gcc
 from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
+from positionbaseddynamics_tpu_torch.utils import telemetry
 
 
 def _build(n, m, device):
@@ -66,9 +67,9 @@ def test_step_fn_takes_the_kernel_on_card(cuda, iters, launches_per_substep):
     ts, tc = _build(33, 33, device=cuda)
     fn = make_step_fn(tc, cfg, device=cuda)
     assert fn.path == "cuda_kernel"
-    before = gcc.cloth_substep_cuda.launches
+    before = telemetry.launches("cloth_substep")
     out = fn(fn(ts))
-    assert (gcc.cloth_substep_cuda.launches - before
+    assert (telemetry.launches("cloth_substep") - before
             == 2 * cfg.substeps * launches_per_substep)
     ref = make_step_fn(tc.to("cpu"), cfg, device="cpu")
     cpu = ref(ref(ts.to("cpu")))
@@ -118,13 +119,14 @@ def test_unstructured_route_on_card_matches_cpu(cuda, kind, mode):
     ts, tc = _unstructured(kind, cuda)
     fn = make_step_fn(tc, cfg, device=cuda)
     assert fn.path == "torch_unstructured"
-    before = (gcc.cloth_substep_cuda.launches, gtc.tet_substep_cuda.launches)
+    before = (telemetry.launches("cloth_substep"),
+              telemetry.launches("tet_substep"))
     ref = make_step_fn(tc.to("cpu"), cfg, device="cpu")
     out, cpu = ts, ts.to("cpu")
     for _ in range(10):
         out, cpu = fn(out), ref(cpu)
-    assert (gcc.cloth_substep_cuda.launches,
-            gtc.tet_substep_cuda.launches) == before
+    assert (telemetry.launches("cloth_substep"),
+            telemetry.launches("tet_substep")) == before
     for f in ("x", "old_x", "last_x"):
         dev = getattr(out.particles, f).cpu() - getattr(cpu.particles, f)
         assert dev.abs().max().item() <= 1e-5, f
@@ -155,9 +157,9 @@ def test_kernel_plan_refuses_a_grid_cloth_with_an_extra_batch(cuda):
     assert kernel_plan(tc, StepConfig()) is None
     fn = make_step_fn(tc, StepConfig(), device=cuda)
     assert fn.path == "torch_unstructured"
-    before = gcc.cloth_substep_cuda.launches
+    before = telemetry.launches("cloth_substep")
     out = fn(fn(ts))
-    assert gcc.cloth_substep_cuda.launches == before
+    assert telemetry.launches("cloth_substep") == before
     ref = make_step_fn(tc.to("cpu"), StepConfig(), device="cpu")
     cpu = ref(ref(ts.to("cpu")))
     dev = (out.particles.x.cpu() - cpu.particles.x).abs().max().item()
@@ -219,9 +221,9 @@ def test_kernel_at_64_rollouts_matches_plain_version_on_card(cuda):
     x = (p.x + shift).contiguous()
     v = (0.2 * torch.randn((64, 1, 3), generator=gen, device=cuda)
          ).expand(64, *p.v.shape).contiguous()
-    before = gcc.cloth_substep_cuda.launches
+    before = telemetry.launches("cloth_substep")
     xk, _ = step(x, v)
-    assert gcc.cloth_substep_cuda.launches - before == 50
+    assert telemetry.launches("cloth_substep") - before == 50
     xr, vr = x, v
     for _ in range(50):
         xr, vr = gcc.cloth_substep_reference(g, xr, vr, p.inv_mass, h=1e-3)
@@ -270,9 +272,9 @@ def test_fused_kernel_at_64_rollouts_on_card(cuda):
     fused = gcc.make_cloth_step(
         g, p.inv_mass, g.inv_cnt_dist, g.inv_cnt_bend, dt=0.005, substeps=5,
         n_batch=64, n_steps=10, fuse_substeps=True)
-    before = gcc.cloth_fused_cuda.launches
+    before = telemetry.launches("cloth_fused")
     xf, vf = fused(x, v)
-    assert gcc.cloth_fused_cuda.launches - before == 10
+    assert telemetry.launches("cloth_fused") - before == 10
     assert gcc.cloth_fused_cuda.grid == min(512, gcc.fused_capacity())
     xk, vk = step(x, v)
     assert torch.equal(xf, xk) and torch.equal(vf, vk)
@@ -306,10 +308,10 @@ def test_mppi_update_kernel_route_matches_stencil_route_on_card(cuda):
     gen = torch.Generator(device="cpu").manual_seed(5)
     eps = mcfg.sigma * torch.randn((k, hz, 3), generator=gen)
     nominal = 0.3 * torch.randn((hz, 3), generator=gen)
-    before = gcc.cloth_substep_cuda.launches
+    before = telemetry.launches("cloth_substep")
     nk, ck = mpc.mppi_update(sk, nominal.to(cuda), seq_k, mcfg,
                              eps=eps.to(cuda))
-    assert gcc.cloth_substep_cuda.launches - before == hz * 2
+    assert telemetry.launches("cloth_substep") - before == hz * 2
     npl, cpl = mpc.mppi_update(sp, nominal, seq_p, mcfg, eps=eps)
     assert ((ck.cpu() - cpl).abs().max() / cpl.abs().max()).item() <= 1e-5
     assert (nk.cpu() - npl).abs().max().item() <= 1e-5
@@ -369,10 +371,10 @@ def test_tet_step_fn_takes_the_kernel_on_card(cuda, iters):
     ts, tc = _bar((11, 5, 6), cuda)
     fn = make_step_fn(tc, cfg, device=cuda)
     assert fn.path == "cuda_kernel"
-    before = gtc.tet_substep_cuda.launches
+    before = telemetry.launches("tet_substep")
     out = fn(fn(ts))
     # one launch per iteration of each substep, over two steps
-    assert (gtc.tet_substep_cuda.launches - before
+    assert (telemetry.launches("tet_substep") - before
             == 2 * cfg.substeps * iters)
     ref = make_step_fn(tc.to("cpu"), cfg, device="cpu")
     cpu = ref(ref(ts.to("cpu")))
@@ -394,10 +396,10 @@ def test_tet_kernel_leaves_its_inputs_on_card(cuda, iters):
     w, ic = p.inv_mass.contiguous(), g.inv_cnt.reshape(-1).contiguous()
     xp, vp = gtc.to_planes(p.x), gtc.to_planes(p.v)
     x0, v0, w0, ic0 = xp.clone(), vp.clone(), w.clone(), ic.clone()
-    before = gtc.tet_substep_cuda.launches
+    before = telemetry.launches("tet_substep")
     xo, vo = gtc.tet_substep_cuda(xp, vp, w, ic, params, dims, iters)
     torch.cuda.synchronize()
-    assert gtc.tet_substep_cuda.launches - before == iters
+    assert telemetry.launches("tet_substep") - before == iters
     ptrs = {t.data_ptr() for t in (xp, vp, w, ic)}
     assert xo.data_ptr() not in ptrs and vo.data_ptr() not in ptrs
     for t, t0 in ((xp, x0), (vp, v0), (w, w0), (ic, ic0)):
@@ -410,7 +412,7 @@ def test_tet_kernel_leaves_its_inputs_on_card(cuda, iters):
         gtc.tet_substep_cuda(xp, vp, w, ic[:-1], params, dims, iters)
     with pytest.raises(ValueError, match="x"):
         gtc.tet_substep_cuda(xp, vp, w, ic, params, (17, 19, 8), iters)
-    assert gtc.tet_substep_cuda.launches - before == iters
+    assert telemetry.launches("tet_substep") - before == iters
 
 
 def _fluid_dam(device, block=(12, 10, 8), hi=(1.4, 1.1, 0.5), cap=12,
@@ -593,7 +595,7 @@ def test_pbf_kernels_refuse_what_they_do_not_take(cuda):
     count = fcg.occupied_count(mt)
     params = fcc.kernel_params(scene.density0, scene.support_radius)
     lam_t, dens_t = torch.zeros_like(mt), torch.zeros_like(mt)
-    before = fcc.density_lambda_cuda.launches
+    before = telemetry.launches("pbf_density_lambda")
     with pytest.raises(ValueError, match="nbr"):
         fcc.density_lambda_cuda(spec, xt, xt, mt, count, active,
                                 nbr.to(torch.int64), nbr_ok, lam_t, dens_t,
@@ -606,7 +608,7 @@ def test_pbf_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="x_out"):
         fcc.corrections_cuda(spec, xt, xt, mt, count, lam_t, active, nbr,
                              nbr_ok, xt, params)
-    assert fcc.density_lambda_cuda.launches == before
+    assert telemetry.launches("pbf_density_lambda") == before
 
 
 def test_fluid_step_fn_takes_the_kernels_on_card(cuda):
@@ -614,7 +616,6 @@ def test_fluid_step_fn_takes_the_kernels_on_card(cuda):
     the same trajectory as the plain step on the CPU."""
     import numpy as np
 
-    from positionbaseddynamics_tpu_torch.fluids import cellgrid_cuda as fcc
     from positionbaseddynamics_tpu_torch.fluids import model as fm
 
     d = 0.05
@@ -628,11 +629,11 @@ def test_fluid_step_fn_takes_the_kernels_on_card(cuda):
     ref = fm.make_fluid_step_fn(scene.to("cpu"), device="cpu")
     s, r = (fm.FluidState.create(fluid, device=cuda),
             fm.FluidState.create(fluid, device="cpu"))
-    wrappers = (fcc.density_lambda_cuda, fcc.corrections_cuda, fcc.xsph_cuda)
-    before = [w.launches for w in wrappers]
+    kernels = ("pbf_density_lambda", "pbf_corrections", "pbf_xsph")
+    before = [telemetry.launches(k) for k in kernels]
     for _ in range(5):
         s, r = fn(s), ref(r)
-    assert [w.launches - b for w, b in zip(wrappers, before)] == [25, 25, 5]
+    assert [telemetry.launches(k) - b for k, b in zip(kernels, before)] == [25, 25, 5]
     assert s.overflow.item() == 0.0 and r.overflow.item() == 0.0
     assert np.isfinite(s.x.cpu().numpy()).all()
     assert (s.x.cpu() - r.x).abs().max().item() <= 1e-4
@@ -769,10 +770,10 @@ def test_tet_kernel_at_3_rollouts_on_card(cuda, own_w):
         batched = dataclasses.replace(ts, particles=dataclasses.replace(
             p, x=x0, v=torch.zeros_like(x0), old_x=x0.clone(),
             last_x=x0.clone()))
-        before = gtc.tet_substep_cuda.launches
+        before = telemetry.launches("tet_substep")
         out = fn(batched)
         assert fn.path == "cuda_kernel"
-        assert gtc.tet_substep_cuda.launches - before == 5
+        assert telemetry.launches("tet_substep") - before == 5
         ref = make_step_fn(tc.to("cpu"), StepConfig(), device="cpu")
         cpu = ref(batched.to("cpu"))
         assert (out.particles.x.cpu() - cpu.particles.x).abs().max() <= 1e-5
@@ -814,14 +815,14 @@ def test_tet_fused_equals_per_iteration_on_card(cuda, dims, iters, damping,
     w = p.inv_mass.contiguous()
     xf, vf = xs, vs = gtc.to_planes(x0), gtc.to_planes(v0)
     scratch = gtc.FusedScratch()
-    before = gtc.tet_fused_cuda.launches
+    before = telemetry.launches("tet_fused")
     for _ in range(steps):
         xf, vf = gtc.tet_fused_cuda(xf, vf, w, ic, params, dims, iters, 5,
                                     scratch)
     xs, vs, _, _ = gtc.run_substeps(xs, vs, w, ic, params, dims, iters,
                                     5 * steps)
     torch.cuda.synchronize()
-    assert gtc.tet_fused_cuda.launches - before == steps
+    assert telemetry.launches("tet_fused") - before == steps
     boxes = -(-dims[0] // 12) * -(-dims[1] // 6) * -(-dims[2] // 6)
     assert 1 <= gtc.tet_fused_cuda.grid <= boxes * k
     assert torch.equal(xf, xs) and torch.equal(vf, vs)
@@ -846,7 +847,7 @@ def test_tet_fused_leaves_its_inputs_on_card(cuda):
     xp, vp = gtc.to_planes(p.x), gtc.to_planes(p.v)
     x0, v0 = xp.clone(), vp.clone()
     scratch = gtc.FusedScratch()
-    before = gtc.tet_fused_cuda.launches
+    before = telemetry.launches("tet_fused")
     xo, vo = gtc.tet_fused_cuda(xp, vp, w, ic, params, dims, 2, 5, scratch)
     bufs = scratch.bufs
     xo2, _ = gtc.tet_fused_cuda(xp, vp, w, ic, params, dims, 2, 5, scratch)
@@ -860,12 +861,12 @@ def test_tet_fused_leaves_its_inputs_on_card(cuda):
         gtc.tet_fused_cuda(xp, vp, w, ic[:-1], params, dims, 1, 5)
     with pytest.raises(ValueError, match="substeps"):
         gtc.tet_fused_cuda(xp, vp, w, ic, params, dims, 1, 0)
-    assert gtc.tet_fused_cuda.launches - before == 2
+    assert telemetry.launches("tet_fused") - before == 2
     step = gtc.make_tet_step(g, p.inv_mass, dt=0.005, substeps=5, n_steps=3)
-    before = (gtc.tet_fused_cuda.launches, gtc.tet_substep_cuda.launches)
+    before = (telemetry.launches("tet_fused"), telemetry.launches("tet_substep"))
     step(p.x, p.v)
-    assert (gtc.tet_fused_cuda.launches - before[0],
-            gtc.tet_substep_cuda.launches - before[1]) == (3, 0)
+    assert (telemetry.launches("tet_fused") - before[0],
+            telemetry.launches("tet_substep") - before[1]) == (3, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,8 @@ from positionbaseddynamics_tpu_torch.solver import StepConfig, make_step_fn
 from positionbaseddynamics_tpu_torch.solver import grid_cloth_cuda as gcc
 from positionbaseddynamics_tpu_torch.solver.grid_window import (
     window_substeps_reference)
+from positionbaseddynamics_tpu_torch.utils import telemetry
+
 
 DT = 0.005
 
@@ -63,9 +65,9 @@ def test_fused_kernel_matches_plain_and_per_substep_on_card(
     x[-1] += 0.01 * torch.sin(x[-1, :, :1] * 3.0)
     x = x if n_batch > 1 else x[0]
     v = torch.zeros_like(x)
-    before = gcc.cloth_fused_cuda.launches
+    before = telemetry.launches("cloth_fused")
     xf, vf = _steps(g, p.inv_mass, substeps, iters, True, n_batch)(x, v)
-    assert gcc.cloth_fused_cuda.launches - before == 5 * launches
+    assert telemetry.launches("cloth_fused") - before == 5 * launches
     xs, vs = _steps(g, p.inv_mass, substeps, iters, False, n_batch)(x, v)
     assert (xf - xs).abs().max().item() <= 2e-6
     assert (vf - vs).abs().max().item() <= 2e-4
@@ -105,9 +107,9 @@ def test_fused_launch_equals_per_substep_launches_on_card(
             substeps=substeps, max_iterations=iters, damping=damping,
             n_batch=n_batch, n_steps=3, fuse_substeps=fuse)
 
-    before = gcc.cloth_fused_cuda.launches
+    before = telemetry.launches("cloth_fused")
     xf, vf = steps(True)(x, v)
-    assert gcc.cloth_fused_cuda.launches - before == 3
+    assert telemetry.launches("cloth_fused") - before == 3
     xs, vs = steps(False)(x, v)
     torch.cuda.synchronize()
     assert torch.equal(xf, xs) and torch.equal(vf, vs)
@@ -221,7 +223,7 @@ def test_window_kernel_matches_plain_and_stitches_on_card(cuda):
                                fuse_substeps=True)
     xg, vg = p.x.reshape(h, w, 3), p.v.reshape(h, w, 3)
     xu, vu = p.x, p.v
-    before = gcc.cloth_window_cuda.launches
+    before = telemetry.launches("cloth_window")
     for _ in range(5):
         kept_x, kept_v = [], []
         for r in range(h // r_loc):
@@ -244,7 +246,7 @@ def test_window_kernel_matches_plain_and_stitches_on_card(cuda):
             kept_v.append(vk[exch:exch + r_loc])
         xg, vg = torch.cat(kept_x), torch.cat(kept_v)
         xu, vu = full(xu, vu)
-    assert gcc.cloth_window_cuda.launches - before == 5 * 4
+    assert telemetry.launches("cloth_window") - before == 5 * 4
     assert (xg.reshape(-1, 3) - xu).abs().max().item() <= 1e-6
     assert (xu - p.x).abs().max().item() > 1e-3
 
@@ -271,12 +273,12 @@ def test_modules_at_world_size_one_on_card(cuda, nccl_world_1):
     fn = par.make_cuda_intra_step_fn(g, p.inv_mass, cfg, group)
     ref = gcc.make_cloth_step(g, p.inv_mass, g.inv_cnt_dist, g.inv_cnt_bend,
                               dt=DT, substeps=5, fuse_substeps=True)
-    before = gcc.cloth_window_cuda.launches
+    before = telemetry.launches("cloth_window")
     x, v, xr, vr = p.x, p.v, p.x, p.v
     for _ in range(5):
         x, v = fn(x, v)
         xr, vr = ref(xr, vr)
-    assert gcc.cloth_window_cuda.launches - before == 5
+    assert telemetry.launches("cloth_window") - before == 5
     assert (x - xr).abs().max().item() <= 1e-6
     # intra_grid against make_step_fn's structured route
     fn = par.make_grid_intra_step_fn(g, p.inv_mass, cfg, group)

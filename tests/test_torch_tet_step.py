@@ -40,7 +40,8 @@ from positionbaseddynamics_tpu_torch.models import SceneBuilder as TBuilder
 from positionbaseddynamics_tpu_torch.solver import StepConfig as TConfig
 from positionbaseddynamics_tpu_torch.solver import make_step_fn
 from positionbaseddynamics_tpu_torch.solver import rollout as trollout
-from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
+from positionbaseddynamics_tpu_torch.utils import telemetry
+
 
 DIMS = (10, 6, 6)
 POS_ATOL = 1e-5
@@ -185,10 +186,10 @@ def test_make_step_fn_on_cpu_takes_the_stencil_path():
     ts, tc = _scene(TBuilder, device="cpu")
     fn = make_step_fn(tc, TConfig(), device="cpu")
     assert fn.path == "torch_stencil"
-    before = gtc.tet_substep_cuda.launches
+    before = telemetry.launches("tet_substep")
     out = fn(ts)
     assert torch.isfinite(out.particles.x).all()
-    assert gtc.tet_substep_cuda.launches == before
+    assert telemetry.launches("tet_substep") == before
 
 
 def test_batched_state_raises():
