@@ -703,10 +703,27 @@ def cuda_time_ms(fn, n):
     return a.elapsed_time(b) / n
 
 
+# the names of B1's one-iteration kernels: the 32x16 tile's and the wide
+# tile's (grid_cloth_cuda.takes_wide chooses between them)
+B1_KERNELS = ("cloth_substep_kernel", "cloth_wide_kernel")
+
+
+def b1_kernel(n_batch, height, width):
+    """The kernel a one-iteration ``cloth_substep_cuda`` launch of
+    ``n_batch`` whole ``height`` x ``width`` grids runs on this card."""
+    from positionbaseddynamics_tpu_torch.solver import grid_cloth_cuda as gcc
+
+    wide = gcc.takes_wide(n_batch, height, width, 1, 0, height,
+                          gcc.wide_capacity())
+    return B1_KERNELS[wide]
+
+
 def device_ms(fn, n, kernel_name):
-    """Mean device time of the kernel ``kernel_name`` per launch, read from
-    ``torch.profiler`` over ``n`` calls of ``fn``; None when the profiler
-    records no device time for it."""
+    """Mean device time per launch of the kernel ``kernel_name`` (or of
+    any of a tuple of names), read from ``torch.profiler`` over ``n``
+    calls of ``fn``; None when the profiler records no device time for
+    it."""
+    names = (kernel_name,) if isinstance(kernel_name, str) else kernel_name
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -719,7 +736,7 @@ def device_ms(fn, n, kernel_name):
         torch.cuda.synchronize()
     total_us, count = 0.0, 0
     for ev in prof.key_averages():
-        if kernel_name in ev.key:
+        if any(name in ev.key for name in names):
             total_us += getattr(ev, "device_time_total",
                                 getattr(ev, "cuda_time_total", 0.0))
             count += ev.count
@@ -1052,8 +1069,9 @@ def time_cloth_kernel(dev):
         # events time the stream between launches, host overhead included;
         # the profiler gives the kernel's own device time
         out[f"interval_ms_b{nb}"] = cuda_time_ms(launch, 500)
-        kms = device_ms(launch, 200, "cloth_substep_kernel")
+        kms = device_ms(launch, 200, B1_KERNELS)
         out[f"ms_b{nb}"] = out[f"interval_ms_b{nb}"] if kms is None else kms
+        out[f"kernel_b{nb}"] = b1_kernel(nb, GRID, GRID)
         out[f"ms_source_b{nb}"] = "cuda events" if kms is None else "profiler"
         n_part = nb * GRID * GRID
         # per rollout 6 state planes in and 6 out; w, icd and icb are read
@@ -1736,7 +1754,8 @@ def run_mpc_big(dev):
     device = [ev for ev in prof.key_averages()
               if getattr(ev, "device_type", None) == DeviceType.CUDA]
     busy_us = sum(ev.self_device_time_total for ev in device)
-    b1 = [ev for ev in device if "cloth_substep_kernel" in ev.key]
+    # B1 at K rollouts: the 32x16 or the wide tile (grid_cloth_cuda.takes_wide)
+    b1 = [ev for ev in device if any(k in ev.key for k in B1_KERNELS)]
     b1_us = sum(ev.self_device_time_total for ev in b1)
     b1_count = sum(ev.count for ev in b1)
     copy_us = sum(ev.self_device_time_total for ev in device
@@ -3444,12 +3463,12 @@ def check_fused(dev, gc, p, nb):
         buf[:] = gcc.cloth_substep_cuda(buf[0], buf[1], w, icd, icb, params)
 
     for key, fn, kname in (("ms", fused_launch, "cloth_fused_kernel"),
-                           ("substep_ms", substep_launch,
-                            "cloth_substep_kernel")):
+                           ("substep_ms", substep_launch, B1_KERNELS)):
         kms = device_ms(fn, PAR_TIMED[nb], kname)
         out[key] = (cuda_time_ms(fn, PAR_TIMED[nb]) if kms is None
                     else kms)
         out[key + "_source"] = "cuda events" if kms is None else "profiler"
+    out["substep_kernel"] = b1_kernel(nb, GRID, GRID)
     out["five_substeps_ms"] = 5 * out["substep_ms"]
     out["over_five_substeps"] = out["ms"] / out["five_substeps_ms"]
     if nb == 1:                 # the plain version of one fused launch
@@ -3977,6 +3996,9 @@ def main() -> int:
     for iters, r in cloth_resources.items():
         log(f"  runtime cloth_substep_kernel<{iters}>: {r}")
     log(f"  runtime cloth_fused_kernel: {gcc.kernel_resources(fused=True)}")
+    wide_resources = {**gcc.wide_resources(),
+                      "capacity": gcc.wide_capacity()}
+    log(f"  runtime cloth_wide_kernel: {wide_resources}")
     from positionbaseddynamics_tpu_torch.solver import grid_tet_cuda as gtc
     tet_resources = gtc.kernel_resources()
     log(f"  runtime tet_substep_kernel: {tet_resources}")
@@ -4029,7 +4051,10 @@ def main() -> int:
         "library_ms": None,
         "ms_source": t["ms_source_b1"],
         "interval_ms": t["interval_ms_b1"],
+        "kernel_b1": t["kernel_b1"],
         "ms_b4": t["ms_b4"],
+        "ms_source_b4": t["ms_source_b4"],
+        "kernel_b4": t["kernel_b4"],
         "interval_ms_b4": t["interval_ms_b4"],
         "bound_ms_b4": t["bound_ms_b4"],
         "main_path_steps_per_s": main_rate,
@@ -4038,6 +4063,7 @@ def main() -> int:
         "steps_per_s_b4": t["steps_per_s_b4"],
         "planner_launches": mpc_big["launches"]["cloth_substep"],
         "ms_b256": mpc_big["b1_ms"],
+        "kernel_b256": b1_kernel(MPC_BIG[1], MPC_BIG[0], MPC_BIG[0]),
         "bound_ms_b256": mpc_big["bound_ms"],
         "planner_updates_per_s": mpc_big["updates_per_s"],
         "planner_aggregate_steps_per_s": mpc_big["aggregate_steps_per_s"],
@@ -4049,6 +4075,8 @@ def main() -> int:
         "ptxas": {iters: ptxas.get(f"cloth_substep_kernel<{iters}>")
                   for iters in cloth_resources},
         "runtime_resources": cloth_resources,
+        "wide_ptxas": ptxas.get("cloth_wide_kernel"),
+        "wide_runtime_resources": wide_resources,
     }, {
         "name": "tet_substep",
         "route": "cuda",
@@ -4132,7 +4160,8 @@ def main() -> int:
         "library_ms": None,
         "ms_source": fused[1]["ms_source"],
         **{f"{k}_b{nb}": r[k] for nb, r in fused.items()
-           for k in ("ms", "five_substeps_ms", "over_five_substeps",
+           for k in ("ms", "substep_ms", "substep_kernel",
+                     "five_substeps_ms", "over_five_substeps",
                      "bound_ms", "bound_by", "substep_bound_ms",
                      "vs_per_substep_max_dx", "vs_per_substep_max_dv",
                      "bit_equal_per_substep", "bit_equal_cases", "grid",

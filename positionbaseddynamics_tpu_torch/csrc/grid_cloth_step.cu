@@ -75,6 +75,24 @@
 // same code, so the two modes agree bit for bit. Rows outside [0, H) load as
 // zeros of zero inverse mass on every pass, as in the row window's plain
 // version.
+//
+// Wide tile (cloth_wide_kernel): the per-substep launch at one iteration on a
+// kWideTX x kWideTY tile whose threads own kWideCells cells each, for batches
+// whose (tile, rollout) items fill a good part of the card's resident blocks
+// and solve fewer cells, halo included, than 32 x 16 tiles would
+// (grid_cloth_cuda.takes_wide; the planner's rollouts). There the SMs'
+// throughput sets the pace, not one block's latency, and a 32 x 16 tile
+// solves 38 x 22 = 836 cells for the 512 it writes (1.63); a 40 x 40 tile
+// solves 46 x 46 for 1600 (1.32), and three cells a thread keep its 736
+// threads at two blocks an SM without spilling. Every phase is cloth_tile's
+// on that window, so the two tiles agree bit for bit.
+// scripts/cloth_tile_sweep.py timed it (an H100 SXM at 700 W) at 1.60 ms a
+// launch at 256 rollouts against 2.04 for 32 x 16, 1.62-1.73 for other
+// tiles of two blocks an SM, and 1.75 for a persistent 64 x 32 tile (one
+// block an SM) that copied its next window into shared memory by cp.async
+// while the current one solved: the copies' extra shared-memory traffic
+// cost more than the wider tile saved. At one rollout one block's latency
+// sets the pace and the 32 x 16 tile is faster (12.3 against 17.2 us).
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -98,14 +116,23 @@ constexpr int kMaxDevices = 64;
 // 15.2 us for two (448 threads) at one rollout, and 44.0-47.7 against
 // 43.5 us at four (scripts/cloth_tile_sweep.py, an H100 SXM at 700 W)
 constexpr int kExtraCells = 0;
+// The wide tile (width, height) and the cells a thread owns there: the
+// fastest at 256 rollouts of scripts/cloth_tile_sweep.py's shapes (PERF.md
+// section 6, an H100 SXM at 700 W)
+constexpr int kWideTX = 40;
+constexpr int kWideTY = 40;
+constexpr int kWideCells = 3;
 
-// The window of a launch that runs ITERS iterations: the tile with a halo
-// of R on every side, S cells, NC of them owned by each of its `threads`.
-template <int ITERS>
+// The window of a launch that runs ITERS iterations on a TW x TH tile: the
+// tile with a halo of R on every side, S cells, NC of them owned by each of
+// its `threads`.
+template <int ITERS, int TW = TX, int TH = TY,
+          int CELLS = ITERS + kExtraCells>
 struct Window {
+  static constexpr int tw = TW, th = TH;
   static constexpr int R = 3 * ITERS;
-  static constexpr int SX = TX + 2 * R, SY = TY + 2 * R, S = SX * SY;
-  static constexpr int NC = ITERS + kExtraCells;
+  static constexpr int SX = TW + 2 * R, SY = TH + 2 * R, S = SX * SY;
+  static constexpr int NC = CELLS;
   static constexpr int threads = ((S + NC - 1) / NC + 31) / 32 * 32;
   // blocks an SM the registers are held to allow: 3 at one iteration,
   // fewer where the threads do not fit 3 times
@@ -116,6 +143,8 @@ struct Window {
 
 // The fused launch's window: one pass.
 using FusedWindow = Window<1>;
+// The wide tile's window: one iteration.
+using WideWindow = Window<1, kWideTX, kWideTY, kWideCells>;
 
 // Host-side scalars, laid out as the float vector the Python wrapper builds
 // (grid_cloth_cuda.kernel_params).
@@ -207,15 +236,15 @@ __device__ __forceinline__ bool bend_mask(int f, int gi, int gj, int H, int W) {
 }
 
 // ITERS iterations of one substep on tile (bx, by) of rollout bz, by the
-// whole block. x_in, v_in: the substep's input state. x_cur, lam_in: the
-// positions and lambdas a previous launch of this substep left, or null in
-// the first launch (integrate, lambda = 0). v_out null: not the last
-// launch, so write the positions to x_out and the lambdas to lam_out; else
-// finish the substep into x_out, v_out. In the fused mode (COOP) the
-// buffers come from the pass table pb instead, read where each phase uses
-// them. H rows of the grid are in the planes; row r of them is row
-// r + row_offset of a grid of H_global rows.
-template <int ITERS, int COOP>
+// whole block, on the window Wd. x_in, v_in: the substep's input state.
+// x_cur, lam_in: the positions and lambdas a previous launch of this
+// substep left, or null in the first launch (integrate, lambda = 0). v_out
+// null: not the last launch, so write the positions to x_out and the
+// lambdas to lam_out; else finish the substep into x_out, v_out. In the
+// fused mode (COOP) the buffers come from the pass table pb instead, read
+// where each phase uses them. H rows of the grid are in the planes; row r
+// of them is row r + row_offset of a grid of H_global rows.
+template <int ITERS, int COOP, class Wd = Window<ITERS>>
 __device__ __forceinline__ void cloth_tile(
     const float* x_in, const float* v_in, const float* x_cur,
     const float* lam_in, float* x_out, float* v_out, float* lam_out,
@@ -223,7 +252,6 @@ __device__ __forceinline__ void cloth_tile(
     long long w_bstride, const float* __restrict__ icd_g,
     const float* __restrict__ icb_g, const Params& P, int H, int W,
     int row_offset, int H_global, int bx, int by, int bz) {
-  using Wd = Window<ITERS>;
   constexpr int R = Wd::R, SX = Wd::SX, SY = Wd::SY, S = Wd::S, NC = Wd::NC;
   constexpr int NT = Wd::threads;
   extern __shared__ float smem[];
@@ -246,8 +274,8 @@ __device__ __forceinline__ void cloth_tile(
   const float* xb = x_in + boff;
   const float* vb = v_in + boff;
   const float* wb = w_g + (long long)bz * w_bstride;
-  const int gi0 = by * TY - R;   // local grid row of shared row 0
-  const int gj0 = bx * TX - R;
+  const int gi0 = by * Wd::th - R;   // local grid row of shared row 0
+  const int gj0 = bx * Wd::tw - R;
   const int t = threadIdx.x;
   const float h = P.h;
   // the owned cells' lambdas (h v d bh bv bd) and Jacobi weights
@@ -510,16 +538,16 @@ __device__ __forceinline__ void cloth_tile(
     if constexpr (COOP) {
       // the lambdas of the row above the planes (by the first row of
       // tiles) and of the row below them (by the last), between passes
-      if (lam_out != nullptr && lx >= R && lx < R + TX && gj < W &&
-          (gi == -1 || (gi == H && ly <= R + TY))) {
+      if (lam_out != nullptr && lx >= R && lx < R + Wd::tw && gj < W &&
+          (gi == -1 || (gi == H && ly <= R + Wd::th))) {
 #pragma unroll
         for (int f = 0; f < 6; ++f)
           lam_out[lbase + f * lplane + (long long)gi * W + gj] = lam[k][f];
         continue;
       }
     }
-    if (ly < R || ly >= R + TY || lx < R || lx >= R + TX || gi >= H ||
-        gj >= W)
+    if (ly < R || ly >= R + Wd::th || lx < R || lx >= R + Wd::tw ||
+        gi >= H || gj >= W)
       continue;
     const long long g = (long long)gi * W + gj;
     const float w = sw[c];
@@ -561,6 +589,21 @@ cloth_substep_kernel(const float* __restrict__ x_in,
                        nullptr, w_g, w_bstride, icd_g, icb_g, P, H, W,
                        row_offset, H_global, blockIdx.x, blockIdx.y,
                        blockIdx.z);
+}
+
+// One substep at one iteration of whole grids on the wide tile: block (x, y,
+// z) runs wide tile (x, y) of rollout z (cloth_tile on WideWindow).
+__global__ void __launch_bounds__(WideWindow::threads, WideWindow::min_blocks)
+cloth_wide_kernel(const float* __restrict__ x_in,
+                  const float* __restrict__ v_in, float* __restrict__ x_out,
+                  float* __restrict__ v_out, const float* __restrict__ w_g,
+                  long long w_bstride, const float* __restrict__ icd_g,
+                  const float* __restrict__ icb_g, const Params P, int H,
+                  int W) {
+  cloth_tile<1, 0, WideWindow>(x_in, v_in, nullptr, nullptr, x_out, v_out,
+                               nullptr, nullptr, w_g, w_bstride, icd_g,
+                               icb_g, P, H, W, 0, H, blockIdx.x, blockIdx.y,
+                               blockIdx.z);
 }
 
 // The fused mode: F.substeps x F.iterations passes of F.n_batch rollouts in
@@ -637,6 +680,11 @@ cudaError_t allow_substep_smem() {
 cudaError_t allow_fused_smem() {
   static bool done[kMaxDevices] = {};
   return allow_smem((const void*)cloth_fused_kernel, FusedWindow::smem, done);
+}
+
+cudaError_t allow_wide_smem() {
+  static bool done[kMaxDevices] = {};
+  return allow_smem((const void*)cloth_wide_kernel, WideWindow::smem, done);
 }
 
 // The arguments of one per-substep launch.
@@ -719,6 +767,30 @@ cudaError_t fused_capacity(int* out) {
   return cudaSuccess;
 }
 
+// Blocks of the wide kernel resident on the current card at once: out =
+// blocks an SM x SMs.
+cudaError_t wide_capacity(int* out) {
+  static int cap[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cap[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    e = allow_wide_smem();
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, cloth_wide_kernel, WideWindow::threads, WideWindow::smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cap[dev] = per_sm * sms;
+  }
+  *out = cap[dev];
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -752,6 +824,23 @@ int pbd_cloth_fused_resources(int* out) {
   if (err != cudaSuccess) return (int)err;
   return (int)resources((const void*)cloth_fused_kernel,
                         FusedWindow::threads, FusedWindow::smem, out);
+}
+
+// The resources of the wide kernel, as pbd_cloth_kernel_resources reports
+// them.
+int pbd_cloth_wide_resources(int* out) {
+  if (!out) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = allow_wide_smem();
+  if (err != cudaSuccess) return (int)err;
+  return (int)resources((const void*)cloth_wide_kernel, WideWindow::threads,
+                        WideWindow::smem, out);
+}
+
+// Blocks of the wide kernel the current card holds at once (blocks an SM x
+// SMs). Returns a CUDA error code.
+int pbd_cloth_wide_capacity(int* out) {
+  if (!out) return (int)cudaErrorInvalidValue;
+  return (int)wide_capacity(out);
 }
 
 // The fused launch's largest grid on the current card (blocks an SM x
@@ -852,6 +941,31 @@ int pbd_cloth_fused(const void* x_in, const void* v_in, void* x_out,
                                   args, FusedWindow::smem,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// One substep at one iteration of `n_batch` rollouts of whole grids on the
+// wide tile: planes, w, icd, icb and params as for pbd_cloth_substep, every
+// output distinct from every input. Returns a CUDA error code, 0 when the
+// launch was queued.
+int pbd_cloth_wide(const void* x_in, const void* v_in, void* x_out,
+                   void* v_out, const void* w, long long w_bstride,
+                   const void* icd, const void* icb, const void* params,
+                   int n_batch, int height, int width, void* stream) {
+  if (n_batch < 1 || height < 1 || width < 1 || x_in == nullptr ||
+      v_in == nullptr || x_out == nullptr || v_out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = allow_wide_smem();
+  if (e != cudaSuccess) return (int)e;
+  Params P;
+  std::memcpy(&P, params, sizeof(P));
+  const dim3 grid((width + kWideTX - 1) / kWideTX,
+                  (height + kWideTY - 1) / kWideTY, n_batch);
+  cloth_wide_kernel<<<grid, WideWindow::threads, WideWindow::smem,
+                      (cudaStream_t)stream>>>(
+      (const float*)x_in, (const float*)v_in, (float*)x_out, (float*)v_out,
+      (const float*)w, w_bstride, (const float*)icd, (const float*)icb, P,
+      height, width);
   return (int)cudaGetLastError();
 }
 

@@ -30,6 +30,17 @@ rows so, through the fused kernel. A card without cooperative launch, or
 a launch that fails, raises; nothing falls back to the per-substep
 launches.
 
+A per-substep launch at one iteration runs one :data:`TILE` of one
+rollout a block, or, where :func:`takes_wide` says so (from what the call
+shows: no option chooses it), one :data:`WIDE_TILE` with three cells a
+thread (``cloth_wide_kernel``). Where the rollouts fill the card, its
+throughput sets the pace, and the wide tile solves fewer halo cells for
+each cell it writes; at one rollout of a ~100k-particle cloth one block's
+latency does, and the small tile is faster. Both run the same phases, so
+they agree bit for bit. The wide launches are counted in
+``kernel.cloth_substep.wide_launches`` besides
+``kernel.cloth_substep.launches``.
+
 Beside the kernel sit its plain PyTorch versions:
 :func:`cloth_substep_reference`, composed of the ported integration
 functions and :meth:`GridClothBatch.project` (fused: one call a substep),
@@ -75,6 +86,14 @@ FUSED_PASSES = 5
 # A block's tile, (width, height) (``TX``, ``TY`` of the kernel source): a
 # fused launch's items are (tile, rollout) pairs.
 TILE = (32, 16)
+# The wide tile, (width, height) (``kWideTX``, ``kWideTY``), and the
+# (wide tile, rollout) items a launch needs at least for each block of it
+# the card holds at once to take it: the 320×320 cloth's items fill 0.24 of
+# an H100's resident blocks at one rollout, where the small tile was 28%
+# faster, and 0.48 at 2, where the wide one was 23% faster
+# (scripts/cloth_tile_sweep.py, PERF.md §6).
+WIDE_TILE = (40, 40)
+WIDE_FILL = 0.35
 _BEND_ORDER = ("bh", "bv", "bd")
 
 
@@ -197,9 +216,15 @@ def _bind(lib):
         getattr(lib, name).restype = ctypes.c_int
     lib.pbd_cloth_kernel_resources.argtypes = [ctypes.c_int, vp]
     lib.pbd_cloth_kernel_resources.restype = ctypes.c_int
-    for name in ("pbd_cloth_fused_resources", "pbd_cloth_fused_capacity"):
+    for name in ("pbd_cloth_fused_resources", "pbd_cloth_fused_capacity",
+                 "pbd_cloth_wide_resources", "pbd_cloth_wide_capacity"):
         getattr(lib, name).argtypes = [vp]
         getattr(lib, name).restype = ctypes.c_int
+    # x_in v_in x_out v_out w w_bstride icd icb params n_batch height width
+    # stream
+    lib.pbd_cloth_wide.argtypes = [vp] * 5 + [ctypes.c_longlong] + \
+        [vp] * 3 + [ctypes.c_int] * 3 + [vp]
+    lib.pbd_cloth_wide.restype = ctypes.c_int
     if (lib.pbd_cloth_param_count() != N_PARAMS
             or lib.pbd_cloth_max_iterations() != FUSED_ITERATIONS
             or lib.pbd_cloth_max_passes() != FUSED_PASSES):
@@ -249,18 +274,84 @@ def fused_resources_of(lib) -> dict:
     return _resources(lib, lib.pbd_cloth_fused_resources)
 
 
+def wide_resources_of(lib) -> dict:
+    """:func:`kernel_resources` of the wide tile's kernel, from a library
+    built from ``csrc/grid_cloth_step.cu`` or from a variant of it."""
+    return _resources(lib, lib.pbd_cloth_wide_resources)
+
+
+def wide_resources() -> dict:
+    """:func:`kernel_resources` of the wide tile's kernel."""
+    lib = _build.load("grid_cloth_step")
+    _bind(lib)
+    return wide_resources_of(lib)
+
+
+def capacity_of(lib, fn) -> int:
+    """The blocks a kernel's launch holds at once on the current card, as
+    ``fn`` (a library's ``pbd_cloth_*_capacity``) reports them."""
+    cap = ctypes.c_int(0)
+    err = fn(ctypes.byref(cap))
+    if err != 0:
+        raise RuntimeError("cloth kernel capacity: "
+                           + lib.pbd_error_string(err).decode())
+    return cap.value
+
+
+_WIDE_CAPACITY = {}
+
+
+def wide_capacity(index: Optional[int] = None) -> int:
+    """The blocks of the wide tile's kernel that CUDA device ``index``
+    (None: the current one) holds at once (blocks an SM × SMs), kept for
+    each device after the first call."""
+    dev = torch.cuda.current_device() if index is None else index
+    cap = _WIDE_CAPACITY.get(dev)
+    if cap is None:
+        lib = _build.load("grid_cloth_step")
+        _bind(lib)
+        with torch.cuda.device(dev):
+            cap = capacity_of(lib, lib.pbd_cloth_wide_capacity)
+        _WIDE_CAPACITY[dev] = cap
+    return cap
+
+
+def wide_items(n_batch: int, height: int, width: int) -> int:
+    """The (:data:`WIDE_TILE`, rollout) items of a wide launch, one block
+    each."""
+    return n_batch * -(-height // WIDE_TILE[1]) * -(-width // WIDE_TILE[0])
+
+
+def solved_cells(tile, n_batch: int, height: int, width: int) -> int:
+    """The cells a one-iteration launch on ``tile`` solves: each of its
+    (tile, rollout) items solves its tile and a halo of 3 on every side."""
+    tw, th = tile
+    return (n_batch * -(-height // th) * -(-width // tw)
+            * (tw + 6) * (th + 6))
+
+
+def takes_wide(n_batch: int, height: int, width: int, iterations: int,
+               row_offset: int, global_height: int, capacity: int) -> bool:
+    """Whether a per-substep launch takes the wide tile: one iteration a
+    launch, whole grids (no row window), items that fill at least the
+    share :data:`WIDE_FILL` of the ``capacity`` blocks the card holds of it
+    at once (:func:`wide_capacity`), and fewer cells solved than on
+    :data:`TILE` (:func:`solved_cells`; a grid much narrower than 40
+    solves more halo on the wide tile). Everything else takes
+    :data:`TILE`."""
+    return (iterations == 1 and row_offset == 0 and global_height == height
+            and wide_items(n_batch, height, width) >= WIDE_FILL * capacity
+            and solved_cells(WIDE_TILE, n_batch, height, width)
+            < solved_cells(TILE, n_batch, height, width))
+
+
 def fused_capacity() -> int:
     """The fused launch's largest grid on the current card: the blocks it
     holds at once (blocks an SM × SMs). Raises on a card without
     cooperative launch."""
     lib = _build.load("grid_cloth_step")
     _bind(lib)
-    cap = ctypes.c_int(0)
-    err = lib.pbd_cloth_fused_capacity(ctypes.byref(cap))
-    if err != 0:
-        raise RuntimeError("cloth fused capacity: "
-                           + lib.pbd_error_string(err).decode())
-    return cap.value
+    return capacity_of(lib, lib.pbd_cloth_fused_capacity)
 
 
 def fused_items(n_batch: int, height: int, width: int) -> int:
@@ -333,8 +424,11 @@ def cloth_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
     W)``; ``icd``, ``icb``: ``(H, W)`` Jacobi weights; ``params`` from
     :func:`kernel_params`. The H rows are rows ``row_offset..`` of a grid
     of ``global_height`` rows (default: the whole grid, H). Returns new
-    ``(xp, vp)`` buffers; the inputs are left as they were. Counts its
-    launches in the counter ``kernel.cloth_substep.launches``."""
+    ``(xp, vp)`` buffers; the inputs are left as they were. A launch takes
+    the wide tile where :func:`takes_wide` says so, else :data:`TILE`.
+    Counts its launches in the counter
+    ``kernel.cloth_substep.launches``, the wide ones also in
+    ``kernel.cloth_substep.wide_launches``."""
     params, w_bstride = _check_planes(xp, vp, w, icd, icb, params,
                                       "cloth_substep_cuda")
     b, _, h, wd = xp.shape
@@ -347,6 +441,17 @@ def cloth_substep_cuda(xp: Tensor, vp: Tensor, w: Tensor, icd: Tensor,
     left = max_iterations
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
+        if takes_wide(b, h, wd, max_iterations, int(row_offset), gh,
+                      wide_capacity(xp.device.index)):
+            xo, vo = torch.empty_like(xp), torch.empty_like(vp)
+            err = lib.pbd_cloth_wide(
+                xp.data_ptr(), vp.data_ptr(), xo.data_ptr(), vo.data_ptr(),
+                w.data_ptr(), w_bstride, icd.data_ptr(), icb.data_ptr(),
+                params.ctypes.data, b, h, wd, stream)
+            _raise_on(lib, err, "cloth substep (wide tile)")
+            telemetry.count("kernel.cloth_substep.launches")
+            telemetry.count("kernel.cloth_substep.wide_launches")
+            return xo, vo
         while left:
             k = min(left, FUSED_ITERATIONS)
             left -= k

@@ -26,7 +26,9 @@ context after a single check, so a span costs one C call and an empty
   the horizon's ``pbd.step`` spans.
 
 Counters are always on: a plain dict of numbers, added to by
-:func:`count`. They count launches (``kernel.<wrapper>.launches``),
+:func:`count`. They count launches (``kernel.<wrapper>.launches``; of
+the cloth kernel's per-substep launches, those of its wide schedule also
+in ``kernel.cloth_substep.wide_launches``),
 kernel-library builds and loads (``kernels.nvcc_builds``,
 ``kernels.libraries_loaded``) and one-shot seconds (``kernels.load_s``).
 They are computed from shapes and the host clock, never from a device

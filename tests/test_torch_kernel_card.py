@@ -273,8 +273,11 @@ def test_fused_kernel_at_64_rollouts_on_card(cuda):
         g, p.inv_mass, g.inv_cnt_dist, g.inv_cnt_bend, dt=0.005, substeps=5,
         n_batch=64, n_steps=10, fuse_substeps=True)
     before = telemetry.launches("cloth_fused")
+    wide = telemetry.counters().get("kernel.cloth_substep.wide_launches", 0)
     xf, vf = fused(x, v)
     assert telemetry.launches("cloth_fused") - before == 10
+    assert telemetry.counters().get(
+        "kernel.cloth_substep.wide_launches", 0) == wide
     assert gcc.cloth_fused_cuda.grid == min(512, gcc.fused_capacity())
     xk, vk = step(x, v)
     assert torch.equal(xf, xk) and torch.equal(vf, vk)
@@ -288,6 +291,141 @@ def test_fused_kernel_at_64_rollouts_on_card(cuda):
     xs, vs = one(x[17], v[17])
     assert gcc.cloth_fused_cuda.grid == 8
     assert torch.equal(xf[17], xs) and torch.equal(vf[17], vs)
+
+
+def _wide_launches():
+    return telemetry.counters().get("kernel.cloth_substep.wide_launches", 0)
+
+
+def _tile_substep(wide, xp, vp, w, icd, icb, params):
+    """One substep at one iteration on the wide (``pbd_cloth_wide``) or the
+    small tile (``pbd_cloth_substep``), whatever the wrapper's rule would
+    take."""
+    from positionbaseddynamics_tpu_torch import _build
+
+    lib = _build.load("grid_cloth_step")
+    fn = gcc._bind(lib)
+    b, _, h, wd = xp.shape
+    xo, vo = torch.empty_like(xp), torch.empty_like(vp)
+    w_bstride = 0 if w.dim() == 2 else h * wd
+    stream = torch.cuda.current_stream(xp.device).cuda_stream
+    if wide:
+        err = lib.pbd_cloth_wide(
+            xp.data_ptr(), vp.data_ptr(), xo.data_ptr(), vo.data_ptr(),
+            w.data_ptr(), w_bstride, icd.data_ptr(), icb.data_ptr(),
+            params.ctypes.data, b, h, wd, stream)
+    else:
+        err = fn(xp.data_ptr(), vp.data_ptr(), None, None, xo.data_ptr(),
+                 vo.data_ptr(), None, w.data_ptr(), w_bstride,
+                 icd.data_ptr(), icb.data_ptr(), params.ctypes.data, b, h,
+                 wd, 1, 0, h, stream)
+    assert err == 0, lib.pbd_error_string(err).decode()
+    return xo, vo
+
+
+# the planner's 320x320 cloth at 64 and 256 rollouts, a grid whose sides are
+# no multiple of the wide tile, each rollout's own inverse masses, damping 0
+# and 0.01
+@pytest.mark.parametrize("shape,n_batch,own_w,damping", [
+    ((320, 320), 64, False, 0.0), ((320, 320), 256, False, 0.01),
+    ((68, 52), 256, False, 0.0), ((68, 52), 256, True, 0.01),
+    ((320, 320), 256, True, 0.0)],
+    ids=["320_k64", "320_k256_damped", "68x52_k256", "68x52_k256_own_w",
+         "320_k256_own_w"])
+def test_wide_tile_equals_small_tile_on_card(cuda, shape, n_batch, own_w,
+                                             damping):
+    """10 substeps of rollouts that each start from their own seeded 1 cm
+    jitter of the free particles and random velocities: the wide tile and
+    the wrapper come out of every substep bit for bit as the small tile,
+    the wrapper counts a wide launch where ``takes_wide`` says so, the
+    pinned particles stay exactly where they were, and no launch writes
+    its inputs."""
+    ts, tc = _build(*shape, device=cuda)
+    g, p = tc.grid_cloths[0], ts.particles
+    hgt, wid = g.height, g.width
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    w = p.inv_mass.reshape(hgt, wid).contiguous()
+    if own_w:
+        w = w.expand(n_batch, hgt, wid).clone()
+        r = torch.arange(n_batch, device=cuda)
+        w[r, (5 * r) % hgt, (7 * r) % wid] = 0.0    # pin one more in each
+    pinned = (w == 0).expand(n_batch, hgt, wid)
+    free = (p.inv_mass > 0).to(torch.float32)[:, None]
+    x = p.x + 1e-2 * free * torch.randn((n_batch,) + tuple(p.x.shape),
+                                        generator=gen, device=cuda)
+    v = 0.1 * free * torch.randn((n_batch,) + tuple(p.v.shape),
+                                 generator=gen, device=cuda)
+    x0 = gcc.to_planes(x, hgt, wid)
+    icd = g.inv_cnt_dist.reshape(hgt, wid).contiguous()
+    icb = g.inv_cnt_bend.reshape(hgt, wid).contiguous()
+    params = gcc.kernel_params(g, h=1e-3, damping=damping)
+    args = (w, icd, icb, params)
+    xt, vt = x0, gcc.to_planes(v, hgt, wid)
+    xw, vw = xt, vt
+    xc, vc = xt, vt
+    takes = gcc.takes_wide(n_batch, hgt, wid, 1, 0, hgt, gcc.wide_capacity())
+    before = _wide_launches()
+    for s in range(10):
+        ins = (xt, vt, xw, vw, xc, vc)
+        saved = [a.clone() for a in ins]
+        xt, vt = _tile_substep(False, xt, vt, *args)
+        xw, vw = _tile_substep(True, xw, vw, *args)
+        xc, vc = gcc.cloth_substep_cuda(xc, vc, *args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(ins, saved)), s
+        assert torch.equal(xw, xt) and torch.equal(vw, vt), s
+        assert torch.equal(xc, xt) and torch.equal(vc, vt), s
+    assert torch.isfinite(xt).all()
+    assert _wide_launches() - before == (10 if takes else 0)
+    assert not torch.equal(xt, x0)
+    for q in range(3):
+        assert torch.equal(xw[:, q][pinned], x0[:, q][pinned])
+
+
+def test_wide_tile_leaves_its_inputs_on_card(cuda):
+    """A wide launch reads its inputs and writes only its outputs."""
+    ts, tc = _build(68, 52, device=cuda)
+    g, p = tc.grid_cloths[0], ts.particles
+    hgt, wid = g.height, g.width
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    n_batch = 64
+    xp = gcc.to_planes(p.x + 1e-2 * torch.randn(
+        (n_batch,) + tuple(p.x.shape), generator=gen, device=cuda), hgt, wid)
+    vp = gcc.to_planes(0.1 * torch.randn(
+        (n_batch,) + tuple(p.v.shape), generator=gen, device=cuda), hgt, wid)
+    w = p.inv_mass.reshape(hgt, wid).contiguous()
+    icd = g.inv_cnt_dist.reshape(hgt, wid).contiguous()
+    icb = g.inv_cnt_bend.reshape(hgt, wid).contiguous()
+    params = gcc.kernel_params(g, h=1e-3)
+    saved = [a.clone() for a in (xp, vp, w, icd, icb)]
+    xo, vo = _tile_substep(True, xp, vp, w, icd, icb, params)
+    torch.cuda.synchronize()
+    for a, b in zip((xp, vp, w, icd, icb), saved):
+        assert torch.equal(a, b)
+    assert not torch.equal(xo, xp)
+
+
+@pytest.mark.parametrize("n_batch", [1, 256])
+def test_step_fn_counts_wide_launches_on_card(cuda, n_batch):
+    """A ``make_step_fn`` step of the 320x320 cloth, one rollout or the
+    planner's 256 (``mpc.planners._expand_state``): 5 launches, each wide
+    exactly where ``takes_wide`` says, so 0 of 5 at one rollout and 5 of 5
+    at 256 on an H100."""
+    from positionbaseddynamics_tpu_torch.mpc.planners import _expand_state
+
+    ts, tc = _build(320, 320, device=cuda)
+    fn = make_step_fn(tc, StepConfig(), device=cuda)
+    assert fn.path == "cuda_kernel"
+    state = ts if n_batch == 1 else _expand_state(ts, n_batch)
+    takes = gcc.takes_wide(n_batch, 320, 320, 1, 0, 320,
+                           gcc.wide_capacity())
+    assert takes is (n_batch == 256)
+    telemetry.reset()
+    out = fn(state)
+    torch.cuda.synchronize()
+    assert telemetry.launches("cloth_substep") == 5
+    assert _wide_launches() == (5 if takes else 0)
+    assert torch.isfinite(out.particles.x).all()
 
 
 def test_mppi_update_kernel_route_matches_stencil_route_on_card(cuda):

@@ -156,3 +156,23 @@ def test_cloth_tile_sweep_builds_each_variant():
             assert f"constexpr int kExtraCells = {variant[2]};" in out
         assert f"constexpr int TX = {variant[0]};" in out
         assert f"constexpr int TY = {variant[1]};" in out
+
+
+def test_cloth_tile_sweep_builds_each_wide_variant():
+    """The sweep's wide-tile variants edit the wide tile and its cells a
+    thread, each anchor found once, and leave the small tile as it is; its
+    first is the source's own."""
+    sweep = _script("cloth_tile_sweep")
+    src = (CSRC / "grid_cloth_step.cu").read_text()
+    tx, ty, cells = sweep.WIDE_VARIANTS[0]
+    for name, value in (("kWideTX", tx), ("kWideTY", ty),
+                        ("kWideCells", cells)):
+        assert f"constexpr int {name} = {value};" in src
+    for tx, ty, cells in sweep.WIDE_VARIANTS:
+        out = sweep.wide_variant_source(src, tx, ty, cells)
+        for name, value in (("kWideTX", tx), ("kWideTY", ty),
+                            ("kWideCells", cells), ("TX", 32), ("TY", 16)):
+            assert f"constexpr int {name} = {value};" in out
+    with pytest.raises(RuntimeError, match="kWideTY: anchor not found once"):
+        sweep.wide_variant_source(src.replace("kWideTY = ", "kWideTY ="),
+                                  32, 32, 2)
