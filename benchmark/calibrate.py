@@ -33,6 +33,7 @@ ROOT = Path(__file__).resolve().parents[1]
 if __name__ == "__main__":
     sys.path[0] = str(ROOT)
 
+from benchmark import judge  # noqa: E402
 from benchmark.controls import HandleVelocity  # noqa: E402
 
 
@@ -71,11 +72,8 @@ def stand_in(config, mix, samples, ref) -> list:
             o["x"], o["v"], o["old_x"], o["last_x"] = sc.step(
                 ref.apply(x, o["nominal"][0]), v)
         else:
-            x = ref.x0.expand_as(i["x"]) if s["start"] else i["x"]
-            x, v = x.to(ref.dtype), i["v"].to(ref.dtype)
-            for _ in range(int(mix["steps_per_frame"])):
-                x, v, old, last = ref.step(x, v)
-            o = {"x": x, "v": v, "old_x": old, "last_x": last}
+            o = judge.run_frame(ref, i, s["start"],
+                                int(mix["steps_per_frame"]))
         out.append({**s, "out": o})
     return out
 
@@ -111,8 +109,8 @@ def main(argv=None) -> int:
     built = {k: harness.reference_for(config, mix, device, d, ref_kind)
              for k, d in refs.items()}
     for seed in args.seeds:
-        loop = loops.LOOPS[mix["loop"]](config, mix, state, cset, seed,
-                                        device, ref_kind)
+        loop = harness.make_loop(config, mix, state, cset, seed, device,
+                                 ref_kind)
         loop.warm()
         c = mix["check"]
         win = loop.run(seconds=args.seconds,

@@ -38,16 +38,18 @@ def _sync(device):
 
 class Record:
     """What a traced run hands the per-layer readers: the cell's
-    configuration and mix, the scene build's seconds, the host seconds of
-    the step calls, the trace and the traced slice (a
-    :class:`loops.Window`)."""
+    configuration and mix, the scene build's seconds, a sim loop's
+    untraced slice (a :class:`loops.Window` with the host seconds of its
+    step calls, or None) and those seconds, the trace and the traced
+    slice."""
 
-    def __init__(self, config, mix, scene_build_s, step_host_s, trace,
+    def __init__(self, config, mix, scene_build_s, untraced, trace,
                  window):
         self.config, self.mix = config, mix
         self.kind, self.loop = config["kind"], mix["loop"]
         self.scene_build_s = scene_build_s
-        self.step_host_s = step_host_s
+        self.untraced = untraced
+        self.step_host_s = untraced.step_host_s if untraced else []
         self.trace, self.window = trace, window
 
     def least_seconds(self, kind: str) -> float:
@@ -79,10 +81,9 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float,
         config, device)
     _sync(device)
     scene_build_s = time.perf_counter() - t0
-    loop = loops.LOOPS[mix["loop"]](config, mix, state, cset, seed, device,
-                                    ref_kind)
+    loop = make_loop(config, mix, state, cset, seed, device, ref_kind)
     del state, cset
-    log(f"route: {cell['name']} steps through make_step_fn, path "
+    log(f"route: {cell['name']} steps through {loop.entry}, path "
         f"{loop.route!r} ({mix['loop']} loop)")
     loop.warm()
     _sync(device)
@@ -97,16 +98,18 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float,
         wanted = spec.end_to_end(bench, name)
     else:
         c = mix["trace"]
-        step_host_s = []
-        if loop.kind == "sim":
-            step_host_s = loop.run(count=c["count"],
-                                   time_steps=True).step_host_s
+        untraced = None
+        if loop.kind == "sim" and "untraced_seconds" in c:
+            untraced = loop.run(seconds=c["untraced_seconds"],
+                                time_steps=True)
+        elif loop.kind == "sim":
+            untraced = loop.run(count=c["count"], time_steps=True)
         held = {}
         check = loops.schedule(seed, c["check_gap"], c["check_max"], 8)
         tr = trace_mod.profile(lambda: held.setdefault("w", loop.run(
             count=c["count"], check=check, label=True)))
         win = held["w"]
-        rec = Record(config, mix, scene_build_s, step_host_s, tr, win)
+        rec = Record(config, mix, scene_build_s, untraced, tr, win)
         wanted = spec.per_layer(bench, name)
         values = {m["name"]: spec.reader(m["name"]).read(rec)
                   for m in wanted}
@@ -136,6 +139,16 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float,
         f"{time.perf_counter() - t0!r} s")
     return {"correct": correct, "attempted": n_periods, "failed": failed,
             "metrics": metrics, "device": dev_info, **out, "checks": checks}
+
+
+def make_loop(config, mix, state, cset, seed, device, ref_kind):
+    """The mix's loop over the built scene, stepped by the ``Drive`` of the
+    configuration's kind where its ``benchmark/scenes/<kind>.py`` defines
+    one, else by the loop's own (``make_step_fn``)."""
+    drive = getattr(spec.kind_module("scenes", config["kind"]), "Drive", None)
+    kw = {} if drive is None else {"drive": drive}
+    return loops.LOOPS[mix["loop"]](config, mix, state, cset, seed, device,
+                                    ref_kind, **kw)
 
 
 def reference_for(config, mix, device, dtype, ref_kind):

@@ -14,7 +14,9 @@ the start are checked too.
   ``v_gap_mps`` the same of the velocities; ``mean_gap_m`` the distance
   of the particles' mean final position from the reference's, a steady
   number that rounding hardly moves and a scene that stands still, or
-  drifts as a whole, cannot pass.
+  drifts as a whole, cannot pass. A kind whose reference scene runs its
+  own frames (``frame``) adds the numbers of its kind (``numbers``), such
+  as the gap of a step it carries or a count of what the program dropped.
 * ``mpc``: each saved period. ``cost_gap`` is the largest gap of a
   rollout's cost from the reference's, over the median reference cost,
   on a sample of the rollouts drawn from the seed (the first and the last
@@ -35,22 +37,37 @@ def _gap(a, b) -> float:
     return (a.to(b.device, torch.float64) - b.double()).abs().max().item()
 
 
+def run_frame(ref, inputs, start, steps) -> dict:
+    """The reference's frame from a saved frame's inputs: ``x``, ``v``,
+    ``old_x`` and ``last_x`` after ``steps`` steps, from the reference's
+    own initial positions where the frame is the ``start``. A reference
+    scene with a ``frame`` method (a kind whose step carries more than
+    ``x`` and ``v``) runs the frame itself and adds what it carries."""
+    if hasattr(ref, "frame"):
+        return ref.frame(inputs, start, steps)
+    x = ref.x0.expand_as(inputs["x"]) if start else inputs["x"]
+    x, v = x.to(ref.dtype), inputs["v"].to(ref.dtype)
+    for _ in range(steps):
+        x, v, old, last = ref.step(x, v)
+    return {"x": x, "v": v, "old_x": old, "last_x": last}
+
+
 def sim_numbers(ref, samples, steps_per_frame) -> list:
-    """One dict of numbers a saved frame."""
+    """One dict of numbers a saved frame; a reference scene with a
+    ``numbers`` method adds the numbers of its kind."""
     out = []
     for s in samples:
-        x = ref.x0.expand_as(s["in"]["x"]) if s["start"] else s["in"]["x"]
-        x, v = x.to(ref.dtype), s["in"]["v"].to(ref.dtype)
-        for _ in range(steps_per_frame):
-            x, v, old, last = ref.step(x, v)
-        o = s["out"]
+        r = run_frame(ref, s["in"], s["start"], steps_per_frame)
+        x, o = r["x"], s["out"]
         mean = (o["x"].to(x.device, torch.float64).mean(-2)
                 - x.double().mean(-2))
-        out.append({
-            "x_gap_m": max(_gap(o["x"], x), _gap(o["old_x"], old),
-                           _gap(o["last_x"], last)),
-            "v_gap_mps": _gap(o["v"], v),
-            "mean_gap_m": torch.linalg.vector_norm(mean, dim=-1).max().item()})
+        n = {"x_gap_m": max(_gap(o["x"], x), _gap(o["old_x"], r["old_x"]),
+                            _gap(o["last_x"], r["last_x"])),
+             "v_gap_mps": _gap(o["v"], r["v"]),
+             "mean_gap_m": torch.linalg.vector_norm(mean, dim=-1).max().item()}
+        if hasattr(ref, "numbers"):
+            n.update(ref.numbers(o, r))
+        out.append(n)
     return out
 
 

@@ -3,11 +3,13 @@
 points in closed loops, each period waiting for the one before.
 
 * ``"loop": "sim"``: interactive simulation. Frames of
-  ``steps_per_frame`` calls of ``make_step_fn``'s step, then the
+  ``steps_per_frame`` calls of the scene's step, then the
   positions copied to the host, which is what a renderer reads: into one
   page-locked buffer kept for the run, as a renderer keeps its own. The seed
   draws the initial velocities (``|v| ≤ initial_speed``, 0 at static
-  particles) on the card, for ``rollouts`` scenes stepped together.
+  particles) on the card, for ``rollouts`` scenes stepped together. The
+  step is ``make_step_fn``'s (:class:`ParticleDrive`), or the one a kind's
+  own ``Drive`` builds on its entry point (``benchmark/scenes/<kind>.py``).
 * ``"loop": "mpc"``: receding-horizon MPPI, one control period at a time
   as ``make_mpc_controller.run`` runs it: ``mppi_update`` over
   ``make_sequence_cost`` with the period's perturbations drawn from the
@@ -107,33 +109,75 @@ class Window:
         self.step_host_s = []
 
 
-class SimLoop:
-    kind = "sim"
+class ParticleDrive:
+    """How the sim loop steps a kind that brings no drive of its own:
+    ``make_step_fn`` over the scene's constraint set under the
+    configuration's ``StepConfig``; the state's particles hold the
+    positions, the inverse masses (0 at static particles) and the fields a
+    frame keeps; ``rollouts`` scenes are stepped together. A kind's module
+    ``benchmark/scenes/<kind>.py`` may define a ``Drive`` of the same shape
+    for a stepper of its own."""
 
-    def __init__(self, config, mix, state, cset, seed, device, ref_kind):
+    entry = "make_step_fn"
+    judges_last = False
+
+    def __init__(self, config, mix, state, cset, device):
         from positionbaseddynamics_tpu_torch.solver import make_step_fn
 
-        self.mix, self.device, self.seed = mix, device, seed
         self.cfg = _step_config(config)
         self.fn = make_step_fn(cset, self.cfg, device)
-        self.route = self.fn.path
-        self.spf = int(mix["steps_per_frame"])
-        k = int(mix.get("rollouts", 1))
-        p = state.particles
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed64(seed, 1))
-        shape = (p.x.shape if k == 1 else (k, *p.x.shape))
-        v = torch.rand(shape, generator=gen, device=device) * 2.0 - 1.0
-        v = v * (float(mix["initial_speed"]) / 3.0 ** 0.5)
-        v = torch.where((p.inv_mass > 0)[:, None], v, torch.zeros_like(v))
+        self.substeps, self.iterations = (self.cfg.substeps,
+                                          self.cfg.max_iterations)
+        self.k = int(mix.get("rollouts", 1))
+
+    @staticmethod
+    def positions(state):
+        return state.particles.x
+
+    @staticmethod
+    def free(state):
+        return state.particles.inv_mass > 0
+
+    def start(self, state, v):
+        p, k = state.particles, self.k
         if k > 1:
             def lead(a):
                 return a.unsqueeze(0).expand(k, *a.shape).contiguous()
             p = dataclasses.replace(p, x=lead(p.x), old_x=lead(p.old_x),
                                     last_x=lead(p.last_x))
-        self.state0 = dataclasses.replace(
-            state, particles=dataclasses.replace(p, v=v))
-        self.n_batch, self.iterations = k, self.cfg.max_iterations
+        return dataclasses.replace(state,
+                                   particles=dataclasses.replace(p, v=v))
+
+    @staticmethod
+    def save_in(state) -> dict:
+        return _clone(state.particles, "x", "v")
+
+    @staticmethod
+    def save_out(state) -> dict:
+        return _clone(state.particles, "v", "old_x", "last_x")
+
+
+class SimLoop:
+    kind = "sim"
+
+    def __init__(self, config, mix, state, cset, seed, device, ref_kind,
+                 drive=ParticleDrive):
+        self.mix, self.device, self.seed = mix, device, seed
+        self.drive = drive(config, mix, state, cset, device)
+        self.fn, self.entry = self.drive.fn, self.drive.entry
+        self.route = self.fn.path
+        self.spf = int(mix["steps_per_frame"])
+        k = int(mix.get("rollouts", 1))
+        x = self.drive.positions(state)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed64(seed, 1))
+        shape = (x.shape if k == 1 else (k, *x.shape))
+        v = torch.rand(shape, generator=gen, device=device) * 2.0 - 1.0
+        v = v * (float(mix["initial_speed"]) / 3.0 ** 0.5)
+        v = torch.where(self.drive.free(state)[:, None], v,
+                        torch.zeros_like(v))
+        self.state0 = self.drive.start(state, v)
+        self.n_batch, self.iterations = k, self.drive.iterations
         self.host = torch.empty(shape, dtype=torch.float32,
                                 pin_memory=device.type == "cuda")
 
@@ -142,15 +186,16 @@ class SimLoop:
         for _ in range(int(self.mix["warm_frames"])):
             for _ in range(self.spf):
                 s = self.fn(s)
-            self.host.copy_(s.particles.x)
+            self.host.copy_(self.drive.positions(s))
 
     def run(self, seconds=None, count=None, check=None, label=False,
             time_steps=False) -> Window:
         """Frames from the initial state until ``seconds`` have passed or
-        ``count`` frames are done; the frames in ``check`` saved for the judge;
+        ``count`` frames are done; the frames in ``check`` saved for the judge,
+        and the last frame too where the drive ``judges_last``;
         ``label`` marks the host's phases for the profiler;
         ``time_steps`` keeps the host seconds of each step call."""
-        out, s, fn = Window(), self.state0, self.fn
+        out, s, fn, drive = Window(), self.state0, self.fn, self.drive
         check = check or set()
         _sync(self.device)
         t_start = time.perf_counter()
@@ -158,7 +203,8 @@ class SimLoop:
         with _label(label, "bench.window"):
             while True:
                 if i in check:
-                    before = _clone(s.particles, "x", "v")
+                    before = drive.save_in(s)
+                s_in = s if drive.judges_last else None
                 t0 = time.perf_counter()
                 with _label(label, "bench.frame"):
                     for _ in range(self.spf):
@@ -170,23 +216,22 @@ class SimLoop:
                             else:
                                 s = fn(s)
                     with _label(label, "bench.to_host"):
-                        self.host.copy_(s.particles.x)
+                        self.host.copy_(drive.positions(s))
                 t1 = time.perf_counter()
                 out.periods.append(t1 - t0)
-                if i in check:
-                    out.samples.append({
-                        "index": i, "start": i == 0, "in": before,
-                        "out": {"x": self.host.clone(),
-                                **_clone(s.particles, "v", "old_x",
-                                         "last_x")}})
-                i += 1
                 done = (t1 - t_start >= seconds if count is None
-                        else i >= count)
+                        else i + 1 >= count)
+                if i in check or (done and drive.judges_last):
+                    out.samples.append({
+                        "index": i, "start": i == 0,
+                        "in": before if i in check else drive.save_in(s_in),
+                        "out": {"x": self.host.clone(), **drive.save_out(s)}})
+                i += 1
                 if done:
                     break
         out.seconds = t1 - t_start
         out.steps = self.spf * i
-        out.work = [(self.n_batch, self.cfg.substeps * self.spf * i,
+        out.work = [(self.n_batch, drive.substeps * self.spf * i,
                      self.iterations)]
         return out
 
@@ -198,10 +243,15 @@ class SimLoop:
 
 class MpcLoop:
     kind = "mpc"
+    entry = "make_step_fn"
 
-    def __init__(self, config, mix, state, cset, seed, device, ref_kind):
+    def __init__(self, config, mix, state, cset, seed, device, ref_kind,
+                 drive=None):
         from positionbaseddynamics_tpu_torch import mpc
 
+        if drive is not None:
+            raise ValueError("the mpc loop plans over make_step_fn's scenes; "
+                             f"this kind steps through {drive.entry}")
         if mix["planner"] != "mppi":
             raise ValueError(f"planner {mix['planner']!r}: this loop runs "
                              "mppi")

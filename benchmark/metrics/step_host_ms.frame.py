@@ -1,0 +1,6 @@
+"""``step_host_ms.frame``: ``step_host_ms.sim``'s reading, in the sim cells
+whose steps a second are reported per layer (``step_rate.frame``); there
+it moves ``sim_frame_p95_ms``."""
+from benchmark import spec
+
+read = spec.reader("step_host_ms.sim").read

@@ -1,15 +1,21 @@
 """Where the harness finds what ``BENCHMARK.json`` names, by name alone:
 
 * a configuration: the ``file`` its entry gives, and its ``kind``'s
-  modules ``benchmark/scenes/<kind>.py`` (the program's build),
-  ``benchmark/reference/<kind>.py`` (the plain reference) and
+  modules ``benchmark/scenes/<kind>.py`` (the program's build, and where
+  the kind is not stepped by ``make_step_fn`` a ``Drive`` that steps it
+  through its own entry point, as ``loops.ParticleDrive`` does through
+  ``make_step_fn``), ``benchmark/reference/<kind>.py`` (the plain
+  reference; a scene with a ``frame`` method runs the frames of a kind
+  that carries more state than ``x`` and ``v``, and adds its numbers) and
   ``benchmark/work/<kind>.py`` (the work counts);
 * a traffic mix: ``benchmark/traffic/<mix>.json``, read by the one
   generator in ``benchmark/loops.py``;
 * a per-layer metric: its reader ``benchmark/metrics/<metric>.py``.
 
 A cell made of files that are there, with a new ``workloads`` entry,
-runs without an edit to any of them.
+runs without an edit to any of them; so does a new kind, sim cells of a
+kind with its own stepper included, made of new files alone. (The MPPI
+loop plans over ``make_step_fn``'s scenes only.)
 """
 from __future__ import annotations
 

@@ -8,8 +8,10 @@ import shutil
 import subprocess
 import sys
 
+import pytest
 
 from benchmark import spec
+from benchmark.tests import tiny
 
 ROOT = spec.ROOT
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -17,8 +19,10 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 FORBIDDEN = {"jax", "jaxlib", "flax", "positionbaseddynamics_tpu"}
 
 
-def test_benchmark_json_keeps_the_contract():
-    b = spec.load()
+@pytest.mark.parametrize("load", [spec.load, tiny.load],
+                         ids=["benchmark", "with_the_held_cells"])
+def test_benchmark_json_keeps_the_contract(load):
+    b = load()
     assert set(b) == {"command", "paths", "run_seconds", "configs",
                       "workloads", "end_to_end", "per_layer"}
     assert b["paths"] == ["benchmark"]
@@ -109,12 +113,14 @@ def test_the_harness_loads_nothing_of_jax():
     code = """
 import sys, time, json, torch
 sys.path[0] = %r
-from benchmark.reference import grid_cloth, grid_tet, mppi
+from benchmark.reference import grid_cloth, grid_tet, mppi, pbf_dam
 from benchmark.tests import tiny
 cfg = tiny.config('cloth-320')
 ref = grid_cloth.scene(cfg)
 ref.step(ref.x0, torch.zeros_like(ref.x0))
 grid_tet.scene(tiny.config('bar-80x36x36'))
+dam = pbf_dam.scene(tiny.config('dam-100k'))
+dam.step(dam.x0, torch.zeros_like(dam.x0), dam.dt0)
 before = sorted({m.split('.')[0] for m in sys.modules})
 from benchmark import harness, spec, trace, judge, loops
 class MP:
@@ -144,3 +150,46 @@ def test_forbidden_names_are_compared_whole(monkeypatch):
     assert harness.forbidden_modules() == []
     monkeypatch.setitem(sys.modules, "jax.numpy", sys)
     assert harness.forbidden_modules() == ["jax"]
+
+
+HARNESS = ("run.py", "harness.py", "loops.py", "judge.py", "spec.py",
+           "calibrate.py", "trace.py", "controls.py")
+
+
+def test_no_harness_file_names_a_kind():
+    """A kind is found by its name in its configuration alone: the files
+    every cell runs through name none, so that a new kind needs no edit
+    of them."""
+    kinds = {json.loads((ROOT / c["file"]).read_text())["kind"]
+             for c in tiny.load()["configs"]}
+    for name in HARNESS:
+        text = (spec.HERE / name).read_text()
+        for k in kinds:
+            assert k not in text, (name, k)
+
+
+def test_each_kind_brings_what_its_cells_need():
+    b = tiny.load()
+    drive_parts = ("entry", "substeps", "judges_last", "positions", "free",
+                   "start", "save_in", "save_out")
+    for c in b["configs"]:
+        cfg = json.loads((ROOT / c["file"]).read_text())
+        assert 1 <= len(c["why"]) <= 200 and "\n" not in c["why"]
+        scenes = spec.kind_module("scenes", cfg["kind"])
+        drive = getattr(scenes, "Drive", None)
+        loops_of = {spec.mix(w["traffic"])["loop"] for w in b["workloads"]
+                    if w["config"] == c["name"]}
+        assert set(cfg["limits"]) >= loops_of
+        if drive is None:
+            continue
+        for part in drive_parts:
+            assert hasattr(drive, part), (cfg["kind"], part)
+        # a kind with its own stepper runs sim cells and its reference
+        # runs the frames, with a number for each that it adds
+        assert loops_of == {"sim"}
+        ref = spec.kind_module("reference", cfg["kind"])
+        assert any(hasattr(v, "frame") and hasattr(v, "numbers")
+                   for v in vars(ref).values() if isinstance(v, type))
+    dam = json.loads((ROOT / "benchmark/configs/dam-100k.json").read_text())
+    assert dam["limits"]["sim"]["overflow"] == 0
+    assert {"x_gap_m", "v_gap_mps", "mean_gap_m"} <= set(dam["limits"]["sim"])

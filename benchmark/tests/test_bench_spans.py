@@ -59,6 +59,8 @@ def test_the_trace_and_its_readers_are_unchanged_by_spans():
         rb = base._Rec(loop, "grid_cloth", b, [(1, 10, 1)], periods, 2)
         for name in ("device_idle_share.sim", "device_ops_per_step.sim",
                      "step_host_ms.sim", "scene_build_s",
+                     "device_idle_share.frame", "device_ops_per_step.frame",
+                     "step_host_ms.frame", "step_rate.frame",
                      "device_idle_share.plan", "planner_aux_ms.plan",
                      "cloth_kernel_roofline.plan",
                      "tet_kernel_roofline.plan"):
