@@ -17,12 +17,18 @@ ROOT = spec.ROOT
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 FORBIDDEN = {"jax", "jaxlib", "flax", "positionbaseddynamics_tpu"}
+PROGRAM = "positionbaseddynamics_tpu_torch"
 
 
 @pytest.mark.parametrize("load", [spec.load, tiny.load],
                          ids=["benchmark", "with_the_held_cells"])
 def test_benchmark_json_keeps_the_contract(load):
     b = load()
+    _keeps_the_contract(b)
+    _holds_the_held_entries(b)
+
+
+def _keeps_the_contract(b: dict):
     assert set(b) == {"command", "paths", "run_seconds", "configs",
                       "workloads", "end_to_end", "per_layer"}
     assert b["paths"] == ["benchmark"]
@@ -31,6 +37,7 @@ def test_benchmark_json_keeps_the_contract(load):
     cells = {w["name"]: w for w in b["workloads"]}
     assert len(cells) == len(b["workloads"]) <= 24
     used = {w["config"] for w in b["workloads"]}
+    assert len({c["name"] for c in b["configs"]}) == len(b["configs"])
     for c in b["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         assert NAME.match(c["name"]) and c["name"] in used
@@ -74,6 +81,117 @@ def test_benchmark_json_keeps_the_contract(load):
         assert "setup_s" in e and len(e) >= 2
         assert spec.per_layer(b, w)
     assert len(json.dumps(b)) < 64 * 1024
+
+
+def _admitted(root):
+    """``BENCHMARK.json`` under ``root`` with ``held.json``'s entries
+    copied in, as the change that admits the held cells writes it."""
+    (root / "BENCHMARK.json").write_text(json.dumps(tiny.load(), indent=1))
+    return root
+
+
+def _holds_the_held_entries(b: dict):
+    """A held cell that ``b`` has comes with ``held.json``'s entries as they
+    are there: its cell, its configuration, its end-to-end and per-layer
+    metrics, and its name in each metric of ``also_in``."""
+    held = json.loads(tiny.HELD.read_text())
+    by_name = {p: {e["name"]: e for e in b[p]}
+               for p in ("configs", "workloads", "end_to_end", "per_layer")}
+    for w in held["workloads"]:
+        if w["name"] not in by_name["workloads"]:
+            continue
+        assert by_name["workloads"][w["name"]] == w
+        c = next(c for c in held["configs"] if c["name"] == w["config"])
+        assert by_name["configs"].get(c["name"]) == c
+        for part in ("end_to_end", "per_layer"):
+            for m in held[part]:
+                if w["name"] in m["workloads"]:
+                    assert by_name[part].get(m["name"]) == m
+        metrics = {**by_name["end_to_end"], **by_name["per_layer"]}
+        for name, cells in held["also_in"].items():
+            if w["name"] in cells:
+                assert w["name"] in metrics[name]["workloads"], name
+
+
+def test_held_cells_enter_by_their_entries_alone(tmp_path):
+    """With ``held.json``'s entries copied into ``BENCHMARK.json`` and no
+    other file edited, both loads keep the contract, list each name once,
+    hold the held entries as ``held.json`` gives them, and agree: nothing
+    is left for ``tiny.load`` to add."""
+    root = _admitted(tmp_path)
+    for load in (spec.load, tiny.load):
+        b = load(root)
+        _keeps_the_contract(b)
+        _holds_the_held_entries(b)
+        for part in ("configs", "workloads"):
+            names = [e["name"] for e in b[part]]
+            assert len(set(names)) == len(names), part
+        for m in b["end_to_end"] + b["per_layer"]:
+            assert len(set(m.get("workloads", []))) == \
+                len(m.get("workloads", [])), m["name"]
+    assert tiny.load(root) == spec.load(root)
+    assert {w["name"] for w in spec.load(root)["workloads"]} == \
+        set(tiny.CELLS)
+
+
+def test_a_held_cell_admitted_with_other_entries_is_refused(tmp_path):
+    root, held = _admitted(tmp_path), json.loads(tiny.HELD.read_text())
+    for part, key in (("workloads", "why"), ("configs", "source"),
+                      ("end_to_end", "bound"), ("per_layer", "layer")):
+        b = spec.load(root)
+        e = next(e for e in b[part] if e["name"] == held[part][0]["name"])
+        e[key] = "changed"
+        with pytest.raises(AssertionError):
+            _holds_the_held_entries(b)
+    b = spec.load(root)
+    e2e = {m["name"]: m for m in b["end_to_end"]}
+    e2e["sim_frame_p95_ms"]["workloads"].remove("dam-100k.sim-1")
+    with pytest.raises(AssertionError):
+        _holds_the_held_entries(b)
+
+
+# A per-layer metric that the change admitting the held cell might bring:
+# a reader of a span of the fluid step's own, as a new file
+STUB = {"name": "pbf_wrapper_host_us.sim", "unit": "us", "better": "lower",
+        "source": "program_span", "layer": "kernel wrapper",
+        "moves": "sim_steps_per_s", "workloads": ["dam-100k.sim-1"]}
+STUB_READER = '''"""Host us a step inside the fluid wrapper's span."""
+
+
+def read(run):
+    t = run.trace
+    if run.loop != "sim" or t is None or not run.window.steps:
+        return None
+    inside = t.span_intervals("pbd.kernel.pbf_density_lambda")
+    if not inside:
+        return None
+    return sum(b - a for a, b in inside) / run.window.steps
+'''
+
+
+def test_a_held_cell_and_a_new_reader_need_no_other_edit(tmp_path):
+    """A copy of the benchmark with ``held.json``'s entries in
+    ``BENCHMARK.json`` and a new per-layer metric of the held cell, its
+    reader a new file and its entry appended: the tests that read
+    ``BENCHMARK.json`` and the readers as a whole pass there, and so does
+    the held cell's traced run, with no other file of the benchmark
+    edited."""
+    shutil.copytree(spec.HERE, tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (tmp_path / PROGRAM).symlink_to(ROOT / PROGRAM)
+    b = spec.load(_admitted(tmp_path))
+    b["per_layer"].append(STUB)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(b, indent=1))
+    (tmp_path / "benchmark" / "metrics" / f"{STUB['name']}.py").write_text(
+        STUB_READER)
+    p = _run(["-m", "pytest", "-q", "-p", "no:cacheprovider",
+              "-k", "not need_no_other_edit",
+              "benchmark/tests/test_bench_contract.py",
+              "benchmark/tests/test_bench_spans.py",
+              "benchmark/tests/test_bench_harness.py::"
+              "test_sound_runs_are_correct[dam-100k.sim-1-True]"], tmp_path)
+    assert p.returncode == 0, p.stdout[-3000:] + p.stderr[-3000:]
+    assert " passed" in p.stdout and "skipped" not in p.stdout
 
 
 def _run(args, cwd, env=None):

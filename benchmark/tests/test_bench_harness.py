@@ -341,8 +341,7 @@ def test_a_kind_with_its_own_stepper_needs_only_new_files(monkeypatch, capsys,
     assert set(r["checks"]) == {"x_gap_m", "v_gap_mps", "mean_gap_m",
                                 "dt_gap_s"}
     if not trace:
-        assert set(r["metrics"]) == {"setup_s", "sim_steps_per_s",
-                                     "sim_frame_p95_ms"}
+        assert set(r["metrics"]) == {"setup_s", "sim_frame_p95_ms"}
     # the last frame is judged too, for a drive that asks for it
     assert r["attempted"] >= 1
 

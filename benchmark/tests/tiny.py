@@ -13,14 +13,20 @@ _config, _mix, _load = spec.config, spec.mix, spec.load
 HELD = spec.HERE / "tests" / "held.json"
 
 
-def load() -> dict:
-    """``BENCHMARK.json`` with the held cells' entries in."""
-    bench, held = _load(), json.loads(HELD.read_text())
-    for part in ("configs", "workloads", "per_layer"):
-        bench[part] += held[part]
+def load(root=spec.ROOT) -> dict:
+    """``BENCHMARK.json`` with the held cells' entries in: each
+    configuration, cell, end-to-end and per-layer metric of ``held.json``
+    whose name ``BENCHMARK.json`` has not, and each cell of ``also_in``
+    that its metric does not list yet. A held cell admitted by copying its
+    entries into ``BENCHMARK.json`` is so listed once."""
+    bench, held = _load(root), json.loads(HELD.read_text())
+    for part in ("configs", "workloads", "end_to_end", "per_layer"):
+        have = {e["name"] for e in bench[part]}
+        bench[part] += [e for e in held[part] if e["name"] not in have]
     for m in bench["end_to_end"] + bench["per_layer"]:
-        m["workloads"] = m.get("workloads", []) + held["also_in"].get(
-            m["name"], [])
+        listed = m.get("workloads", [])
+        m["workloads"] = listed + [w for w in held["also_in"].get(
+            m["name"], []) if w not in listed]
         if not m["workloads"]:
             del m["workloads"]
     return bench
@@ -62,7 +68,7 @@ def mix(name: str) -> dict:
 def patch(monkeypatch):
     """Make ``spec`` hand the harness the tiny configurations and mixes,
     and the held cells beside the others."""
-    monkeypatch.setattr(spec, "load", lambda root=spec.ROOT: load())
+    monkeypatch.setattr(spec, "load", lambda root=spec.ROOT: load(root))
     monkeypatch.setattr(spec, "config", lambda bench, name, root=None:
                         config(name))
     monkeypatch.setattr(spec, "mix", mix)

@@ -7,6 +7,12 @@ The device's busy time is the union of its operations' intervals inside
 the slice's ``bench.window`` span, not the sum of their times, so
 overlapping operations count once and the idle share is ``1 − busy /
 window``.
+
+The program's own host spans (``pbd.*``, ``utils/telemetry.py`` of the
+port) are kept beside them, and each device operation is tied to the
+innermost of them that was open on the host thread that launched it: the
+launch is the runtime or driver call whose ``args.correlation`` the
+operation carries.
 """
 from __future__ import annotations
 
@@ -17,7 +23,9 @@ from dataclasses import dataclass, field
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("user_annotation", "cpu_op", "cuda_runtime", "cuda_driver")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 WINDOW = "bench.window"
+PROGRAM = "pbd."
 
 
 @dataclass
@@ -26,8 +34,17 @@ class Trace:
     busy_s: float
     # device operations inside the window: (name, category, start µs, µs)
     ops: list = field(default_factory=list)
-    # idle intervals inside the window: (start µs, µs, host label)
+    # the longest idle intervals inside the window: (start µs, µs, host
+    # label)
     gaps: list = field(default_factory=list)
+    # every idle interval inside the window, in time order: (start µs, µs)
+    idle: list = field(default_factory=list)
+    # the program's ``pbd.*`` host spans that overlap the window, in order
+    # of their start: (name, start µs, µs)
+    spans: list = field(default_factory=list)
+    # for each of ``ops``, in its order: the innermost ``pbd.*`` span open
+    # on the host thread when the operation was launched, or ""
+    op_spans: list = field(default_factory=list)
 
     def device_seconds(self, match=None) -> float:
         """Seconds of device operations whose name contains ``match``
@@ -45,6 +62,67 @@ class Trace:
         gaps = sorted(self.gaps, key=lambda g: -g[1])[:top]
         return {"device_ops": [[n[:160], s] for n, s in ops],
                 "idle_gaps": [[lab, d * 1e-6] for _t, d, lab in gaps]}
+
+    def span_intervals(self, name: str) -> list:
+        """The union of the ``spans`` called ``name`` or nested under it by
+        name (``name.*``), as sorted, disjoint (start µs, end µs)."""
+        return merged((t, t + d) for n, t, d in self.spans
+                      if n == name or n.startswith(name + "."))
+
+
+def merged(intervals) -> list:
+    """The union of (start, end) intervals, as sorted, disjoint ones."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return [(a, b) for a, b in out]
+
+
+def overlap(a: list, b: list) -> float:
+    """The length of the intersection of two lists of sorted, disjoint
+    (start, end) intervals."""
+    total, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        if hi > lo:
+            total += hi - lo
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def _correlation(e: dict):
+    return (e.get("args") or {}).get("correlation")
+
+
+def _innermost(launches: list, program: list) -> list:
+    """For each launch event (or None), the name of the innermost of the
+    ``program`` spans on its thread that was open at its start, or ""."""
+    out = [""] * len(launches)
+    by_tid, asks = {}, {}
+    for e in program:
+        by_tid.setdefault(e.get("tid"), []).append(
+            (float(e["ts"]), float(e["dur"]), e["name"]))
+    for i, la in enumerate(launches):
+        if la is not None:
+            asks.setdefault(la.get("tid"), []).append((float(la["ts"]), i))
+    for tid, points in asks.items():
+        opened = sorted(by_tid.get(tid, []), key=lambda s: (s[0], -s[1]))
+        stack, j = [], 0
+        for t, i in sorted(points):
+            while j < len(opened) and opened[j][0] <= t:
+                stack.append(opened[j])
+                j += 1
+            while stack and stack[-1][0] + stack[-1][1] <= t:
+                stack.pop()
+            if stack:
+                out[i] = stack[-1][2]
+    return out
 
 
 def _host_label(t: float, host: list) -> str:
@@ -70,13 +148,14 @@ def read(events: list, gap_labels: int = 40) -> Trace:
         raise ValueError(f"the trace has no {WINDOW!r} span")
     w0 = float(win[0]["ts"])
     w1 = w0 + float(win[0]["dur"])
-    ops = []
+    dev = []
     for e in spans:
         if e.get("cat") in DEVICE_CATS:
             t, d = float(e["ts"]), float(e["dur"])
             if t < w1 and t + d > w0:
-                ops.append((e["name"], e["cat"], t, d))
-    ops.sort(key=lambda o: o[2])
+                dev.append(((e["name"], e["cat"], t, d), _correlation(e)))
+    dev.sort(key=lambda o: o[0][2])
+    ops = [op for op, _c in dev]
     busy, idle, cur = 0.0, [], w0
     for _n, _c, t, d in ops:
         a, b = max(t, cur), min(t + d, w1)
@@ -92,8 +171,19 @@ def read(events: list, gap_labels: int = 40) -> Trace:
             and float(e["ts"]) + float(e["dur"]) > w0]
     longest = sorted(idle, key=lambda g: -g[1])[:gap_labels]
     gaps = [(t, d, _host_label(t + 0.5 * d, host)) for t, d in longest]
+    program = [e for e in spans if e.get("cat") == "user_annotation"
+               and e.get("name", "").startswith(PROGRAM)]
+    launch = {}
+    for e in spans:
+        if e.get("cat") in LAUNCH_CATS and _correlation(e) is not None:
+            launch.setdefault(_correlation(e), e)
+    op_spans = _innermost([launch.get(c) for _op, c in dev], program)
+    mine = sorted(((e["name"], float(e["ts"]), float(e["dur"]))
+                   for e in program if float(e["ts"]) < w1
+                   and float(e["ts"]) + float(e["dur"]) > w0),
+                  key=lambda s: (s[1], -s[2]))
     return Trace(window_s=(w1 - w0) * 1e-6, busy_s=busy * 1e-6, ops=ops,
-                 gaps=gaps)
+                 gaps=gaps, idle=idle, spans=mine, op_spans=op_spans)
 
 
 def profile(body) -> Trace:
